@@ -1,0 +1,189 @@
+"""Input-Output System (paper §3.6, Def. 2): the VM's foreign interface.
+
+``FiosRegistry``  — host functions bridged into the word set (fiosAdd).
+                    Opcodes follow the reference's numbering rule: opcode =
+                    ``FIOS_BASE`` + the lowest free syscall number, so the
+                    bytecode a frame compiles to equals the reference's.
+``DiosRegistry``  — host data arrays mapped into the VM address space at
+                    ``MEM_BASE`` (diosAdd); e.g. the ADC sample buffer.
+``HostLink``      — host-side message bus between REXAVM nodes: wires each
+                    node's ``send`` into the destination's ``recv_queue``.
+``FleetIOService``— partial-state IO service for the fleet: it gathers only
+                    the suspended nodes' rows of the stacked device state,
+                    services them through the ordinary per-node frontends
+                    and scatters the rows back.
+
+Device-side execution of a FIOS word suspends the task (``ST_IOWAIT`` — the
+paper's "leaving the current VM interpreter loop round"); the host service
+loop pops arguments from the data stack, invokes the callback, pushes the
+result, and resumes (the nested execution loop of paper Fig. 10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, Callable, Optional
+
+import numpy as np
+
+from repro_torch.core.vm.spec import FIOS_BASE, MAX_FIOS, MEM_BASE
+
+if TYPE_CHECKING:  # pragma: no cover
+    from repro_torch.core.vm.machine import REXAVM
+
+
+@dataclass
+class FiosEntry:
+    name: str
+    fn: Callable
+    args: int           # number of cells popped from DS
+    ret: int            # number of cells pushed (0 or 1)
+    num: int = 0        # syscall number; opcode = FIOS_BASE + num
+
+
+class FiosRegistry:
+    """Name-keyed table of host callbacks, numbered from 0 upwards.
+
+    ``add`` takes the lowest free number, so registration order fixes the
+    opcodes exactly as the reference's syscall table does; re-adding a name
+    replaces its callback and keeps its number.
+    """
+
+    def __init__(self):
+        self.entries: list[Optional[FiosEntry]] = []
+        self.by_name: dict[str, int] = {}
+
+    def add(self, name: str, fn: Callable, args: int = 0, ret: int = 0) -> int:
+        """fiosAdd (paper Def. 2). Returns the assigned opcode."""
+        if name in self.by_name:
+            num = self.by_name[name]
+            self.entries[num] = FiosEntry(name, fn, args, ret, num)
+            return FIOS_BASE + num
+        num = next(
+            (i for i, e in enumerate(self.entries) if e is None),
+            len(self.entries),
+        )
+        if num >= MAX_FIOS:
+            raise RuntimeError("FIOS table full")
+        if num == len(self.entries):
+            self.entries.append(None)
+        self.entries[num] = FiosEntry(name, fn, args, ret, num)
+        self.by_name[name] = num
+        return FIOS_BASE + num
+
+    def opcode(self, name: str) -> Optional[int]:
+        num = self.by_name.get(name)
+        return None if num is None else FIOS_BASE + num
+
+    def entry_for_opcode(self, opcode: int) -> Optional[FiosEntry]:
+        return self.entries[opcode - FIOS_BASE]
+
+
+@dataclass
+class DiosEntry:
+    name: str
+    offset: int         # offset of the data (header cell is at offset-1)
+    cells: int
+
+
+class DiosRegistry:
+    """Maps named host arrays into ``mem`` at MEM_BASE+offset.
+
+    Layout per entry: [len, data...]; the VM name resolves to the address of
+    data[0] so that array header conventions match frame-embedded arrays.
+    """
+
+    def __init__(self, mem_size: int):
+        self.mem_size = mem_size
+        self.free = 0
+        self.entries: dict[str, DiosEntry] = {}
+
+    def add(self, name: str, cells: int) -> DiosEntry:
+        """diosAdd (paper Def. 2). Reserves [header + cells] in mem."""
+        if name in self.entries:
+            return self.entries[name]
+        need = cells + 1
+        if self.free + need > self.mem_size:
+            raise MemoryError("DIOS mem exhausted")
+        e = DiosEntry(name, self.free + 1, cells)
+        self.free += need
+        self.entries[name] = e
+        return e
+
+    def address(self, name: str) -> Optional[int]:
+        e = self.entries.get(name)
+        return None if e is None else MEM_BASE + e.offset
+
+    def init_mem(self, mem: np.ndarray) -> None:
+        """Write headers for all registered arrays into a mem buffer."""
+        for e in self.entries.values():
+            mem[e.offset - 1] = e.cells
+
+
+class FleetIOService:
+    """Gather/scatter host-IO service over the fleet's node axis.
+
+    Moves only the suspended rows of the stacked state:
+
+      1. ``take_nodes(S, idx)`` gathers the suspended rows on the device and
+         copies just those rows to the host;
+      2. each suspended node's host frontend gets its fresh row and runs
+         ``REXAVM._service_io(route_net=False)``;
+      3. ``put_nodes(S, idx, rows)`` scatters the serviced rows back.
+
+    ``d2h_bytes``/``h2d_bytes`` count the rows actually moved.
+    """
+
+    def __init__(self, nodes: "list[REXAVM]"):
+        self.nodes = list(nodes)
+        self.services = 0            # service invocations
+        self.nodes_serviced = 0      # node rows moved (both directions)
+        self.d2h_bytes = 0
+        self.h2d_bytes = 0
+
+    def service(self, S, node_idx) -> tuple[object, bool]:
+        """Service host-IO suspensions of ``node_idx`` against the stacked
+        device state ``S``.  Returns ``(S, progress)``; ``S`` is updated in
+        place."""
+        from repro_torch.core.vm import vmstate as vms
+
+        node_idx = [int(i) for i in node_idx]
+        if not node_idx:
+            return S, False
+        host = vms.to_host(vms.take_nodes(S, node_idx))
+        self.d2h_bytes += vms.state_nbytes(host)
+        progress = False
+        for j, i in enumerate(node_idx):
+            vm = self.nodes[i]
+            vm.state = vms.unstack(host, j)
+            progress |= vm._service_io(route_net=False)
+        back = vms.stack_states([self.nodes[i].state for i in node_idx])
+        self.h2d_bytes += vms.state_nbytes(back)
+        vms.put_nodes(S, node_idx, back)
+        self.services += 1
+        self.nodes_serviced += len(node_idx)
+        return S, progress
+
+
+class HostLink:
+    """Host-routed inter-node message bus (the pre-fleet transport).
+
+    Wires every node's ``on_send`` callback so that ``v dst send`` lands in
+    node ``dst``'s ``recv_queue`` tagged with the sender's index;
+    out-of-range destinations are dropped and recorded.  ``recv_queue`` is
+    unbounded — there is no backpressure.
+    """
+
+    def __init__(self, nodes: "list[REXAVM]"):
+        self.nodes = list(nodes)
+        self.dropped: list[tuple[int, int, int]] = []   # (src, dst, value)
+        for src, vm in enumerate(self.nodes):
+            vm.on_send = self._make_on_send(src)
+
+    def _make_on_send(self, src: int) -> Callable[[int, int], None]:
+        def on_send(dst: int, value: int) -> None:
+            if 0 <= dst < len(self.nodes):
+                self.nodes[dst].recv_queue.append((src, value))
+            else:
+                self.dropped.append((src, dst, value))
+        return on_send

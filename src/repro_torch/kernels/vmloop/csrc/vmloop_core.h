@@ -1,0 +1,782 @@
+// vmloop_core.h — one REXAVM node's fetch/decode/execute loop, written once
+// for two compilers: nvcc builds it into the CUDA kernel (vmloop.cu) and g++
+// builds it into a CPU library for the semantics test
+// (tests/test_torch_vmloop.py, csrc/vmloop_host.cpp).
+//
+// Every op body transliterates the batched PyTorch interpreter
+// (repro_torch/core/vm/interp.py), which in turn is held bit for bit
+// against the JAX reference (repro/core/vm/interp.py).  The rules that keep
+// it bit-exact:
+//   * int32 arithmetic that may overflow (+ - * negate abs) goes through
+//     uint32 (w* helpers): signed overflow is undefined in C++, and the
+//     reference wraps;
+//   * `/` and `//` of the reference are floor divisions (fdiv); `/` and
+//     `mod` of the VM are the reference's truncdiv/truncmod built on them,
+//     so INT_MIN / 3 == 715827883, as in the reference;
+//   * every array index is clamped into its array, and every write the
+//     reference drops is skipped, so no access leaves the node's row;
+//   * vector writes go element by element in ascending order, so where a
+//     clamped index repeats the last write wins, as in the reference.
+#pragma once
+#include <math.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define RX_HD __host__ __device__ __forceinline__
+#else
+#define RX_HD inline
+#endif
+
+namespace rexavm {
+
+// Opcodes in ISA word order (repro_torch/core/vm/spec.py WORDS); a test
+// checks this list against the ISA.
+enum Op : int32_t {
+    OP_NOP = 0,          // nop
+    OP_DUP = 1,          // dup
+    OP_DROP = 2,         // drop
+    OP_SWAP = 3,         // swap
+    OP_OVER = 4,         // over
+    OP_ROT = 5,          // rot
+    OP_NIP = 6,          // nip
+    OP_TUCK = 7,         // tuck
+    OP_PICK = 8,         // pick
+    OP_TWODUP = 9,       // 2dup
+    OP_TWODROP = 10,      // 2drop
+    OP_DEPTH = 11,        // depth
+    OP_ADD = 12,          // +
+    OP_SUB = 13,          // -
+    OP_MUL = 14,          // *
+    OP_DIV = 15,          // /
+    OP_MOD = 16,          // mod
+    OP_MULDIV = 17,       // */
+    OP_NEGATE = 18,       // negate
+    OP_ABS = 19,          // abs
+    OP_MIN = 20,          // min
+    OP_MAX = 21,          // max
+    OP_INC = 22,          // 1+
+    OP_DEC = 23,          // 1-
+    OP_TWOMUL = 24,       // 2*
+    OP_TWODIV = 25,       // 2/
+    OP_EQ = 26,           // =
+    OP_NE = 27,           // <>
+    OP_LT = 28,           // <
+    OP_GT = 29,           // >
+    OP_LE = 30,           // <=
+    OP_GE = 31,           // >=
+    OP_ZEQ = 32,          // 0=
+    OP_ZLT = 33,          // 0<
+    OP_ZGT = 34,          // 0>
+    OP_AND = 35,          // and
+    OP_OR = 36,           // or
+    OP_XOR = 37,          // xor
+    OP_INVERT = 38,       // invert
+    OP_LSHIFT = 39,       // lshift
+    OP_RSHIFT = 40,       // rshift
+    OP_FETCH = 41,        // @
+    OP_STORE = 42,        // !
+    OP_ADDSTORE = 43,     // +!
+    OP_GET = 44,          // get
+    OP_PUT = 45,          // put
+    OP_PUSH = 46,         // push
+    OP_POP = 47,          // pop
+    OP_FILL = 48,         // fill
+    OP_LEN = 49,          // len
+    OP_BRANCH = 50,       // branch
+    OP_ZBRANCH = 51,      // 0branch
+    OP_RET = 52,          // ret
+    OP_EXIT = 53,         // exit
+    OP_EXEC = 54,         // exec
+    OP_DOINIT = 55,       // doinit
+    OP_DOLOOP = 56,       // doloop
+    OP_I = 57,            // i
+    OP_J = 58,            // j
+    OP_UNLOOP = 59,       // unloop
+    OP_HALT = 60,         // halt
+    OP_END = 61,          // end
+    OP_DLIT = 62,         // dlit
+    OP_PRINT = 63,        // .
+    OP_EMIT = 64,         // emit
+    OP_CR = 65,           // cr
+    OP_PRSTR = 66,        // prstr
+    OP_VECPRINT = 67,     // vecprint
+    OP_OUT = 68,          // out
+    OP_IN = 69,           // in
+    OP_SEND = 70,         // send
+    OP_RECEIVE = 71,      // receive
+    OP_YIELD = 72,        // yield
+    OP_SLEEP = 73,        // sleep
+    OP_AWAIT = 74,        // await
+    OP_TASK = 75,         // task
+    OP_TASKID = 76,       // taskid
+    OP_MS = 77,           // ms
+    OP_STEPS = 78,        // steps
+    OP_EXCEPTION = 79,    // exception
+    OP_CATCH = 80,        // catch
+    OP_THROW = 81,        // throw
+    OP_SIN = 82,          // sin
+    OP_LOG = 83,          // log
+    OP_SIGMOID = 84,      // sigmoid
+    OP_RELU = 85,         // relu
+    OP_SQRT = 86,         // sqrt
+    OP_RND = 87,          // rnd
+    OP_VECLOAD = 88,      // vecload
+    OP_VECSCALE = 89,     // vecscale
+    OP_VECADD = 90,       // vecadd
+    OP_VECMUL = 91,       // vecmul
+    OP_VECFOLD = 92,      // vecfold
+    OP_VECMAP = 93,       // vecmap
+    OP_DOTPROD = 94,      // dotprod
+    OP_VECMAX = 95,       // vecmax
+    OP_HULL = 96,         // hull
+    OP_LOWP = 97,         // lowp
+    OP_HIGHP = 98,        // highp
+    NUM_OPS = 99
+};
+
+constexpr int32_t MEM_BASE = 1 << 20;
+constexpr int32_t NUM_EXC = 9;
+constexpr int32_t MAX_VEC = 64;      // largest VMConfig.max_vec the kernel takes
+constexpr int32_t MAXSTR = 64;
+constexpr int32_t OUT_NUM = 0, OUT_CHR = 1;
+constexpr int32_t EXC_TRAP = 1, EXC_STACK = 2, EXC_DIVBYZERO = 6, EXC_BOUNDS = 7;
+constexpr int32_t ST_RUN = 0, ST_DONE = 1, ST_HALT = 2, ST_ERR = 3, ST_IOWAIT = 4,
+                  ST_SLEEP = 5, ST_EVENT = 6, ST_YIELD = 7, ST_FREE = 8;
+constexpr int32_t I32_MIN = (int32_t)0x80000000u;
+
+// Sizes of one VMConfig.
+struct Dims {
+    int32_t CS, MEM, T, DS, RS, FS, OUTN, MV;
+};
+
+// Base pointers of the 24 CoreState fields of a node-strided stacked state
+// (field order of ref.CORE_FIELDS).  The kernel updates them in place.
+struct Fields {
+    int32_t *cs, *mem, *ds, *rs, *fs;
+    int32_t *dsp, *rsp, *fsp, *pc, *tstatus;
+    int32_t *timeout, *ev_addr, *ev_val;
+    int32_t *catch_pc, *catch_rsp, *pending_exc, *last_exc;
+    int32_t *io_op, *handlers, *cur, *now, *steps;
+    int32_t *out, *outp;
+};
+
+// Constant tables (ref.Tables order).
+struct Tabs {
+    const int32_t *sup, *din, *dout, *fin, *fout, *log10, *sg13, *sg310, *sinq;
+};
+
+// -- integer helpers --------------------------------------------------------
+
+RX_HD int32_t wadd(int32_t a, int32_t b) { return (int32_t)((uint32_t)a + (uint32_t)b); }
+RX_HD int32_t wsub(int32_t a, int32_t b) { return (int32_t)((uint32_t)a - (uint32_t)b); }
+RX_HD int32_t wmul(int32_t a, int32_t b) { return (int32_t)((uint32_t)a * (uint32_t)b); }
+// Negation and abs that wrap at INT_MIN (-INT_MIN == abs(INT_MIN) ==
+// INT_MIN, as in jnp).  On the device the negation is an opaque PTX `sub`:
+// nvcc recognised `a < 0 ? -a : a` as an abs whose result is never
+// negative and dropped the INT_MIN branch of a later floor division
+// (INT_MIN / 3 came out 715827882), however the negation was spelt.
+RX_HD int32_t wneg(int32_t a) {
+#ifdef __CUDA_ARCH__
+    int32_t r;
+    asm("sub.s32 %0, 0, %1;" : "=r"(r) : "r"(a));
+    return r;
+#else
+    return (int32_t)(0u - (uint32_t)a);
+#endif
+}
+RX_HD int32_t wabs(int32_t a) { return a < 0 ? wneg(a) : a; }
+RX_HD int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
+RX_HD int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
+RX_HD int32_t clampi(int32_t x, int32_t lo, int32_t hi) { return imin(imax(x, lo), hi); }
+RX_HD int32_t sgn(int32_t a) { return (a > 0) - (a < 0); }
+
+// Floor division (numpy/jnp `//`).  b != 0.
+RX_HD int32_t fdiv(int32_t a, int32_t b) {
+    if (b == -1) return wneg(a);
+    int32_t q = a / b;
+    if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
+    return q;
+}
+
+// Floor modulo by a positive m.
+RX_HD int32_t fmodp(int32_t a, int32_t m) {
+    int32_t r = a % m;
+    return r < 0 ? r + m : r;
+}
+
+RX_HD int32_t truncdiv(int32_t a, int32_t b) {
+    int32_t q = fdiv(wabs(a), imax(wabs(b), 1));
+    return ((a < 0) != (b < 0)) ? wneg(q) : q;
+}
+
+RX_HD int32_t truncmod(int32_t a, int32_t b) { return wsub(a, wmul(truncdiv(a, b), b)); }
+
+// a*b/c with a 64-bit intermediate: the low 32 bits of floor(|a||b|/C),
+// C = max(abs(c), 1) in signed int32 (c = INT_MIN gives C = 1).
+RX_HD int32_t muldiv(int32_t a, int32_t b, int32_t c) {
+    bool neg = ((a < 0) != (b < 0)) != (c < 0);
+    uint64_t A = (uint32_t)wabs(a), B = (uint32_t)wabs(b);
+    uint64_t C = (uint32_t)imax(wabs(c), 1);
+    int32_t q = (int32_t)(uint32_t)((A * B) / C);
+    return neg ? wneg(q) : q;
+}
+
+// -- fixed-point LUT scalars (repro_torch/core/fixedpoint/luts.py) ------------
+
+RX_HD int32_t fplog10(int32_t x, const Tabs& tb) {
+    x = imax(x, 10);
+    int32_t shift = 0;
+    for (int k = 0; k < 3; ++k) {
+        if (x >= 100) { shift += 1; x = fdiv(x, 10); }
+    }
+    return shift * 100 + tb.log10[clampi(x - 10, 0, 89)];
+}
+
+RX_HD int32_t fpsigmoid(int32_t x, const Tabs& tb) {
+    bool mirror = x < 0;
+    int32_t ax = wabs(x);
+    int32_t y1 = wadd(500, fdiv(wmul(ax, 231), 1000));
+    int32_t i13 = clampi(fdiv(fplog10(fdiv(ax, 5), tb), 2) - 65, 0, 23);
+    int32_t y2 = tb.sg13[i13] + 731;
+    int32_t i310 = clampi(fdiv(fplog10(fdiv(ax, 10), tb), 10) - 14, 0, 5);
+    int32_t y3 = tb.sg310[i310] + 952;
+    int32_t y = ax <= 1000 ? y1 : (ax < 3000 ? y2 : y3);
+    if (ax >= 10000) y = 1000;
+    return mirror ? wsub(1000, y) : y;
+}
+
+RX_HD int32_t fpsin(int32_t x, const Tabs& tb) {
+    x = fmodp(x, 6283);
+    int32_t t = fdiv(x * 1024, 6283);
+    int32_t quad = fdiv(t, 256);
+    int32_t idx = fmodp(t, 256);
+    int32_t mag = fmodp(quad, 2) == 0 ? tb.sinq[idx] : tb.sinq[255 - idx];
+    return quad >= 2 ? -mag : mag;
+}
+
+RX_HD int32_t fpsqrt(int32_t x) {
+    x = imax(x, 0);
+    int32_t r = (int32_t)sqrtf((float)x);
+    r = clampi(r, 1, 46340);
+    if (fdiv(x, r + 1) >= r + 1) r += 1;
+    if (fdiv(x, r) < r) r -= 1;
+    return x == 0 ? 0 : imax(r, 0);
+}
+
+RX_HD int32_t vscale1(int32_t v, int32_t s) {
+    if (s > 0) return wmul(v, s);
+    if (s < 0) return wmul(sgn(v), fdiv(wabs(v), wneg(s)));
+    return v;
+}
+
+// -- one node's view: its rows of the stacked fields, at its current task ----
+
+struct Vm {
+    Dims d;
+    Tabs tb;
+    int32_t *cs, *mem, *ds, *rs, *fs, *handlers, *out;   // rows (ds/rs/fs: task t)
+    int32_t *dsp, *rsp, *fsp, *pc, *tstatus, *timeout, *ev_addr, *ev_val;
+    int32_t *catch_pc, *catch_rsp, *pending_exc, *last_exc, *io_op;
+    int32_t *steps, *outp;
+    int32_t t, now;
+
+    RX_HD Vm(const Fields& f, const Dims& d_, const Tabs& tb_, int64_t i) : d(d_), tb(tb_) {
+        t = f.cur[i];
+        now = f.now[i];
+        int64_t it = i * d.T + t;
+        cs = f.cs + i * d.CS;
+        mem = f.mem + i * d.MEM;
+        ds = f.ds + it * d.DS;
+        rs = f.rs + it * d.RS;
+        fs = f.fs + it * d.FS;
+        handlers = f.handlers + i * NUM_EXC;
+        out = f.out + i * 2 * d.OUTN;
+        dsp = f.dsp + it; rsp = f.rsp + it; fsp = f.fsp + it; pc = f.pc + it;
+        tstatus = f.tstatus + it; timeout = f.timeout + it;
+        ev_addr = f.ev_addr + it; ev_val = f.ev_val + it;
+        catch_pc = f.catch_pc + it; catch_rsp = f.catch_rsp + it;
+        pending_exc = f.pending_exc + it; last_exc = f.last_exc + it;
+        io_op = f.io_op + it;
+        steps = f.steps + i;
+        outp = f.outp + i;
+    }
+
+    // stacks
+    RX_HD int32_t dpeek(int32_t k) { return ds[clampi(wsub(*dsp, k), 0, d.DS - 1)]; }
+    RX_HD int32_t pop1() {
+        int32_t v = ds[clampi(wsub(*dsp, 1), 0, d.DS - 1)];
+        *dsp = wsub(*dsp, 1);
+        return v;
+    }
+    RX_HD void popn(int32_t n, int32_t* v) {
+        int32_t p = *dsp;
+        for (int32_t k = 0; k < n; ++k) v[k] = ds[clampi(wadd(wsub(p, n), k), 0, d.DS - 1)];
+        *dsp = wsub(p, n);
+    }
+    RX_HD void push(int32_t v) {
+        ds[clampi(*dsp, 0, d.DS - 1)] = v;
+        *dsp = wadd(*dsp, 1);
+    }
+    RX_HD int32_t fpeek(int32_t k) { return fs[clampi(wsub(*fsp, k), 0, d.FS - 1)]; }
+    RX_HD void fpush(int32_t v) {
+        fs[clampi(*fsp, 0, d.FS - 1)] = v;
+        *fsp = wadd(*fsp, 1);
+    }
+    RX_HD void raise(int32_t code) {
+        if (*pending_exc == 0) *pending_exc = code;
+    }
+    RX_HD int32_t cs_at(int32_t a) { return cs[clampi(a, 0, d.CS - 1)]; }
+
+    // unified CS/MEM address space
+    RX_HD bool addr_valid(int32_t a) {
+        return (a >= 0 && a < d.CS) || (a >= MEM_BASE && a < MEM_BASE + d.MEM);
+    }
+    RX_HD int32_t mread(int32_t a) {
+        return a >= MEM_BASE ? mem[clampi(wsub(a, MEM_BASE), 0, d.MEM - 1)] : cs_at(a);
+    }
+    RX_HD void mwrite(int32_t a, int32_t v) {
+        if (a >= MEM_BASE) mem[clampi(wsub(a, MEM_BASE), 0, d.MEM - 1)] = v;
+        else cs[clampi(a, 0, d.CS - 1)] = v;
+    }
+    // window cells from a (zero from `ln` on); returns ln clamped to window
+    RX_HD int32_t vread(int32_t a, int32_t window, int32_t ln, int32_t* v) {
+        ln = clampi(ln, 0, window);
+        bool in_mem = a >= MEM_BASE;
+        for (int32_t k = 0; k < window; ++k) {
+            int32_t idx = wadd(a, k);
+            int32_t x = in_mem ? mem[clampi(wsub(idx, MEM_BASE), 0, d.MEM - 1)]
+                               : cs[clampi(idx, 0, d.CS - 1)];
+            v[k] = k < ln ? x : 0;
+        }
+        return ln;
+    }
+    RX_HD int32_t vread_hdr(int32_t a, int32_t* v) { return vread(a, d.MV, mread(wsub(a, 1)), v); }
+    RX_HD int32_t hdr(int32_t a) { return clampi(mread(wsub(a, 1)), 0, d.MV); }
+    RX_HD void vwrite(int32_t a, const int32_t* v, int32_t ln) {
+        bool in_mem = a >= MEM_BASE;
+        for (int32_t k = 0; k < ln; ++k) {
+            int32_t idx = wadd(a, k);
+            if (in_mem) mem[clampi(wsub(idx, MEM_BASE), 0, d.MEM - 1)] = v[k];
+            else cs[clampi(idx, 0, d.CS - 1)] = v[k];
+        }
+    }
+    // scale vector at saddr (0 = off); `s` is scratch of MAX_VEC cells
+    RX_HD void apply_scalevec(int32_t* v, int32_t ln, int32_t saddr, int32_t* s) {
+        if (saddr == 0) return;
+        vread(saddr, d.MV, ln, s);
+        for (int32_t k = 0; k < d.MV; ++k) v[k] = vscale1(v[k], s[k]);
+    }
+
+    // output ring
+    RX_HD void out_write(int32_t kind, int32_t v) {
+        int32_t p = *outp;
+        if (p < d.OUTN) {
+            out[2 * p] = kind;
+            out[2 * p + 1] = v;
+            *outp = p + 1;
+        }
+    }
+    RX_HD void out_write_vec(const int32_t* v, int32_t ln, int32_t window) {
+        int32_t p = *outp;
+        int32_t n = clampi(imin(ln, d.OUTN - p), 0, window);
+        for (int32_t k = 0; k < n; ++k) {
+            out[2 * (p + k)] = OUT_NUM;
+            out[2 * (p + k) + 1] = v[k];
+        }
+        *outp = imin(p + clampi(ln, 0, window), d.OUTN);
+    }
+
+    RX_HD void iir_lowpass(const int32_t* x, int32_t ln, int32_t k, int32_t* y) {
+        int32_t yy = x[0];
+        for (int32_t i = 0; i < ln; ++i) {
+            yy = wadd(yy, truncdiv(wmul(k, wsub(x[i], yy)), 1000));
+            y[i] = yy;
+        }
+    }
+
+    RX_HD void exec_op(int32_t code);
+    RX_HD void step();
+};
+
+// -- the op bodies: exactly the claimed words (ref.SUPPORTED_WORDS); the
+// -- declined ones (task, rnd) and FIOS/trap never reach this switch ----------
+
+RX_HD void Vm::exec_op(int32_t code) {
+    int32_t a[4];
+    int32_t v1[MAX_VEC], v2[MAX_VEC], v3[MAX_VEC];
+    const int32_t MV = d.MV;
+    switch (code) {
+    case OP_NOP: break;
+    case OP_DUP: push(dpeek(1)); break;
+    case OP_DROP: pop1(); break;
+    case OP_SWAP: popn(2, a); push(a[1]); push(a[0]); break;
+    case OP_OVER: push(dpeek(2)); break;
+    case OP_ROT: popn(3, a); push(a[1]); push(a[2]); push(a[0]); break;
+    case OP_NIP: popn(2, a); push(a[1]); break;
+    case OP_TUCK: popn(2, a); push(a[1]); push(a[0]); push(a[1]); break;
+    case OP_PICK: {
+        int32_t n = pop1();
+        int32_t p = *dsp;
+        int32_t x = ds[clampi(wsub(wsub(p, 1), n), 0, d.DS - 1)];
+        bool bad = (n < 0) || (n >= p);
+        push(x);
+        if (bad) raise(EXC_STACK);
+    } break;
+    case OP_TWODUP: { int32_t x = dpeek(2), y = dpeek(1); push(x); push(y); } break;
+    case OP_TWODROP: popn(2, a); break;
+    case OP_DEPTH: push(*dsp); break;
+    case OP_ADD: popn(2, a); push(wadd(a[0], a[1])); break;
+    case OP_SUB: popn(2, a); push(wsub(a[0], a[1])); break;
+    case OP_MUL: popn(2, a); push(wmul(a[0], a[1])); break;
+    case OP_DIV: popn(2, a); push(truncdiv(a[0], a[1])); if (a[1] == 0) raise(EXC_DIVBYZERO); break;
+    case OP_MOD: popn(2, a); push(truncmod(a[0], a[1])); if (a[1] == 0) raise(EXC_DIVBYZERO); break;
+    case OP_MULDIV: popn(3, a); push(muldiv(a[0], a[1], a[2])); if (a[2] == 0) raise(EXC_DIVBYZERO); break;
+    case OP_NEGATE: push(wneg(pop1())); break;
+    case OP_ABS: push(wabs(pop1())); break;
+    case OP_MIN: popn(2, a); push(imin(a[0], a[1])); break;
+    case OP_MAX: popn(2, a); push(imax(a[0], a[1])); break;
+    case OP_INC: push(wadd(pop1(), 1)); break;
+    case OP_DEC: push(wsub(pop1(), 1)); break;
+    case OP_TWOMUL: push(wmul(pop1(), 2)); break;
+    case OP_TWODIV: push(pop1() >> 1); break;
+    case OP_EQ: popn(2, a); push(a[0] == a[1] ? -1 : 0); break;
+    case OP_NE: popn(2, a); push(a[0] != a[1] ? -1 : 0); break;
+    case OP_LT: popn(2, a); push(a[0] < a[1] ? -1 : 0); break;
+    case OP_GT: popn(2, a); push(a[0] > a[1] ? -1 : 0); break;
+    case OP_LE: popn(2, a); push(a[0] <= a[1] ? -1 : 0); break;
+    case OP_GE: popn(2, a); push(a[0] >= a[1] ? -1 : 0); break;
+    case OP_ZEQ: push(pop1() == 0 ? -1 : 0); break;
+    case OP_ZLT: push(pop1() < 0 ? -1 : 0); break;
+    case OP_ZGT: push(pop1() > 0 ? -1 : 0); break;
+    case OP_AND: popn(2, a); push(a[0] & a[1]); break;
+    case OP_OR: popn(2, a); push(a[0] | a[1]); break;
+    case OP_XOR: popn(2, a); push(a[0] ^ a[1]); break;
+    case OP_INVERT: push(~pop1()); break;
+    case OP_LSHIFT: popn(2, a); push((int32_t)((uint32_t)a[0] << (a[1] & 31))); break;
+    case OP_RSHIFT: popn(2, a); push(a[0] >> (a[1] & 31)); break;
+    // memory
+    case OP_FETCH: {
+        int32_t ad = pop1();
+        push(mread(ad));
+        if (!addr_valid(ad)) raise(EXC_BOUNDS);
+    } break;
+    case OP_STORE:
+        popn(2, a); mwrite(a[1], a[0]);
+        if (!addr_valid(a[1])) raise(EXC_BOUNDS);
+        break;
+    case OP_ADDSTORE:
+        popn(2, a); mwrite(a[1], wadd(mread(a[1]), a[0]));
+        if (!addr_valid(a[1])) raise(EXC_BOUNDS);
+        break;
+    case OP_GET: {
+        popn(2, a);                                   // n arr
+        int32_t ln = mread(wsub(a[1], 1));
+        bool bad = (a[0] < 0) || (a[0] >= ln);
+        push(mread(wadd(a[1], imin(imax(a[0], 0), imax(wsub(ln, 1), 0)))));
+        if (bad) raise(EXC_BOUNDS);
+    } break;
+    case OP_PUT: {
+        popn(3, a);                                   // v n arr
+        int32_t ln = mread(wsub(a[2], 1));
+        bool bad = (a[1] < 0) || (a[1] >= ln);
+        if (bad) raise(EXC_BOUNDS);
+        else mwrite(wadd(a[2], a[1]), a[0]);
+    } break;
+    case OP_PUSH: {
+        popn(2, a);                                   // v arr
+        int32_t top = mread(a[1]);
+        int32_t ln = mread(wsub(a[1], 1));
+        if (wadd(top, 1) >= ln) raise(EXC_BOUNDS);
+        else {
+            mwrite(wadd(wadd(a[1], top), 1), a[0]);
+            mwrite(a[1], wadd(top, 1));
+        }
+    } break;
+    case OP_POP: {
+        int32_t arr = pop1();
+        int32_t top = mread(arr);
+        bool bad = top <= 0;
+        int32_t v = mread(wadd(arr, imax(top, 1)));
+        push(bad ? 0 : v);
+        if (bad) raise(EXC_BOUNDS);
+        else mwrite(arr, wsub(top, 1));
+    } break;
+    case OP_FILL: {
+        popn(2, a);                                   // v arr
+        int32_t ln = hdr(a[1]);
+        for (int32_t k = 0; k < MV; ++k) v1[k] = a[0];
+        vwrite(a[1], v1, ln);
+    } break;
+    case OP_LEN: push(mread(wsub(pop1(), 1))); break;
+    // control
+    case OP_BRANCH: *pc = cs_at(*pc); break;
+    case OP_ZBRANCH: {
+        int32_t f = pop1();
+        int32_t p = *pc;
+        *pc = f == 0 ? cs_at(p) : p + 1;
+    } break;
+    case OP_RET:
+    case OP_EXIT: {
+        int32_t r = *rsp;
+        bool under = r < 1;
+        int32_t ad = rs[clampi(wsub(r, 1), 0, d.RS - 1)];
+        *rsp = wsub(r, 1);
+        *pc = ad;
+        if (under) { raise(EXC_STACK); *tstatus = ST_ERR; }
+    } break;
+    case OP_EXEC: {
+        int32_t ad = pop1();
+        int32_t r = *rsp;
+        rs[clampi(r, 0, d.RS - 1)] = *pc;
+        *rsp = wadd(r, 1);
+        *pc = ad;
+        if (r >= d.RS) raise(EXC_STACK);
+    } break;
+    case OP_DOINIT: popn(2, a); fpush(a[0]); fpush(a[1]); break;
+    case OP_DOLOOP: {
+        int32_t p = *pc;
+        int32_t top_addr = cs_at(p);
+        int32_t limit = fpeek(2);
+        int32_t ctr = wadd(fpeek(1), 1);
+        bool done = ctr >= limit;
+        fs[clampi(wsub(*fsp, 1), 0, d.FS - 1)] = ctr;
+        if (done) *fsp = wsub(*fsp, 2);
+        *pc = done ? p + 1 : top_addr;
+    } break;
+    case OP_I: push(fpeek(1)); break;
+    case OP_J: push(fpeek(3)); break;
+    case OP_UNLOOP: *fsp = wsub(*fsp, 2); break;
+    case OP_HALT: *tstatus = ST_HALT; break;
+    case OP_END: *tstatus = t == 0 ? ST_DONE : ST_FREE; break;
+    case OP_DLIT: { int32_t p = *pc; push(cs_at(p)); *pc = p + 1; } break;
+    // io / printing
+    case OP_PRINT: out_write(OUT_NUM, pop1()); break;
+    case OP_EMIT: out_write(OUT_CHR, pop1()); break;
+    case OP_CR: out_write(OUT_CHR, 10); break;
+    case OP_PRSTR: {
+        int32_t p = *pc;
+        int32_t ln = clampi(cs_at(p), 0, MAXSTR);
+        int32_t o = *outp;
+        int32_t n = clampi(imin(ln, d.OUTN - o), 0, MAXSTR);
+        for (int32_t k = 0; k < n; ++k) {
+            out[2 * (o + k)] = OUT_CHR;
+            out[2 * (o + k) + 1] = cs_at(p + 1 + k);
+        }
+        *outp = imin(o + ln, d.OUTN);
+        *pc = p + 1 + ln;
+    } break;
+    case OP_VECPRINT: {
+        int32_t ln = vread_hdr(pop1(), v1);
+        out_write_vec(v1, ln, MV);
+    } break;
+    case OP_OUT:
+    case OP_IN:
+    case OP_SEND:
+    case OP_RECEIVE:
+        // Rewind pc so the host re-inspects the op; args stay on DS.
+        *pc = *pc - 1;
+        *io_op = code;
+        *tstatus = ST_IOWAIT;
+        break;
+    // tasks (non-spawning)
+    case OP_YIELD: *tstatus = ST_YIELD; break;
+    case OP_SLEEP: *timeout = wadd(now, pop1()); *tstatus = ST_SLEEP; break;
+    case OP_AWAIT:
+        popn(3, a);                                   // ms value varaddr
+        *timeout = wadd(now, a[0]);
+        *ev_addr = a[2];
+        *ev_val = a[1];
+        *tstatus = ST_EVENT;
+        break;
+    case OP_TASKID: push(t); break;
+    case OP_MS: push(now); break;
+    case OP_STEPS: push(*steps); break;
+    // exceptions
+    case OP_EXCEPTION: popn(2, a); handlers[clampi(a[1], 0, NUM_EXC - 1)] = a[0]; break;
+    case OP_CATCH:
+        push(*last_exc);
+        *last_exc = 0;
+        *catch_pc = *pc - 1;
+        *catch_rsp = *rsp;
+        break;
+    case OP_THROW: raise(clampi(pop1(), 1, NUM_EXC - 1)); break;
+    // fixed-point DSP scalars
+    case OP_SIN: push(fpsin(pop1(), tb)); break;
+    case OP_LOG: push(fplog10(pop1(), tb) * 10); break;
+    case OP_SIGMOID: push(fpsigmoid(pop1(), tb)); break;
+    case OP_RELU: push(imax(pop1(), 0)); break;
+    case OP_SQRT: push(fpsqrt(pop1())); break;
+    // vector / ANN ops
+    case OP_VECLOAD: {
+        popn(3, a);                                   // src srcoff dst
+        int32_t ln = hdr(a[2]);
+        vread(wadd(a[0], a[1]), MV, ln, v1);
+        vwrite(a[2], v1, ln);
+    } break;
+    case OP_VECSCALE: {
+        popn(3, a);                                   // src dst scalevec
+        int32_t ln = hdr(a[1]);
+        vread(a[0], MV, ln, v1);
+        vread(a[2], MV, ln, v2);
+        for (int32_t k = 0; k < MV; ++k) v1[k] = vscale1(v1[k], v2[k]);
+        vwrite(a[1], v1, ln);
+    } break;
+    case OP_VECADD:
+    case OP_VECMUL: {
+        popn(4, a);                                   // a b dst scalevec
+        int32_t ln = hdr(a[2]);
+        vread(a[0], MV, ln, v1);
+        vread(a[1], MV, ln, v2);
+        for (int32_t k = 0; k < MV; ++k)
+            v1[k] = code == OP_VECADD ? wadd(v1[k], v2[k]) : wmul(v1[k], v2[k]);
+        apply_scalevec(v1, ln, a[3], v3);
+        vwrite(a[2], v1, ln);
+    } break;
+    case OP_VECFOLD: {
+        popn(4, a);                                   // in wgt out scalevec
+        int32_t n = vread_hdr(a[0], v1);
+        int32_t m = hdr(a[2]);
+        int32_t wgt = a[1];
+        bool in_mem = wgt >= MEM_BASE;
+        for (int32_t j = 0; j < MV; ++j) {
+            int32_t acc = 0;
+            if (j < m) {
+                for (int32_t i = 0; i < n; ++i) {
+                    int32_t flat = wadd(wgt, i * m + j);
+                    int32_t w = in_mem ? mem[clampi(wsub(flat, MEM_BASE), 0, d.MEM - 1)]
+                                       : cs[clampi(flat, 0, d.CS - 1)];
+                    acc = wadd(acc, wmul(v1[i], w));
+                }
+            }
+            v2[j] = acc;
+        }
+        apply_scalevec(v2, m, a[3], v3);
+        vwrite(a[2], v2, m);
+    } break;
+    case OP_VECMAP: {
+        popn(4, a);                                   // src dst fn scalevec
+        int32_t ln = hdr(a[1]);
+        vread(a[0], MV, ln, v1);
+        int32_t fn = clampi(a[2], 0, 4);
+        for (int32_t k = 0; k < MV; ++k) {
+            int32_t x = v1[k];
+            v1[k] = fn == 0 ? fpsigmoid(x, tb) : fn == 1 ? imax(x, 0)
+                  : fn == 2 ? fpsin(x, tb) : fn == 3 ? fplog10(x, tb) * 10 : fpsqrt(x);
+        }
+        apply_scalevec(v1, ln, a[3], v3);
+        vwrite(a[1], v1, ln);
+    } break;
+    case OP_DOTPROD: {
+        popn(2, a);
+        int32_t n = vread_hdr(a[0], v1);
+        vread(a[1], MV, n, v2);
+        int32_t acc = 0;
+        for (int32_t k = 0; k < n; ++k) acc = wadd(acc, wmul(v1[k], v2[k]));
+        push(acc);
+    } break;
+    case OP_VECMAX: {
+        int32_t ln = vread_hdr(pop1(), v1);
+        int32_t best = 0, bv = I32_MIN;
+        for (int32_t k = 0; k < MV; ++k) {
+            int32_t x = k < ln ? v1[k] : I32_MIN;
+            if (k == 0 || x > bv) { bv = x; best = k; }
+        }
+        push(best);
+    } break;
+    case OP_HULL:
+    case OP_LOWP:
+    case OP_HIGHP: {
+        popn(4, a);                                   // arr off len k
+        int32_t base = wadd(a[0], a[1]);
+        int32_t hdr = mread(wsub(a[0], 1));
+        int32_t ln = clampi(imin(a[2], wsub(hdr, a[1])), 0, MV);
+        vread(base, MV, ln, v1);
+        if (code == OP_HULL)
+            for (int32_t k = 0; k < ln; ++k) v1[k] = wabs(v1[k]);
+        iir_lowpass(v1, ln, a[3], v2);
+        if (code == OP_HIGHP)
+            for (int32_t k = 0; k < ln; ++k) v2[k] = wsub(v1[k], v2[k]);
+        vwrite(base, v2, ln);
+    } break;
+    default: break;
+    }
+}
+
+// One instruction of the current task (interp.py _step_group + _finish).
+RX_HD void Vm::step() {
+    int32_t p = *pc;
+    bool pc_ok = p >= 0 && p < d.CS;
+    int32_t instr = cs_at(p);
+    int32_t tag = instr & 3;
+    int32_t payload = instr >> 2;
+    if (!pc_ok) {
+        raise(EXC_TRAP);
+        *tstatus = ST_ERR;
+    } else if (tag == 2) {
+        if (*rsp >= d.RS) raise(EXC_STACK);
+        else {
+            rs[clampi(*rsp, 0, d.RS - 1)] = p + 1;
+            *rsp = wadd(*rsp, 1);
+            *pc = payload;
+        }
+    } else {
+        *pc = p + 1;
+        if (tag == 1) {
+            if (*dsp >= d.DS) raise(EXC_STACK);
+            else push(payload);
+        } else if (tag == 3) {
+            raise(EXC_TRAP);
+        } else {
+            int32_t code = clampi(payload, 0, NUM_OPS);
+            int32_t din = tb.din[code], dout = tb.dout[code];
+            int32_t fin = tb.fin[code], fout = tb.fout[code];
+            bool under = (*dsp < din) || (*fsp < fin);
+            bool over = (wadd(wsub(*dsp, din), dout) > d.DS) || (wadd(wsub(*fsp, fin), fout) > d.FS);
+            if (under || over) raise(EXC_STACK);
+            else exec_op(code);
+        }
+    }
+    *steps = wadd(*steps, 1);
+    int32_t pend = *pending_exc;
+    if (pend > 0) {
+        // Exception dispatch (paper §3.8): align RS to the catch point,
+        // push it as the return address, enter the handler.
+        int32_t code = clampi(pend, 0, NUM_EXC - 1);
+        int32_t handler = handlers[code];
+        *last_exc = code;
+        *pending_exc = 0;
+        if (handler > 0) {
+            int32_t crsp = clampi(*catch_rsp, 0, d.RS - 1);
+            rs[crsp] = *catch_pc;
+            *rsp = crsp + 1;
+            *pc = handler;
+        } else {
+            *tstatus = ST_ERR;
+        }
+    }
+}
+
+// Alg. 1 restricted to the claimed words: up to `steps` instructions of
+// node i's current task; stops on the budget, on a status change, or before
+// the first declined instruction (ref.run_core).
+RX_HD void run_core(const Fields& f, const Dims& d, const Tabs& tb, int64_t i, int32_t steps,
+                    int32_t* n_exec, int32_t* bailed, int32_t* bail_op) {
+    Vm vm(f, d, tb, i);
+    int32_t n = 0;
+    bool bail = false;
+    while (n < steps && *vm.tstatus == ST_RUN) {
+        int32_t p = *vm.pc;
+        int32_t instr = vm.cs_at(p);
+        if (p >= 0 && p < d.CS && (instr & 3) == 0 && tb.sup[clampi(instr >> 2, 0, NUM_OPS)] == 0) {
+            bail = true;
+            break;
+        }
+        vm.step();
+        ++n;
+    }
+    n_exec[i] = n;
+    bailed[i] = bail ? 1 : 0;
+    bail_op[i] = bail ? clampi(vm.cs_at(*vm.pc) >> 2, 0, NUM_OPS) : -1;
+}
+
+}  // namespace rexavm

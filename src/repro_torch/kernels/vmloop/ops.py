@@ -1,0 +1,21 @@
+"""Public vmloop op over a stacked ``VMState`` (counterpart of the
+reference's ``repro.kernels.vmloop.ops``; no mesh yet)."""
+
+from __future__ import annotations
+
+from repro_torch.config import VMConfig
+from repro_torch.core.vm.spec import ISA
+from repro_torch.kernels.vmloop.ref import core_of, merge_core, vmloop_ref
+from repro_torch.kernels.vmloop.vmloop import vmloop_call
+
+
+def fleet_vmloop(S, steps: int, cfg: VMConfig, isa: ISA | None = None):
+    """Advance every node of a stacked state by at most ``steps``
+    in-kernel instructions (bailing per node on declined opcodes), in
+    place.  Returns ``(S, n_exec, bailed, bail_op)``, each of the last
+    three (N,) int32; fields outside the CoreState pass through."""
+    core, n_exec, bailed, bail_op = vmloop_call(core_of(S), steps, cfg, isa)
+    return merge_core(S, core), n_exec, bailed, bail_op
+
+
+__all__ = ["fleet_vmloop", "vmloop_ref"]

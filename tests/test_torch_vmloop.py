@@ -1,0 +1,227 @@
+"""The vmloop kernel's plain version, the batched interpreter and the CPU
+build of the kernel's C++ op bodies, against the JAX package.
+
+The batched interpreter's ``run_slice`` against the reference's is in
+``tests/test_torch_interp.py`` (each file compiles one JAX function).
+
+Inputs: the reference's per-opcode sweep (``tests/test_vm_pallas.py``),
+the port's edge-value sweep (``repro_torch.kernels.vmloop.check``: int32
+extremes, divisor 0 and INT_MIN, shifts >= 32, addresses outside cs/mem)
+and random node states.  Every comparison is exact on every field.
+"""
+
+import ctypes
+import hashlib
+import pathlib
+import re
+import shutil
+import subprocess
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import VMConfig as JCfg
+from repro.core.vm import REXAVM as JVM
+from repro.core.vm import vmstate as jvms
+from repro.kernels.vmloop import ref as jref
+from test_vm_pallas import BAIL_PROGRAMS, PURE_PROGRAMS
+
+from repro_torch.config import VMConfig
+from repro_torch.core.vm import vmstate as vms
+from repro_torch.core.vm.spec import ST_RUN, get_isa
+from repro_torch.kernels.vmloop import check, ref as pref
+from repro_torch.kernels.vmloop.ops import fleet_vmloop
+from repro_torch.kernels.vmloop.vmloop import vmloop_call
+
+# The suite runs in several worker processes on shared cores: keep torch's
+# CPU kernels to one thread each so these tests do not crowd out the rest.
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "vmloop" / "csrc"
+JCFG = JCfg(cs_size=2048, steps_per_slice=64, mbox_size=4)
+CFG = VMConfig(cs_size=2048, steps_per_slice=64, mbox_size=4)
+STEPS = CFG.steps_per_slice
+
+PAIRS = list(dict.fromkeys(
+    [(w, p) for w, ps in PURE_PROGRAMS.items() for p in ps]
+    + [(w, p) for w, ps in BAIL_PROGRAMS.items() for p in ps]
+    + check.sweep_programs(CFG)
+))
+N = len(PAIRS)
+
+
+def _np_state(S):
+    return jvms.VMState(*[np.array(x) for x in S])
+
+
+def _jax_state(S):
+    return jvms.VMState(*[jnp.array(np.array(x)) for x in S])
+
+
+@pytest.fixture(scope="module")
+def ref_states():
+    """The sweep compiled by the reference (one node per program), stacked
+    numpy; the FIOS program registers `seven` first."""
+    states = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for _, prog in PAIRS:
+            vm = JVM(JCFG, backend="oracle")
+            vm.fios_add("seven", lambda: 7, args=0, ret=1)
+            vm.launch(vm.load(prog))
+            states.append(vm.state)
+    return jvms.stack_states(states)
+
+
+def _running(S):
+    """Task 0 of every node ST_RUN and current, as the scheduler leaves a
+    freshly launched node."""
+    S = _np_state(S)
+    S.tstatus[:, 0] = ST_RUN
+    S.cur[:] = 0
+    return S
+
+
+@pytest.fixture(scope="module")
+def jax_vmloop():
+    return jax.jit(lambda S: jref.vmloop_ref(S, STEPS, JCFG))
+
+
+def _compare(port_S, port_out, ref_S, ref_out, what):
+    R = vms.to_reference(port_S)
+    for f in jvms.VMState._fields:
+        a, b = np.asarray(getattr(ref_S, f)), getattr(R, f)
+        if not np.array_equal(a, b):
+            rows = [i for i in range(a.shape[0]) if not np.array_equal(a[i], b[i])]
+            pytest.fail(f"{what}: field {f} differs on nodes {rows[:8]}")
+    for name, a, b in zip(("n_exec", "bailed", "bail_op"), ref_out, port_out):
+        a = np.asarray(a).astype(np.int32)
+        assert np.array_equal(a, b.numpy()), (what, name, np.flatnonzero(a != b.numpy())[:8])
+
+
+def test_classification_equals_reference():
+    assert pref.SUPPORTED_WORDS == jref.SUPPORTED_WORDS
+    assert pref.BAILOUT_WORDS == jref.BAILOUT_WORDS
+    assert np.array_equal(pref.supported_mask(), jref.supported_mask())
+    for a, b in zip(pref.make_tables(), jref.make_tables()):
+        assert np.array_equal(a, b)
+    assert pref.CORE_FIELDS == jref.CORE_FIELDS
+    check.check_sweep_covers_isa()
+
+
+def test_header_opcodes_match_isa():
+    text = (CSRC / "vmloop_core.h").read_text()
+    found = {m.group(2): int(m.group(1)) for m in re.finditer(r"OP_\w+ = (\d+),\s+// (\S+)", text)}
+    assert found == dict(get_isa().opcode)
+    assert f"NUM_OPS = {get_isa().num_ops}" in text
+
+
+def test_port_compiles_the_sweep_identically(ref_states):
+    _, S = check.sweep_states(CFG, "cpu")
+    pairs = check.sweep_programs(CFG)
+    idx = [PAIRS.index(p) for p in pairs]
+    assert np.array_equal(vms.to_reference(S).cs, ref_states.cs[idx])
+
+
+def test_vmloop_ref_sweep_equals_reference(ref_states, jax_vmloop):
+    S0 = _running(ref_states)
+    JS, *jout = jax_vmloop(_jax_state(S0))
+    PS = vms.from_reference(S0, "cpu")
+    PS, *pout = pref.vmloop_ref(PS, STEPS, CFG)
+    _compare(PS, pout, JS, jout, "sweep")
+    n_exec, bailed = pout[0].tolist(), pout[1].tolist()
+    for (word, prog), n, b in zip(PAIRS, n_exec, bailed):
+        if word in pref.BAILOUT_WORDS or word == "fios/trap":
+            assert b == 1, (word, prog)
+    ran = {w for (w, _), n, b in zip(PAIRS, n_exec, bailed) if n > 0 and not b}
+    assert set(pref.SUPPORTED_WORDS) <= ran
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_vmloop_ref_random_states_equal_reference(seed, jax_vmloop):
+    PS = check.random_states(CFG, N, seed, "cpu")
+    S0 = vms.to_reference(PS)
+    JS, *jout = jax_vmloop(_jax_state(S0))
+    PS, *pout = pref.vmloop_ref(PS, STEPS, CFG)
+    _compare(PS, pout, JS, jout, f"random seed {seed}")
+
+
+def test_state_round_trip(ref_states):
+    single = jvms.VMState(*[np.array(x[3]) for x in ref_states])
+    single = single._replace(rng=np.uint32(0xFFFFFFFE))
+    for st in (single, ref_states):
+        P = vms.from_reference(st, "cpu")
+        assert P.rng.dtype == torch.int64 and P.cs.dtype == torch.int32
+        back = vms.to_reference(P)
+        for f in jvms.VMState._fields:
+            a, b = np.asarray(getattr(st, f)), getattr(back, f)
+            assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), f
+    assert int(vms.from_reference(single, "cpu").rng) == 0xFFFFFFFE
+
+
+def test_vmloop_call_on_cpu_takes_the_plain_version(ref_states):
+    S0 = _running(ref_states)
+    A = vms.from_reference(S0, "cpu")
+    B = vms.clone(A)
+    launches = vmloop_call.launches
+    _, *a = fleet_vmloop(A, STEPS, CFG)
+    _, *b = pref.vmloop_ref(B, STEPS, CFG)
+    assert vmloop_call.launches == launches
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert check.max_abs_diff(A, B) == (0, [])
+    with pytest.raises(ValueError, match="int32"):
+        vmloop_call(pref.core_of(A._replace(pc=A.pc.long())), STEPS, CFG)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's C++ op bodies, built for the CPU with g++
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def host_kernel():
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the kernel's op bodies for the CPU")
+    src = CSRC / "vmloop_host.cpp"
+    digest = hashlib.sha256(src.read_bytes() + (CSRC / "vmloop_core.h").read_bytes()).hexdigest()[:16]
+    out = ROOT / "build" / "repro_torch_test" / f"libvmloop_host_{digest}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(".tmp")
+        subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror",
+                        "-o", str(tmp), str(src)], check=True, capture_output=True, text=True)
+        tmp.replace(out)
+    fn = ctypes.CDLL(str(out)).vmloop_host
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+
+    def run(S, cfg, steps):
+        core = pref.core_of(S)
+        tb = pref.device_tables(None, "cpu")
+        n = S.pc.shape[0]
+        outs = [torch.empty(n, dtype=torch.int32) for _ in range(3)]
+        fields = (ctypes.c_void_p * 24)(*[getattr(core, f).data_ptr() for f in pref.CORE_FIELDS])
+        tabs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in tb])
+        dims = (ctypes.c_int32 * 8)(cfg.cs_size, cfg.mem_size, cfg.max_tasks, cfg.ds_size,
+                                    cfg.rs_size, cfg.fs_size, cfg.out_ring_size, cfg.max_vec)
+        assert fn(fields, tabs, dims, n, steps, *[o.data_ptr() for o in outs]) == 0
+        return outs
+    return run
+
+
+@pytest.mark.parametrize("cfg", [CFG, VMConfig()], ids=["small", "default"])
+def test_host_build_of_kernel_matches_plain_version(cfg, host_kernel):
+    _, S = check.sweep_states(cfg, "cpu")
+    for A in (S, check.random_states(cfg, 256, cfg.cs_size, "cpu")):
+        B = vms.clone(A)
+        _, *plain = pref.vmloop_ref(A, cfg.steps_per_slice, cfg)
+        kern = host_kernel(B, cfg, cfg.steps_per_slice)
+        for name, a, b in zip(("n_exec", "bailed", "bail_op"), plain, kern):
+            assert torch.equal(a, b), name
+        assert check.max_abs_diff(A, B) == (0, [])
