@@ -1,0 +1,63 @@
+"""Architecture registry: configs register themselves on import
+(counterpart of ``repro.config.registry``).
+
+``get_arch("h2o-danube-1.8b")`` returns the full config and
+``get_smoke(...)`` the reduced same-family config of the CPU tests.  The
+port registers the archs whose family it builds; the JAX package's other
+archs raise, naming what they wait for.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.config.base import ModelConfig
+
+_ARCHS: dict[str, ModelConfig] = {}
+_SMOKE: dict[str, ModelConfig] = {}
+
+_ARCH_MODULES = {
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+}
+
+# The JAX package's other archs, with what the port still lacks for each.
+_NOT_PORTED = {
+    "starcoder2-7b": "the other dense configs",
+    "glm4-9b": "the other dense configs",
+    "granite-34b": "the other dense configs",
+    "qwen2-moe-a2.7b": "the moe family (moe_sorted)",
+    "qwen3-moe-30b-a3b": "the moe family (moe_sorted)",
+    "rwkv6-7b": "the rwkv6 family (rwkv6_scan)",
+    "internvl2-2b": "the vlm family",
+    "whisper-tiny": "the encdec family",
+    "zamba2-1.2b": "the hybrid family (mamba2)",
+}
+
+
+def register_arch(full: ModelConfig, smoke: ModelConfig) -> None:
+    _ARCHS[full.name] = full
+    _SMOKE[full.name] = smoke
+
+
+def _ensure(name: str) -> None:
+    if name in _ARCHS:
+        return
+    if name in _ARCH_MODULES:
+        importlib.import_module(_ARCH_MODULES[name])
+        return
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not in the PyTorch port yet: it comes with "
+            f"{_NOT_PORTED[name]}, a later slice of the port (ROADMAP.md queue 1)"
+        )
+    raise KeyError(f"unknown arch {name!r}; ported: {sorted(_ARCH_MODULES)}")
+
+
+def get_arch(name: str) -> ModelConfig:
+    _ensure(name)
+    return _ARCHS[name]
+
+
+def get_smoke(name: str) -> ModelConfig:
+    _ensure(name)
+    return _SMOKE[name]

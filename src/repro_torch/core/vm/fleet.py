@@ -228,6 +228,27 @@ class FleetVM:
             "exec_slices": 0,
         }
 
+    def transfer_stats(self) -> dict:
+        """All movement counters in one dict (serve monitor / benchmarks):
+        the reference's keys.  The syscall-plane fields are 0: the port has
+        only the per-node ``FleetIOService`` so far."""
+        svc = self.io_service
+        return {
+            "executor": self.executor_kind,
+            "rounds": self.rounds_total,
+            "h2d": self.h2d,
+            "d2h": self.d2h,
+            "h2d_bytes": self.h2d_bytes,
+            "d2h_bytes": self.d2h_bytes,
+            "io_services": svc.services,
+            "io_nodes_serviced": svc.nodes_serviced,
+            "io_h2d_bytes": svc.h2d_bytes,
+            "io_d2h_bytes": svc.d2h_bytes,
+            "io_syscalls": 0,
+            "io_svc_batches": 0,
+            "probes": self.probes,
+        }
+
     # -- state movement ------------------------------------------------------------
 
     def start(self) -> None:

@@ -1,0 +1,16 @@
+"""flashattn — forward flash attention (causal / sliding window, GQA).
+
+  flashattn.py — build (nvcc, sm_90a), ctypes binding and launch wrapper
+                 ``flash_attention`` (BHSD; CUDA tensors -> kernel; CPU ->
+                 plain version);
+  ops.py       — ``attention`` in the model's BSHD layout;
+  ref.py       — the plain version ``flash_attention_ref``
+                 (``models.attention.blocked_attention``);
+  csrc/        — ``flashattn.cu``, the kernel.
+"""
+
+from repro_torch.kernels.flashattn.flashattn import flash_attention
+from repro_torch.kernels.flashattn.ops import attention
+from repro_torch.kernels.flashattn.ref import flash_attention_ref
+
+__all__ = ["attention", "flash_attention", "flash_attention_ref"]

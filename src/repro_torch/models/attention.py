@@ -1,0 +1,179 @@
+"""Attention: GQA + RoPE, optional sliding window, blocked (flash-style)
+softmax for full sequences, and single-token decode against a KV cache
+(counterpart of ``repro.models.attention``).  Nothing here copies a host
+value to the device: such a copy from pageable memory waits for the
+stream, which would stall every decode step.
+
+``blocked_attention`` is the plain version of the flash attention kernel
+(``kernels/flashattn/ref.py`` re-exports it); the model reaches it through
+``kernels/flashattn/ops.attention``, which takes it only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+
+
+def softmax_scale(hd: int) -> float:
+    """1 / sqrt(hd), computed in f32 as the reference does."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+# -- RoPE ------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / torch.pow(float(theta), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                       # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs       # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                         # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# -- blocked causal attention (prefill) --------------------------------------------
+
+def blocked_attention(
+    q: torch.Tensor,           # (B, Sq, H, hd)
+    k: torch.Tensor,           # (B, Sk, KV, hd)
+    v: torch.Tensor,           # (B, Sk, KV, hd)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_block: int = 1024,
+    k_block: int = 1024,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Online-softmax attention over KV blocks; GQA by head grouping.
+    Scores and sums in f32; p is cast to v's dtype before it meets v, as
+    in the reference.  ``q_offset`` shifts query positions."""
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    G = H // KV
+    scale = softmax_scale(hd)
+    dev = q.device
+
+    q_block = min(q_block, Sq)
+    k_block = min(k_block, Sk)
+    nq = (Sq + q_block - 1) // q_block
+    nk = (Sk + k_block - 1) // k_block
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n))
+    q = pad(q, nq * q_block - Sq)
+    k = pad(k, nk * k_block - Sk)
+    v = pad(v, nk * k_block - Sk)
+    qg = q.reshape(B, nq, q_block, KV, G, hd)
+    kg = k.reshape(B, nk, k_block, KV, hd)
+    vg = v.reshape(B, nk, k_block, KV, hd)
+
+    outs = []
+    for qi in range(nq):
+        q_blk = qg[:, qi].to(torch.float32)
+        q_pos = q_offset + qi * q_block + torch.arange(q_block, device=dev)
+        acc = torch.zeros((B, KV, G, q_block, hd), dtype=torch.float32, device=dev)
+        m = torch.full((B, KV, G, q_block), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KV, G, q_block), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            k_blk, v_blk = kg[:, ki], vg[:, ki]
+            k_pos = ki * k_block + torch.arange(k_block, device=dev)
+            s = torch.einsum("bqngh,bknh->bngqk", q_blk, k_blk.to(torch.float32)) * scale
+            mask = (k_pos < Sk)[None, :].expand(q_block, k_block)
+            if causal:
+                mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            if window is not None:
+                mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+            s = s.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bngqk,bknh->bngqh", p.to(v_blk.dtype).to(torch.float32),
+                              v_blk.to(torch.float32))
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4))          # (B, qb, KV, G, hd)
+    out = torch.stack(outs, dim=1).reshape(B, nq * q_block, H, hd)
+    return out[:, :Sq].to(q.dtype)
+
+
+# -- decode attention (one new token vs a KV cache) ---------------------------------
+
+class KVCache(NamedTuple):
+    """Float KV cache.  ``k``/``v`` are (B, S, KV, hd), with a leading layer
+    axis at the model level; ``pos`` is the next absolute position (= tokens
+    seen).  ``decode_attention`` writes the new token into ``k``/``v`` in
+    place (the reference returns new arrays) and returns ``pos + 1``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: int
+
+    @staticmethod
+    def init(batch, length, kv_heads, head_dim, dtype, device, layers: int | None = None):
+        if not dtype.is_floating_point:
+            raise NotImplementedError(
+                "the int8 KV cache (kv_cache_dtype='int8') is not in the PyTorch port yet "
+                "(ROADMAP.md queue 1)")
+        shape = ((layers,) if layers is not None else ()) + (batch, length, kv_heads, head_dim)
+        return KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            pos=0,
+        )
+
+    def layer(self, i: int) -> "KVCache":
+        """Layer ``i`` of a model-level cache (views: writes land in it)."""
+        return KVCache(self.k[i], self.v[i], self.pos)
+
+
+def decode_attention(
+    q: torch.Tensor,           # (B, 1, H, hd) — roped at the current position
+    k_new: torch.Tensor,       # (B, 1, KV, hd) — roped at the current position
+    v_new: torch.Tensor,
+    cache: KVCache,
+    *,
+    window: Optional[int] = None,
+) -> tuple[torch.Tensor, KVCache]:
+    """Single-token attention against the cache.
+
+    Full cache: slot = pos.  Sliding window (cache length S <= window):
+    ring-buffer slot = pos % S, and only slots written within the last
+    min(pos + 1, S) steps are visible."""
+    B, _, H, hd = q.shape
+    _, S, KV, _ = cache.k.shape
+    G = H // KV
+    scale = softmax_scale(hd)
+    pos = cache.pos
+    dev = q.device
+
+    slot = pos % S if window is not None else pos
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+
+    qg = q.reshape(B, KV, G, hd).to(torch.float32)
+    s = torch.einsum("bngh,bsnh->bngs", qg, cache.k.to(torch.float32)) * scale
+    idx = torch.arange(S, device=dev)
+    if window is None:
+        valid = idx <= pos
+    else:
+        age = torch.remainder(pos - idx, S)
+        valid = age < min(pos + 1, S)
+    s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bngs,bsnh->bngh", p.to(cache.v.dtype).to(torch.float32),
+                     cache.v.to(torch.float32))
+    out = o.reshape(B, 1, H, hd).to(q.dtype)
+    return out, KVCache(cache.k, cache.v, pos + 1)

@@ -1,0 +1,167 @@
+"""The dense decoder layer (counterpart of the dense parts of
+``repro.models.transformer``): pre-norm attention with GQA + RoPE and an
+optional sliding window, then a SwiGLU or plain MLP.  Projections go
+through ``qlinear``, so int8 ``{"q", "s"}`` weights take the fixmatmul
+kernel; full-sequence attention goes through the flash attention op.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.flashattn.ops import attention as flash_attention_op
+from repro_torch.models.attention import KVCache, apply_rope, decode_attention
+from repro_torch.models.common import (
+    act_fn,
+    fanin_init,
+    layernorm,
+    mlp_plain,
+    mlp_swiglu,
+    rmsnorm,
+)
+from repro_torch.models.quantized import qlinear
+
+
+def norm(cfg: ModelConfig, x, p, prefix: str):
+    if cfg.norm_type == "layernorm":
+        return layernorm(x, p[f"{prefix}_w"], p[f"{prefix}_b"], cfg.norm_eps)
+    return rmsnorm(x, p[f"{prefix}_w"], cfg.norm_eps)
+
+
+def init_norm(cfg: ModelConfig, prefix: str, d: int, dtype, device) -> dict:
+    out = {f"{prefix}_w": torch.ones((d,), dtype=dtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        out[f"{prefix}_b"] = torch.zeros((d,), dtype=dtype, device=device)
+    return out
+
+
+# -- attention sub-block -------------------------------------------------------------
+
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d, dev = cfg.d_model, gen.device
+    p = {
+        "wq": fanin_init(gen, (d, cfg.q_dim), dtype),
+        "wk": fanin_init(gen, (d, cfg.kv_dim), dtype),
+        "wv": fanin_init(gen, (d, cfg.kv_dim), dtype),
+        "wo": fanin_init(gen, (cfg.q_dim, d), dtype),
+    }
+    if cfg.use_bias or cfg.attn_bias:
+        for name, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim), ("bo", d)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["qn"] = torch.ones((cfg.head_dim,), dtype=dtype, device=dev)
+        p["kn"] = torch.ones((cfg.head_dim,), dtype=dtype, device=dev)
+    return p
+
+
+def qkv(p, cfg: ModelConfig, x):
+    B, S, _ = x.shape
+    q = qlinear(x, p["wq"])
+    k = qlinear(x, p["wk"])
+    v = qlinear(x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["qn"], cfg.norm_eps)
+        k = rmsnorm(k, p["kn"], cfg.norm_eps)
+    return q, k, v
+
+
+def attn_out(p, out):
+    B, S, H, hd = out.shape
+    o = qlinear(out.reshape(B, S, H * hd), p["wo"])
+    if "bo" in p:
+        o = o + p["bo"]
+    return o
+
+
+def self_attention_full(p, cfg: ModelConfig, x, *, causal=True, use_rope=True, window=None,
+                        attention=None):
+    """Full-sequence self attention (prefill).  ``attention`` (BSHD q, k, v
+    -> out) defaults to the flash attention op; a check passes the plain
+    version to hold the kernel's path against it."""
+    B, S, _ = x.shape
+    q, k, v = qkv(p, cfg, x)
+    if use_rope:
+        pos = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out = (attention or flash_attention_op)(q, k, v, causal=causal, window=window)
+    return attn_out(p, out)
+
+
+def self_attention_decode(p, cfg: ModelConfig, x, cache: KVCache, *, use_rope=True,
+                          window=None):
+    """One-token self attention against the KV cache."""
+    q, k, v = qkv(p, cfg, x)
+    if use_rope:
+        pos = torch.full((1, 1), cache.pos, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out, cache = decode_attention(q, k, v, cache, window=window)
+    return attn_out(p, out), cache
+
+
+# -- MLP and the layer ------------------------------------------------------------------
+
+def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, dtype, d_ff=None) -> dict:
+    d, f, dev = cfg.d_model, d_ff or cfg.d_ff, gen.device
+    zeros = lambda n: torch.zeros((n,), dtype=dtype, device=dev)
+    if cfg.mlp_gated:
+        p = {
+            "w1": fanin_init(gen, (d, f), dtype),
+            "w3": fanin_init(gen, (d, f), dtype),
+            "w2": fanin_init(gen, (f, d), dtype),
+        }
+        if cfg.use_bias:
+            p |= {"b1": zeros(f), "b3": zeros(f), "b2": zeros(d)}
+    else:
+        p = {"w1": fanin_init(gen, (d, f), dtype), "w2": fanin_init(gen, (f, d), dtype)}
+        if cfg.use_bias:
+            p |= {"b1": zeros(f), "b2": zeros(d)}
+    return p
+
+
+def apply_mlp(p, cfg: ModelConfig, x):
+    act = act_fn(cfg.activation)
+    if isinstance(p["w1"], dict):   # int8 serving path (paper C4)
+        h = act(qlinear(x, p["w1"]))
+        if cfg.mlp_gated:
+            h = h * qlinear(x, p["w3"])
+        return qlinear(h, p["w2"])
+    if cfg.mlp_gated:
+        return mlp_swiglu(x, p["w1"], p["w3"], p["w2"], act, cfg.use_bias,
+                          p.get("b1"), p.get("b3"), p.get("b2"))
+    return mlp_plain(x, p["w1"], p["w2"], act, cfg.use_bias, p.get("b1"), p.get("b2"))
+
+
+def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    p = {"attn": init_attn_params(gen, cfg, dtype)}
+    p |= init_norm(cfg, "ln1", cfg.d_model, dtype, gen.device)
+    p |= init_norm(cfg, "ln2", cfg.d_model, dtype, gen.device)
+    p["mlp"] = init_mlp_params(gen, cfg, dtype)
+    return p
+
+
+def decoder_layer_full(p, cfg: ModelConfig, x, *, attention=None):
+    """Prefill layer.  Returns (x, aux_loss)."""
+    h = norm(cfg, x, p, "ln1")
+    x = x + self_attention_full(p["attn"], cfg, h, window=cfg.sliding_window,
+                                attention=attention)
+    h = norm(cfg, x, p, "ln2")
+    x = x + apply_mlp(p["mlp"], cfg, h)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def decoder_layer_decode(p, cfg: ModelConfig, x, cache: KVCache, *, window=None):
+    h = norm(cfg, x, p, "ln1")
+    attn, cache = self_attention_decode(p["attn"], cfg, h, cache,
+                                        window=window or cfg.sliding_window)
+    x = x + attn
+    h = norm(cfg, x, p, "ln2")
+    x = x + apply_mlp(p["mlp"], cfg, h)
+    return x, cache

@@ -1,10 +1,14 @@
-"""The vmloop CUDA kernel on the card: byte-identical to its plain version
-over the per-opcode sweep and random node states, and the fleet's
-``executor="cuda"`` identical to ``executor="batched"``.  Needs an NVIDIA
-GPU with nvcc; every test here skips without one.
+"""The port's CUDA kernels on the card, each against its plain version:
+vmloop byte-identical over the per-opcode sweep and random node states
+(and the fleet's ``executor="cuda"`` identical to ``executor="batched"``),
+fixmatmul bitwise equal, flash attention within 1e-4 in f32 and 2e-2 in
+bf16; and a CUDA tensor never takes the plain version (each launch counter
+grows).  Needs an NVIDIA GPU with nvcc; every test here skips without one.
 
 Run on the card with ``python -m pytest tests/test_torch_cuda.py``.
 """
+
+import importlib
 
 import pytest
 import torch
@@ -12,7 +16,12 @@ import torch
 from repro_torch.config import VMConfig
 from repro_torch.core.vm import FleetVM, vmstate as vms
 from repro_torch.kernels.vmloop import check, vmloop as kmod
+from repro_torch.kernels.fixmatmul.ref import fixmatmul_ref
+from repro_torch.kernels.flashattn import flash_attention
+from repro_torch.kernels.flashattn.ref import flash_attention_ref
 from repro_torch.kernels.vmloop.ref import core_of, vmloop_ref
+
+fmod = importlib.import_module("repro_torch.kernels.fixmatmul.fixmatmul")
 
 pytestmark = pytest.mark.cuda
 
@@ -74,3 +83,37 @@ def test_fleet_cuda_equals_batched(cuda):
     assert check.max_abs_diff(Sc, Sb) == (0, [])
     stats = fc.kernel_stats()
     assert stats["kernel_steps"] > 0 and stats["bail_hist"].get("rnd", 0) > 0
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2560, 640), (1, 6912, 2560), (64, 2560, 6912),
+                                   (3, 100, 37), (65, 257, 129)])
+def test_fixmatmul_bitwise_equals_plain_version(M, K, N, cuda):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    xq = torch.randint(-128, 128, (M, K), generator=g, device=cuda).to(torch.int8)
+    wq = torch.randint(-128, 128, (K, N), generator=g, device=cuda).to(torch.int8)
+    sx = torch.rand(M, generator=g, device=cuda) * 0.1
+    sw = torch.rand(N, generator=g, device=cuda) * 0.1
+    launches = fmod.fixmatmul.launches
+    out = fmod.fixmatmul(xq, wq, sx, sw)
+    torch.cuda.synchronize()
+    assert fmod.fixmatmul.launches == launches + 1
+    assert torch.equal(out, fixmatmul_ref(xq, wq, sx, sw))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", [
+    (1, 32, 8, 300, 300, 80, True, 64),
+    (2, 4, 4, 100, 257, 128, False, None),
+    (1, 8, 2, 129, 129, 64, True, None),
+])
+def test_flash_attention_matches_plain_version(B, H, KV, Sq, Sk, hd, causal, window, dtype,
+                                               tol, cuda):
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
+    launches = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1 and out.dtype == dtype
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert float((out.float() - ref.float()).abs().max()) <= tol

@@ -208,12 +208,18 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_without_jax():
     """Every module of the port imports with jax blocked (and so with no
-    module of the JAX package, which imports jax)."""
+    module of the JAX package, which imports jax): the VM, the kernels, and
+    the serving path's config, models, serve and launch modules."""
+    mods = _port_modules()
+    for m in ("repro_torch.kernels.fixmatmul.fixmatmul", "repro_torch.kernels.flashattn.ops",
+              "repro_torch.models.model", "repro_torch.models.convert", "repro_torch.serve.vmhook",
+              "repro_torch.launch.serve", "repro_torch.configs.h2o_danube_1_8b"):
+        assert m in mods, m
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
-        f"for m in {_port_modules()!r}:\n"
+        f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'repro' or k.startswith(('repro.', 'jax')) for k in sys.modules"
         " if sys.modules[k] is not None)\n"

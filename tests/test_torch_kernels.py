@@ -1,0 +1,207 @@
+"""The PyTorch port's fixmatmul and flash attention against the JAX
+package's Pallas kernels (run in interpret mode) on the CPU, where the
+port's wrappers take their plain versions.
+
+fixmatmul and ``quantized_matmul`` are exact: int32 sums and the same two
+f32 scale multiplies.  Flash attention is held at atol = rtol = 1e-5 in
+f32: the two sum the same terms in another order.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import set_kernels
+from repro.kernels.fixmatmul.fixmatmul import fixmatmul as jfixmatmul
+from repro.kernels.fixmatmul.ops import quantize_weight as jquantize_weight
+from repro.kernels.fixmatmul.ops import quantized_matmul as jquantized_matmul
+from repro.kernels.flashattn.flashattn import flash_attention as jflash
+from repro.kernels.flashattn.ops import attention as jattention
+
+from repro_torch.core.fixedpoint import quantize_per_channel
+from repro_torch.kernels.fixmatmul import fixmatmul, fixmatmul_ref, quantize_weight, quantized_matmul
+from repro_torch.kernels.fixmatmul.fixmatmul import BK, k_splits
+from repro_torch.kernels.flashattn import attention, flash_attention, flash_attention_ref
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _interpret_kernels():
+    set_kernels("interpret")
+    yield
+    set_kernels("auto")
+
+
+def _codes(rng, shape, lo=-128, hi=128):
+    return rng.integers(lo, hi, shape).astype(np.int8)
+
+
+# ---------------------------------------------------------------------------
+# fixmatmul
+# ---------------------------------------------------------------------------
+
+FIX_SHAPES = [
+    # (M, K, N, bm, bn, bk): the JAX package's own kernel-test tiles ...
+    (64, 64, 64, 64, 64, 64),
+    (128, 256, 64, 64, 64, 64),
+    (64, 128, 128, 32, 128, 32),
+    (256, 128, 256, 128, 128, 128),
+    # ... and ragged shapes, one block each on the JAX side.
+    (3, 100, 37, 3, 37, 100),
+    (65, 257, 129, 65, 129, 257),
+    (1, 1, 1, 1, 1, 1),
+    (8, 260, 640, 8, 640, 260),
+]
+
+
+@pytest.mark.parametrize("M,K,N,bm,bn,bk", FIX_SHAPES)
+def test_fixmatmul_plain_equals_jax_kernel(M, K, N, bm, bn, bk):
+    rng = np.random.default_rng(M * 7919 + K * 31 + N)
+    xq, wq = _codes(rng, (M, K)), _codes(rng, (K, N))
+    sx = rng.uniform(1e-3, 0.1, M).astype(np.float32)
+    sw = rng.uniform(1e-3, 0.1, N).astype(np.float32)
+    ref = jfixmatmul(jnp.array(xq), jnp.array(wq), jnp.array(sx), jnp.array(sw),
+                     bm=bm, bn=bn, bk=bk, interpret=True)
+    out = fixmatmul(*(torch.tensor(a) for a in (xq, wq, sx, sw)))
+    assert out.dtype == torch.float32 and tuple(out.shape) == (M, N)
+    assert np.array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("code", [-128, 127])
+def test_fixmatmul_extreme_codes(code):
+    """All codes at one extreme, K = 6912 (danube's d_ff): the largest sums
+    the serving path can form."""
+    M, K, N = 2, 6912, 64
+    xq = np.full((M, K), code, np.int8)
+    wq = np.full((K, N), code, np.int8)
+    sx = np.full(M, 0.01, np.float32)
+    sw = np.linspace(1e-3, 0.1, N).astype(np.float32)
+    ref = jfixmatmul(jnp.array(xq), jnp.array(wq), jnp.array(sx), jnp.array(sw),
+                     bm=M, bn=N, bk=256, interpret=True)
+    out = fixmatmul(*(torch.tensor(a) for a in (xq, wq, sx, sw)))
+    assert np.array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("lead,K,N", [((3, 17), 192, 120), ((1, 1), 2560 // 10, 640 // 10),
+                                      ((5,), 64, 37)])
+def test_quantized_matmul_equals_jax(lead, K, N):
+    rng = np.random.default_rng(K + N)
+    x = rng.normal(size=(*lead, K)).astype(np.float32)
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    jwq, jsw = jquantize_weight(jnp.array(w))
+    wq, sw = quantize_weight(torch.tensor(w))
+    assert np.array_equal(wq.numpy(), np.asarray(jwq))
+    assert np.array_equal(sw.numpy(), np.asarray(jsw))
+    ref = jquantized_matmul(jnp.array(x), jwq, jsw, bm=64, bn=64, bk=64)
+    out = quantized_matmul(torch.tensor(x), wq, sw)
+    assert out.shape == tuple(ref.shape)
+    assert np.array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_quantize_per_channel_equals_jax(axis):
+    from repro.core.fixedpoint import quantize_per_channel as jquant
+
+    rng = np.random.default_rng(axis)
+    w = (rng.normal(size=(33, 47)) * 3).astype(np.float32)
+    w[:, 5] = 0.0                                     # an all-zero channel
+    jq, js = jquant(jnp.array(w), bits=8, axis=axis)
+    q, s = quantize_per_channel(torch.tensor(w), bits=8, axis=axis)
+    assert q.dtype == torch.int8 and np.array_equal(q.numpy(), np.asarray(jq))
+    assert np.array_equal(s.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 2560, 2560), (8, 2560, 640), (8, 2560, 6912),
+                                   (64, 6912, 2560), (8, 2560, 32000), (3, 100, 37)])
+def test_k_splits_cover_k(M, K, N):
+    """The kernel's split of K: whole 64-deep stages that cover K, and no
+    more splits than keep the partial sums under a quarter of the weight
+    bytes (or one split)."""
+    splits, per = k_splits(M, K, N, sms=132)
+    assert per % BK == 0 and splits * per >= K > (splits - 1) * per
+    assert splits == 1 or 8 * splits * M * N <= K * N // 4 + 8 * M * N
+
+
+def test_fixmatmul_rejects_bad_operands():
+    xq = torch.zeros((2, 3), dtype=torch.int8)
+    wq = torch.zeros((3, 4), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        fixmatmul(xq, wq[:2], torch.ones(2), torch.ones(4))
+    with pytest.raises(ValueError):
+        fixmatmul(xq.to(torch.int32), wq, torch.ones(2), torch.ones(4))
+    with pytest.raises(ValueError):
+        fixmatmul(xq, wq, torch.ones(2, dtype=torch.float64), torch.ones(4))
+    assert torch.equal(fixmatmul(xq, wq, torch.ones(2), torch.ones(4)), torch.zeros(2, 4))
+    assert fixmatmul_ref(xq, wq, torch.ones(2), torch.ones(4)).dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [
+    # (B, H, KV, Sq, Sk, hd, causal, window)
+    (2, 4, 2, 128, 128, 32, True, None),
+    (1, 4, 4, 128, 128, 64, False, None),
+    (2, 8, 2, 256, 256, 32, True, 96),
+    (1, 2, 1, 64, 192, 32, False, None),
+    (1, 8, 2, 128, 128, 80, True, 8),         # danube: GQA 4, hd 80, a window
+    (1, 4, 1, 192, 192, 80, False, 64),
+    (1, 2, 2, 64, 64, 128, True, None),
+]
+
+
+def _qkv(rng, B, H, KV, Sq, Sk, hd):
+    q = (rng.normal(size=(B, H, Sq, hd)) * 0.5).astype(np.float32)
+    k = (rng.normal(size=(B, KV, Sk, hd)) * 0.5).astype(np.float32)
+    v = (rng.normal(size=(B, KV, Sk, hd)) * 0.5).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", FLASH_SHAPES)
+def test_flash_plain_matches_jax_kernel(B, H, KV, Sq, Sk, hd, causal, window):
+    rng = np.random.default_rng(Sq * 131 + hd)
+    q, k, v = _qkv(rng, B, H, KV, Sq, Sk, hd)
+    ref = jflash(jnp.array(q), jnp.array(k), jnp.array(v), causal=causal, window=window,
+                 bq=64, bk=64, interpret=True)
+    out = flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                          causal=causal, window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    plain = flash_attention_ref(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                                causal=causal, window=window)
+    assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [(100, 100, True, None), (77, 77, True, 8),
+                                                 (50, 130, False, None), (130, 130, False, 40)])
+def test_attention_op_ragged_matches_jax(Sq, Sk, causal, window):
+    """The BSHD op on lengths that are no multiple of a block; the port's
+    kernel masks the ragged edge.  The JAX op pads K/V for its kernel,
+    which then counts the zero pad keys as keys when the mask is not
+    causal, so non-causal cases are held against the JAX plain path."""
+    if not causal:
+        set_kernels("off")
+    rng = np.random.default_rng(Sq + Sk)
+    B, H, KV, hd = 1, 4, 2, 80
+    q = (rng.normal(size=(B, Sq, H, hd)) * 0.5).astype(np.float32)
+    k = (rng.normal(size=(B, Sk, KV, hd)) * 0.5).astype(np.float32)
+    v = (rng.normal(size=(B, Sk, KV, hd)) * 0.5).astype(np.float32)
+    ref = jattention(jnp.array(q), jnp.array(k), jnp.array(v), causal=causal, window=window,
+                     bq=64, bk=64)
+    out = attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), causal=causal, window=window)
+    assert out.shape == tuple(ref.shape)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_flash_rejects_bad_operands():
+    q = torch.zeros((1, 4, 8, 16))
+    k = torch.zeros((1, 3, 8, 16))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)                       # 4 heads over 3 KV heads
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError):
+        flash_attention(q, q.to(torch.float64), q)
