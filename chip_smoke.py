@@ -1,5 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU: the REXAVM fleet, and
-h2o-danube-1.8b served with the VM fleet as its measuring job.
+h2o-danube-1.8b and rwkv6-7b served with the VM fleet as their measuring
+job.
 
     python3 chip_smoke.py [--nodes N]
 
@@ -7,9 +8,10 @@ Run from the root of a checkout on a machine with CUDA and nvcc.  Phases,
 each printing its results on a line of its own:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the three CUDA kernels (vmloop, fixmatmul, flash attention) from
-     the sources in the checkout, one nvcc each, all started together, and
-     print each one's ptxas register and spill lines;
+  2. build the five CUDA kernels (vmloop, fixmatmul, flash attention,
+     rwkv6_scan, lut_sigmoid) from the sources in the checkout, one nvcc
+     each, all started together, and print each one's ptxas register and
+     spill lines;
   3. hold vmloop against its plain PyTorch version on the card: the
      per-opcode sweep and a batch of random node states, byte for byte on
      every field and on n_exec/bailed/bail_op; every claimed word must run
@@ -25,6 +27,11 @@ each printing its results on a line of its own:
      (M = 1, 8, 64), ragged shapes and extreme codes; flash attention
      against its plain version in bf16 and f32 over causal / non-causal,
      windows, GQA, Sq != Sk, ragged lengths and head_dim 64/80/128;
+     rwkv6_scan against its plain version in bf16 and f32 (chunks of 64,
+     32, 16 and 1, S < 64, many chunks, a non-zero and an aliased state,
+     head size 64 and 16, a decay steep enough to clip, chained halves);
+     lut_sigmoid byte for byte (INT_MIN, INT_MAX, the saturation edge,
+     every LUT knot and its neighbours, 2**24 random values, 1-D and 3-D);
   7. the serve path at full width: h2o-danube-1.8b (24 layers, bf16,
      weights drawn on the card from a seed).  (a) prefill: Model.forward at
      B = 1, S = 8192 through the flash kernel (24 launches), held against
@@ -34,9 +41,17 @@ each printing its results on a line of its own:
      launches per decode step, vmloop launched by the monitor, every node
      reporting [8] * 64; (c) a small-input reference: the SMOKE config's
      quantized engine on the card gives the CPU's tokens; (d) where a
-     decode step's device time goes (torch.profiler);
-  8. each new kernel's time per launch at the main path's shapes, its plain
-     version's, one PyTorch library call's, and its bound.
+     decode step's device time goes (torch.profiler); (e) rwkv6-7b at full
+     width (32 layers, d 4096, 64 heads of 64, bf16), after danube is
+     freed: prefill B 1, S 8192 (32 rwkv6_scan launches) against the same
+     forward through the plain chunked_wkv; the quantized engine with the
+     64-node monitor (32 rwkv6_scan and 1 fixmatmul launches per decode
+     step); the SMOKE config's quantized engine on the card gives the
+     CPU's tokens; a decode step's profile; (f) the lutact path:
+     fixed_sigmoid over int32 activations of 1024 x 1024 and 8192 x 8192;
+  8. each kernel's time per launch at the main path's shapes, its plain
+     version's, one PyTorch library call's where there is one, and its
+     bound.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -44,6 +59,7 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -63,8 +79,17 @@ PREFILL_LEN = 8192              # crosses danube's 4096 window
 SERVE_BATCH, PROMPT_LEN, NEW_TOKENS, MONITOR_NODES = 8, 128, 64, 64
 SEED = 0
 L2_BYTES = 50e6                 # H100 L2; timed weights are rotated past it
+FP32_FLOPS = 67e12              # H100 SXM f32 rate outside the tensor cores (data sheet)
+SFU_PER_S = FP32_FLOPS / 16     # special-function ops (exp): 16 per SM per clock against
+                                # 128 f32 FMA lanes (NVIDIA throughput table, compute capability 9.0)
+RWKV_ARCH = "rwkv6-7b"
+RWKV_TOL = {"bfloat16": 1e-2, "float32": 1e-4}    # out: max abs err / max(1, max |plain|)
+RWKV_STATE_TOL = 1e-4           # the state (f32 in both), the same measure
+LUT_SIZES = (1024, 8192)        # fixed_sigmoid inputs: bench_kernels.py's size, one past L2
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # max abs err vs the plain version
 PREFILL_REL_TOL = 5e-2          # max |logit diff| / max |logit|, bf16 over 24 layers
+ALT_MEAN_TOL = 1.5              # rwkv6 prefill: mean |logit diff| against the plain version
+ALT_AGREE_TOL = 0.02            # reordered, and the argmax agreement (see prefill)
 SPIN_CYCLES = 100_000_000       # ~50 ms of spinning at the H100's clock
 SMOKE_TOL = 2e-2                # max |logit diff|, card vs CPU, SMOKE quantized decode
 
@@ -121,6 +146,8 @@ def main() -> int:
         from repro_torch.kernels.vmloop.ref import SUPPORTED_WORDS, core_of, vmloop_ref
         fix_mod = importlib.import_module("repro_torch.kernels.fixmatmul.fixmatmul")
         flash_mod = importlib.import_module("repro_torch.kernels.flashattn.flashattn")
+        rwkv_mod = importlib.import_module("repro_torch.kernels.rwkv6_scan.rwkv6_scan")
+        lut_mod = importlib.import_module("repro_torch.kernels.lutact.lutact")
     except ImportError as e:
         fail(f"the repository's src/repro_torch is not beside this script ({e})")
     dev = torch.device("cuda")
@@ -137,7 +164,7 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel, all started together
     t0 = time.perf_counter()
-    libs = (kmod.LIBRARY, fix_mod.LIBRARY, flash_mod.LIBRARY)
+    libs = (kmod.LIBRARY, fix_mod.LIBRARY, flash_mod.LIBRARY, rwkv_mod.LIBRARY, lut_mod.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:
         for lib, fut in [(lib, pool.submit(lib.build)) for lib in libs]:
             try:
@@ -148,7 +175,7 @@ def main() -> int:
         lib.load()
         print(f"build: {lib.name} {lib.seconds:.2f} s nvcc", flush=True)
         print(f"ptxas {lib.name}: " + " | ".join(lib.ptxas_lines()), flush=True)
-    print(f"build: all three {time.perf_counter() - t0:.2f} s with loading", flush=True)
+    print(f"build: all five {time.perf_counter() - t0:.2f} s with loading", flush=True)
 
     # 3. kernel vs plain version on the card
     max_err = 0
@@ -331,18 +358,28 @@ def main() -> int:
     del nodes, init, results, S, S0, work, plain, fleet
     torch.cuda.empty_cache()
 
-    # 6. the new kernels against their plain versions
+    # 6. the other kernels against their plain versions
     fix_err = check_fixmatmul(torch, fix_mod, dev)
     flash_err = check_flash(torch, flash_mod, dev)
+    rwkv_err = check_rwkv6_scan(torch, rwkv_mod, dev)
+    check_lut_sigmoid(torch, lut_mod, dev)
 
-    # 7. the serve path at full width
+    # 7. the serve paths at full width, then the lutact path
     launches_fix, launches_flash = serve_danube(torch, dev, fix_mod, flash_mod, kmod)
+    torch.cuda.empty_cache()
+    launches_rwkv, launches_fix_rwkv = serve_rwkv6(torch, dev, fix_mod, rwkv_mod, kmod)
+    torch.cuda.empty_cache()
+    launches_lut = lutact_path(torch, dev, lut_mod)
 
     # 8. time per launch at the main path's shapes
-    records.append(dict(time_fixmatmul(torch, fix_mod, dev), launches=launches_fix,
+    records.append(dict(time_fixmatmul(torch, fix_mod, dev), launches=launches_fix + launches_fix_rwkv,
                         max_abs_err=fix_err))
     records.append(dict(time_flash(torch, flash_mod, dev), launches=launches_flash,
                         max_abs_err=flash_err))
+    records.append(dict(time_rwkv6_scan(torch, rwkv_mod, dev, launches_rwkv),
+                        launches=sum(launches_rwkv.values()), max_abs_err=rwkv_err))
+    records.append(dict(time_lut_sigmoid(torch, lut_mod, dev), launches=launches_lut,
+                        max_abs_err=0))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -460,6 +497,103 @@ def check_flash(torch, flash_mod, dev) -> float:
     return worst[torch.bfloat16]
 
 
+def rwkv6_inputs(torch, B, H, S, K, dt, dev, g, decay="slow"):
+    """r, k, v (dt), logw, u, state0 of the JAX kernel tests' distributions.
+    ``decay="fast"`` draws log decays down to -7.4 a step, so the chunk's
+    cumulative decays pass the kernel's clip at -60."""
+    r, k, v = ((torch.randn((B, H, S, K), generator=g, device=dev) * 0.5).to(dt) for _ in range(3))
+    lo, hi = (-6.0, -4.0) if decay == "slow" else (-1.0, 2.0)
+    logw = -torch.exp(torch.rand((B, H, S, K), generator=g, device=dev) * (hi - lo) + lo)
+    u = torch.randn((H, K), generator=g, device=dev) * 0.5
+    s0 = torch.randn((B, H, K, K), generator=g, device=dev) * 0.1
+    return r, k, v, logw, u, s0
+
+
+def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
+    """Returns the largest absolute error of ``out`` in bf16, the main
+    path's type.  Errors are held relative to max(1, max |plain|)."""
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cases = [  # (B, H, S, K, chunk, decay)
+        (1, 64, 512, 64, 64, "slow"),      # L 64, eight chunks, the full model's heads
+        (2, 8, 256, 64, 32, "slow"),       # L 32
+        (2, 4, 128, 16, 16, "slow"),       # L 16, the SMOKE head size
+        (8, 64, 1, 64, 64, "slow"),        # L 1: the decode step's shape
+        (2, 4, 16, 16, 1, "slow"),         # L 1 over sixteen chunks
+        (1, 4, 40, 64, 64, "slow"),        # S < 64: L = S
+        (4, 4, 48, 16, 64, "slow"),
+        (1, 8, 256, 64, 64, "fast"),       # the clip at -60 active
+    ]
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tol = RWKV_TOL[str(dt).split(".")[1]]
+        errs, rels = [], []
+        for B, H, S, K, chunk, decay in cases:
+            r, k, v, logw, u, s0 = rwkv6_inputs(torch, B, H, S, K, dt, dev, g, decay)
+            out, s1 = rwkv_mod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk)
+            ref, ref_s1 = rwkv6_scan_ref(r, k, v, logw, u, s0, chunk=chunk)
+            s_in = s0.clone()
+            out2, s2 = rwkv_mod.rwkv6_scan(r, k, v, logw, u, s_in, chunk=chunk, state_out=s_in)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref).abs().max())
+            s_err = float((s1 - ref_s1).abs().max())
+            rel = err / max(1.0, float(ref.abs().max()))
+            s_rel = s_err / max(1.0, float(ref_s1.abs().max()))
+            if not (out.dtype == dt and rel <= tol and s_rel <= RWKV_STATE_TOL
+                    and bool(torch.isfinite(out).all())):
+                fail(f"rwkv6_scan {dt} {(B, H, S, K, chunk, decay)}: out err {err} ({rel} of the "
+                     f"largest, tolerance {tol}), state err {s_err} ({s_rel}, tolerance "
+                     f"{RWKV_STATE_TOL})")
+            if not (s2 is s_in and torch.equal(out2, out) and torch.equal(s_in, s1)):
+                fail(f"rwkv6_scan {dt} {(B, H, S, K, chunk)}: the state written in place differs")
+            errs.append(err)
+            rels.append((rel, s_rel))
+        # chained halves: the state carried across two calls == one call
+        r, k, v, logw, u, s0 = rwkv6_inputs(torch, 1, 8, 256, 64, dt, dev, g)
+        full, s_full = rwkv_mod.rwkv6_scan(r, k, v, logw, u, s0)
+        h1, s_mid = rwkv_mod.rwkv6_scan(r[:, :, :128], k[:, :, :128], v[:, :, :128],
+                                        logw[:, :, :128], u, s0)
+        h2, s_end = rwkv_mod.rwkv6_scan(r[:, :, 128:], k[:, :, 128:], v[:, :, 128:],
+                                        logw[:, :, 128:], u, s_mid)
+        torch.cuda.synchronize()
+        c_err = float((torch.cat([h1, h2], 2).float() - full.float()).abs().max())
+        c_s = float((s_end - s_full).abs().max())
+        if c_err > tol * max(1.0, float(full.float().abs().max())) or \
+                c_s > RWKV_STATE_TOL * max(1.0, float(s_full.abs().max())):
+            fail(f"rwkv6_scan {dt}: chained halves differ from the whole: out {c_err}, state {c_s}")
+        worst[dt] = max(errs)
+        print(f"check rwkv6_scan {dt}: {len(cases)} shapes + chained halves, out max abs err "
+              f"{max(errs):.3g} (largest relative {max(x for x, _ in rels):.3g}, tolerance {tol}), "
+              f"state relative {max(y for _, y in rels):.3g} (tolerance {RWKV_STATE_TOL}); "
+              f"chained: out {c_err:.3g}, state {c_s:.3g}; state written in place: equal",
+              flush=True)
+    return worst[torch.bfloat16]
+
+
+def check_lut_sigmoid(torch, lut_mod, dev) -> None:
+    from repro_torch.kernels.lutact.ref import lut_sigmoid_ref
+
+    i32 = torch.iinfo(torch.int32)
+    edges = [i32.min, i32.min + 1, i32.max, i32.max - 1, 0, 1, -1]
+    edges += [sgn * x for sgn in (1, -1) for x in (7999, 8000, 8001)]
+    edges += [m + d for m in range(-8250, 8251, 250) for d in (-1, 0, 1)]
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rnd = torch.randint(i32.min, i32.max, (1 << 24,), generator=g, device=dev, dtype=torch.int32)
+    x = torch.cat([torch.tensor(edges, dtype=torch.int32, device=dev), rnd])
+    shapes = [x, x[1:], x[: 3 * 5 * 4096].reshape(3, 5, 4096), x[: 7 << 20].reshape(-1, 7)[:, 2]]
+    for xs in shapes:
+        out = lut_mod.lut_sigmoid(xs)
+        ref = lut_sigmoid_ref(xs)
+        torch.cuda.synchronize()
+        if not (out.shape == xs.shape and out.dtype == torch.int32 and torch.equal(out, ref)):
+            bad = (out != ref).nonzero()[:4].flatten().tolist() if out.shape == ref.shape else []
+            fail(f"lut_sigmoid {tuple(xs.shape)}: kernel != plain version at {bad}")
+    print(f"check lut_sigmoid: {len(edges)} edge values (INT_MIN, INT_MAX, +-7999/8000/8001, "
+          f"every multiple of 250 in +-8250 and its neighbours) + 2**24 random int32, as 1-D, "
+          f"unaligned 1-D, 3-D and strided inputs: byte-identical", flush=True)
+
+
 class StepClock:
     """The model as the engine sees it, with a synchronized host clock
     around each decode step."""
@@ -491,90 +625,130 @@ class TimedMonitor:
         self.ms.append(1e3 * (time.perf_counter() - t))
 
 
-def serve_danube(torch, dev, fix_mod, flash_mod, kmod):
-    """Phase 7.  Returns the fixmatmul and flash launches of the main path."""
-    from repro_torch.config import ServeConfig, get_arch, get_smoke
+def build_full(torch, arch, dev):
+    """The arch's full config, model and random params drawn on the card."""
+    from repro_torch.config import get_arch
     from repro_torch.models import build_model
-    from repro_torch.models.attention import blocked_attention
-    from repro_torch.models.quantized import quantize_params
-    from repro_torch.serve import FleetServeMonitor, ServeEngine
-    from repro_torch.utils.tree import tree_flatten_with_names, tree_map_with_names
+    from repro_torch.utils.tree import tree_flatten_with_names
 
-    cfg = get_arch(ARCH)
+    cfg = get_arch(arch)
     model = build_model(cfg, dev)
     t = time.perf_counter()
     params = model.init(SEED)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for _, p in tree_flatten_with_names(params))
-    print(f"serve: {ARCH} {cfg.num_layers} layers d {cfg.d_model}, {n_params / 1e9:.3f} B params "
+    print(f"serve: {arch} {cfg.num_layers} layers d {cfg.d_model}, {n_params / 1e9:.3f} B params "
           f"in {cfg.dtype}, drawn on the card in {time.perf_counter() - t:.2f} s", flush=True)
+    return cfg, model, params
 
-    # (a) prefill through the flash kernel, against the plain attention
+
+def prefill_tokens(torch, cfg, dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), generator=g, device=dev)
-    model.forward(params, {"tokens": tokens[:, :1024]})           # warm-up
-    flash_mod.flash_attention.launches = 0
-    (logits, _), prefill_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}))
-    launches_flash = flash_mod.flash_attention.launches
-    if launches_flash != cfg.num_layers:
-        fail(f"prefill launched flash attention {launches_flash} times, not {cfg.num_layers}")
-    (ref, _), plain_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens},
-                                                            attention=blocked_attention))
-    if logits.shape != (1, PREFILL_LEN, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
-        fail(f"prefill logits: shape {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
-    diff = float((logits.float() - ref.float()).abs().max())
-    scale = float(ref.float().abs().max())
-    agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
-    print(json.dumps({"phase": "prefill", "batch": 1, "seq": PREFILL_LEN,
-                      "window": cfg.sliding_window, "flash_launches": launches_flash,
-                      "ms": prefill_ms, "tokens_per_s": PREFILL_LEN / (prefill_ms / 1e3),
-                      "plain_attention_ms": plain_ms, "max_abs_logit_diff": diff,
-                      "max_abs_logit": scale, "argmax_agreement": agree}), flush=True)
-    if diff > PREFILL_REL_TOL * scale:
-        fail(f"prefill logits: flash vs plain attention max abs diff {diff} > "
-             f"{PREFILL_REL_TOL} x {scale}")
-    del logits, ref
-    torch.cuda.empty_cache()
+    return torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN), generator=g, device=dev)
 
-    # (b) quantize, then serve with the VM fleet as the measuring job
-    qparams = quantize_params(params)
-    del params
-    torch.cuda.empty_cache()
+
+def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
+            plain_alt: dict | None = None) -> int:
+    """(a) Model.forward at B 1, S PREFILL_LEN through ``kernel`` (one
+    launch per layer), held against the same forward with ``plain`` (the
+    forward's hook, e.g. ``{"attention": blocked_attention}``): the logits
+    may differ by PREFILL_REL_TOL of the largest.  When ``plain_alt`` (the
+    plain version with its sums in another order) is given, the kernel's
+    mean |logit difference| may instead be up to ALT_MEAN_TOL times what
+    that reordering alone moves it, and its argmax agreement at most
+    ALT_AGREE_TOL below the reordering's.  Returns the kernel's launches."""
+    tokens = prefill_tokens(torch, cfg, dev)
+    model.forward(params, {"tokens": tokens[:, :1024]})           # warm-up
+    kernel.launches = 0
+    (logits, _), prefill_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}))
+    launches = kernel.launches
+    if launches != cfg.num_layers:
+        fail(f"{cfg.name} prefill launched {kernel.__name__} {launches} times, not {cfg.num_layers}")
+    (ref, _), plain_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}, **plain))
+    if logits.shape != (1, PREFILL_LEN, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"{cfg.name} prefill logits: shape {tuple(logits.shape)}, "
+             f"finite {bool(torch.isfinite(logits).all())}")
+    def compare(a):
+        d = (a.float() - ref.float()).abs()
+        return (float(d.max()), int(d.amax(-1).argmax()), float(d.mean()),
+                float((a.argmax(-1) == ref.argmax(-1)).float().mean()))
+
+    diff, at, mean, agree = compare(logits)
+    scale = float(ref.float().abs().max())
+    res = {"max_abs_logit_diff": diff, "at_position": at, "mean_abs_logit_diff": mean,
+           "max_abs_logit": scale, "mean_abs_logit": float(ref.float().abs().mean()),
+           "argmax_agreement": agree}
+    if plain_alt is None:
+        res["tolerance"] = PREFILL_REL_TOL * scale
+        ok = diff <= res["tolerance"]
+    else:
+        del logits
+        alt_logits, _ = model.forward(params, {"tokens": tokens}, **plain_alt)
+        a_diff, a_at, a_mean, a_agree = compare(alt_logits)
+        del alt_logits
+        res |= {"reordered_max_abs_logit_diff": a_diff, "reordered_at_position": a_at,
+                "reordered_mean_abs_logit_diff": a_mean, "reordered_argmax_agreement": a_agree,
+                "tolerance_mean": ALT_MEAN_TOL * a_mean, "tolerance_agreement": a_agree - ALT_AGREE_TOL}
+        ok = mean <= res["tolerance_mean"] and agree >= res["tolerance_agreement"]
+    print(json.dumps({"phase": "prefill", "arch": cfg.name, "batch": 1, "seq": PREFILL_LEN, **extra,
+                      f"{kernel.__name__}_launches": launches, "ms": prefill_ms,
+                      "tokens_per_s": PREFILL_LEN / (prefill_ms / 1e3),
+                      f"plain_{next(iter(plain))}_ms": plain_ms, **res}), flush=True)
+    print(f"serve: {cfg.name} prefill {PREFILL_LEN / (prefill_ms / 1e3):.1f} tokens/s "
+          f"(Model.forward, B 1, S {PREFILL_LEN})", flush=True)
+    if not ok:
+        fail(f"{cfg.name} prefill logits: kernel vs plain {res}")
+    return launches
+
+
+def serve_engine(torch, model, qparams, cfg, dev, kmod, per_step: dict) -> dict:
+    """(b) ServeEngine over the quantized params with a 64-node
+    FleetServeMonitor(executor="cuda") as on_step: 8 prompts of 128 seeded
+    tokens, 64 greedy new tokens.  ``per_step`` maps each kernel's wrapper
+    to its launches per decode step, which must hold over every step.
+    Returns each kernel's launches by name."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.serve import FleetServeMonitor, ServeEngine
+
     monitor = TimedMonitor(torch, FleetServeMonitor(n=MONITOR_NODES, executor="cuda", device=dev))
     clock = StepClock(torch, model)
     engine = ServeEngine(clock, qparams, ServeConfig(), max_len=PROMPT_LEN + NEW_TOKENS,
                          on_step=monitor)
     rng = torch.Generator().manual_seed(SEED + 3)
     prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, PROMPT_LEN), generator=rng).tolist()
-    fix_mod.fixmatmul.launches = 0
+    for fn in per_step:
+        fn.launches = 0
     kmod.vmloop_call.launches = 0
     t = time.perf_counter()
     outs = engine.generate(prompts, max_new_tokens=NEW_TOKENS)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t
-    launches_fix = fix_mod.fixmatmul.launches
+    launches = {fn.__name__: fn.launches for fn in per_step}
     launches_vm = kmod.vmloop_call.launches
     steps = len(clock.ms)
-    per_step = 7 * cfg.num_layers + 1
-    if launches_fix != per_step * steps:
-        fail(f"fixmatmul launched {launches_fix} times over {steps} decode steps, "
-             f"not {per_step} per step")
+    for fn, n in per_step.items():
+        if fn.launches != n * steps:
+            fail(f"{cfg.name}: {fn.__name__} launched {fn.launches} times over {steps} decode "
+                 f"steps, not {n} per step")
     if launches_vm <= 0:
-        fail("the serve monitor launched the vmloop kernel no time")
+        fail(f"{cfg.name}: the serve monitor launched the vmloop kernel no time")
     reports = monitor.monitor.reports()
     if reports != [[SERVE_BATCH] * NEW_TOKENS] * MONITOR_NODES:
-        fail(f"monitor reports {sorted({tuple(r) for r in reports})[:2]}, expected "
+        fail(f"{cfg.name}: monitor reports {sorted({tuple(r) for r in reports})[:2]}, expected "
              f"[{SERVE_BATCH}] * {NEW_TOKENS} on each of {MONITOR_NODES} nodes")
     if [len(o) for o in outs] != [PROMPT_LEN + NEW_TOKENS] * SERVE_BATCH or not all(
             0 <= tok < cfg.vocab_size for o in outs for tok in o):
-        fail("generated tokens: wrong count or out of the vocabulary")
+        fail(f"{cfg.name}: generated tokens: wrong count or out of the vocabulary")
     prefill_steps, decode_steps = clock.ms[:PROMPT_LEN], clock.ms[PROMPT_LEN:]
     decode_s = total_s - sum(prefill_steps) / 1e3 - sum(monitor.ms) / 1e3
+    counts = {}
+    for name, n in launches.items():
+        counts[f"{name}_launches"] = n
+        counts[f"{name}_per_step"] = n / steps
     print(json.dumps({
-        "phase": "serve", "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
+        "phase": "serve", "arch": cfg.name, "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
         "new_tokens": NEW_TOKENS, "monitor_nodes": MONITOR_NODES,
-        "decode_steps": steps, "fixmatmul_launches": launches_fix,
-        "fixmatmul_per_step": launches_fix / steps, "vmloop_launches": launches_vm,
+        "decode_steps": steps, **counts, "vmloop_launches": launches_vm,
         "generate_s": total_s,
         "replay_prefill_tokens_per_s": SERVE_BATCH * PROMPT_LEN / (sum(prefill_steps) / 1e3),
         "decode_tokens_per_s": engine.stats.decode_tokens / decode_s,
@@ -582,17 +756,41 @@ def serve_danube(torch, dev, fix_mod, flash_mod, kmod):
         "monitor_ms_per_step": sum(monitor.ms) / len(monitor.ms),
         "monitor_transfer": monitor.monitor.transfer_stats(),
     }), flush=True)
-    print(f"serve: prefill {PREFILL_LEN / (prefill_ms / 1e3):.1f} tokens/s (Model.forward, "
-          f"B 1, S {PREFILL_LEN})", flush=True)
-    print(f"serve: decode {engine.stats.decode_tokens / decode_s:.1f} tokens/s "
+    print(f"serve: {cfg.name} decode {engine.stats.decode_tokens / decode_s:.1f} tokens/s "
           f"(B {SERVE_BATCH}, monitor excluded)", flush=True)
-    print(f"serve: {sum(decode_steps) / len(decode_steps):.3f} ms per decode step", flush=True)
-    print(f"serve: monitor {sum(monitor.ms) / len(monitor.ms):.3f} ms per step "
+    print(f"serve: {cfg.name} {sum(decode_steps) / len(decode_steps):.3f} ms per decode step",
+          flush=True)
+    print(f"serve: {cfg.name} monitor {sum(monitor.ms) / len(monitor.ms):.3f} ms per step "
           f"({MONITOR_NODES} nodes, executor=cuda)", flush=True)
+    return launches
+
+
+def serve_danube(torch, dev, fix_mod, flash_mod, kmod):
+    """Phase 7 (a)-(d).  Returns the fixmatmul and flash launches of the
+    main path."""
+    from repro_torch.config import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import blocked_attention
+    from repro_torch.models.quantized import quantize_params
+    from repro_torch.utils.tree import tree_map_with_names
+
+    cfg, model, params = build_full(torch, ARCH, dev)
+
+    # (a) prefill through the flash kernel, against the plain attention
+    launches_flash = prefill(torch, model, params, cfg, dev, flash_mod.flash_attention,
+                             {"attention": blocked_attention}, {"window": cfg.sliding_window})
+    torch.cuda.empty_cache()
+
+    # (b) quantize, then serve with the VM fleet as the measuring job
+    qparams = quantize_params(params)
+    del params
+    torch.cuda.empty_cache()
+    launches_fix = serve_engine(torch, model, qparams, cfg, dev, kmod,
+                                {fix_mod.fixmatmul: 7 * cfg.num_layers + 1})["fixmatmul"]
 
     # (d) where a decode step's device time goes
     profile_decode(torch, model, qparams, cfg, dev)
-    del qparams, engine
+    del qparams
     torch.cuda.empty_cache()
 
     # (c) small input, held against the CPU: the SMOKE config's quantized
@@ -616,6 +814,112 @@ def serve_danube(torch, dev, fix_mod, flash_mod, kmod):
     print(f"serve: SMOKE quantized decode, 3 rows x 20 steps (the window-8 cache wraps): "
           f"card vs CPU max abs logit diff {worst:.3g} (tolerance {SMOKE_TOL})", flush=True)
     return launches_fix, launches_flash
+
+
+def serve_rwkv6(torch, dev, fix_mod, rwkv_mod, kmod):
+    """Phase 7 (e): rwkv6-7b at full width.  Returns the rwkv6_scan
+    launches by path ("prefill", "serve") and the fixmatmul launches."""
+    from repro_torch.config import ServeConfig, get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.models.quantized import quantize_params
+    from repro_torch.models.rwkv6 import chunked_wkv
+    from repro_torch.serve import ServeEngine
+    from repro_torch.utils.tree import tree_map_with_names
+
+    cfg, model, params = build_full(torch, RWKV_ARCH, dev)
+    # bf16 rounding of each layer's wkv output, one step either way, grows
+    # through 32 layers of random weights (the largest difference sits at
+    # position 0, where a head's output is the bonus term alone): the
+    # plain version against itself with chunks of 32 calibrates how far
+    # the logits may move; check_wkv_layers holds the kernel itself to one
+    # bf16 step on every layer's real inputs.
+    launches = {"prefill": prefill(torch, model, params, cfg, dev, rwkv_mod.rwkv6_scan,
+                                   {"wkv": chunked_wkv}, {"chunk": 64},
+                                   {"wkv": functools.partial(chunked_wkv, chunk=32)})}
+    torch.cuda.empty_cache()
+    check_wkv_layers(torch, model, params, cfg, dev)
+    torch.cuda.empty_cache()
+    qparams = quantize_params(params)
+    del params
+    torch.cuda.empty_cache()
+    served = serve_engine(torch, model, qparams, cfg, dev, kmod,
+                          {rwkv_mod.rwkv6_scan: cfg.num_layers, fix_mod.fixmatmul: 1})
+    launches["serve"] = served["rwkv6_scan"]
+    profile_decode(torch, model, qparams, cfg, dev)
+    del qparams
+    torch.cuda.empty_cache()
+
+    # small input, held against the CPU: the SMOKE config's quantized
+    # engine gives the same greedy tokens on the card as on the CPU
+    small = get_smoke(RWKV_ARCH)
+    cpu_model, gpu_model = build_model(small, "cpu"), build_model(small, dev)
+    p_cpu = quantize_params(cpu_model.init(SEED))
+    p_gpu = tree_map_with_names(lambda _, x: x.to(dev), p_cpu)
+    prompts = torch.randint(0, small.vocab_size, (3, 12),
+                            generator=torch.Generator().manual_seed(SEED)).tolist()
+    before = rwkv_mod.rwkv6_scan.launches
+    on_cpu = ServeEngine(cpu_model, p_cpu, ServeConfig(), max_len=40).generate(prompts, 20)
+    on_gpu = ServeEngine(gpu_model, p_gpu, ServeConfig(), max_len=40).generate(prompts, 20)
+    if rwkv_mod.rwkv6_scan.launches == before:
+        fail("the SMOKE engine on the card did not launch rwkv6_scan")
+    if on_gpu != on_cpu:
+        fail(f"SMOKE {RWKV_ARCH} quantized engine: card tokens {on_gpu} != CPU tokens {on_cpu}")
+    print(f"serve: SMOKE {RWKV_ARCH} quantized engine, 3 prompts of 12, 20 greedy tokens: "
+          f"card tokens equal the CPU's", flush=True)
+    return launches, served["fixmatmul"]
+
+
+def check_wkv_layers(torch, model, params, cfg, dev) -> None:
+    """The kernel against its plain version on the prefill's own inputs,
+    layer by layer (each layer's input comes from the kernel's path)."""
+    from repro_torch.kernels.rwkv6_scan.ops import wkv
+    from repro_torch.models.rwkv6 import chunked_wkv
+
+    errs = []
+
+    def checking(r, k, v, logw, u, state, K):
+        out, s1 = wkv(r, k, v, logw, u, state, K)
+        ref, ref_s1 = chunked_wkv(r, k, v, logw, u, state, K)
+        errs.append(torch.stack([(out.float() - ref).abs().max() / ref.abs().max().clamp(min=1),
+                                 (s1 - ref_s1).abs().max() / ref_s1.abs().max().clamp(min=1)]))
+        return out, s1
+
+    model.forward(params, {"tokens": prefill_tokens(torch, cfg, dev)}, wkv=checking)
+    out_rel, s_rel = (float(x) for x in torch.stack(errs).amax(0))
+    tol = RWKV_TOL["bfloat16"]
+    print(f"check rwkv6_scan on the prefill's inputs, {len(errs)} layers: out max abs err "
+          f"{out_rel:.3g} of the largest (tolerance {tol}), state {s_rel:.3g} "
+          f"(tolerance {RWKV_STATE_TOL})", flush=True)
+    if len(errs) != cfg.num_layers or out_rel > tol or s_rel > RWKV_STATE_TOL:
+        fail(f"rwkv6_scan on the prefill's inputs: out {out_rel}, state {s_rel}")
+
+
+def lutact_path(torch, dev, lut_mod) -> int:
+    """Phase 7 (f): the public op fixed_sigmoid over int32 activations
+    (scale 1:1000, spread past the saturation edge) at LUT_SIZES.  Returns
+    lut_sigmoid's launches."""
+    from repro_torch.kernels.lutact import fixed_sigmoid
+    from repro_torch.kernels.lutact.ref import lut_sigmoid_ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    xs = [torch.randint(-12000, 12001, (n, n), generator=g, device=dev, dtype=torch.int32)
+          for n in LUT_SIZES]
+    lut_mod.lut_sigmoid.launches = 0
+    outs = [fixed_sigmoid(x) for x in xs]
+    torch.cuda.synchronize()
+    launches = lut_mod.lut_sigmoid.launches
+    if launches != len(xs):
+        fail(f"fixed_sigmoid launched lut_sigmoid {launches} times for {len(xs)} inputs")
+    for x, out in zip(xs, outs):
+        if out.shape != x.shape or not torch.equal(out, lut_sigmoid_ref(x)):
+            fail(f"fixed_sigmoid {tuple(x.shape)}: kernel != plain version")
+        exact = torch.sigmoid(x.double() / 1000)
+        err = float((out.double() / 1000 - exact).abs().max())
+        if err >= 0.01:
+            fail(f"fixed_sigmoid {tuple(x.shape)}: max error {err} against the sigmoid >= 1%")
+    print(f"lutact: fixed_sigmoid over {[tuple(x.shape) for x in xs]}: {launches} launches, "
+          f"equal to the plain version, max error {err:.4f} against the real sigmoid", flush=True)
+    return launches
 
 
 def profile_decode(torch, model, qparams, cfg, dev) -> None:
@@ -643,6 +947,7 @@ def profile_decode(torch, model, qparams, cfg, dev) -> None:
         us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
         name = ev.key.lower()
         key = ("fixmatmul" if "fixmatmul" in name else
+               "rwkv6_scan" if "rwkv6_scan" in name else
                "memcpy/memset" if "memcpy" in name or "memset" in name else
                "gemm (torch)" if "gemm" in name or "cutlass" in name or "gemv" in name else
                "reduce/softmax" if "reduce" in name or "softmax" in name else
@@ -757,6 +1062,85 @@ def time_flash(torch, flash_mod, dev) -> dict:
         "replaces": "src/repro/kernels/flashattn/flashattn.py:97",
         "ms": ms, "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib,
+    }
+
+
+def time_rwkv6_scan(torch, rwkv_mod, dev, launches: dict) -> dict:
+    """ms per launch at the prefill's shape (B 1, S 8192) and the decode
+    step's (B 8, S 1), bf16, H 64, K 64; the kernels line takes their
+    mean weighted by the main path's launches of each.  The decode shape's
+    states rotate through copies past the L2 cache, as 32 layers' states
+    find it cold."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    c = get_arch(RWKV_ARCH)
+    K = c.ssm_head_dim
+    H = c.d_model // K
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    per, w = {}, {"prefill": launches["prefill"], "serve": launches["serve"]}
+    for path, B, S in (("prefill", 1, PREFILL_LEN), ("serve", SERVE_BATCH, 1)):
+        r, k, v, logw, u, s0 = rwkv6_inputs(torch, B, H, S, K, torch.bfloat16, dev, g)
+        L = min(64, S)
+        state_bytes = 4 * B * H * K * K
+        copies = max(1, int(-(-2 * L2_BYTES // state_bytes))) if S == 1 else 1
+        states = [s0] + [s0.clone() for _ in range(copies - 1)]
+        ms = cuda_ms(torch, lambda i: rwkv_mod.rwkv6_scan(r, k, v, logw, u, states[i % copies]))
+        plain = cuda_ms(torch, lambda i: rwkv6_scan_ref(r, k, v, logw, u, states[i % copies]),
+                        reps=3, warmup=1)
+        n = B * H * S * K
+        nbytes = 2 * 4 * n + 4 * n + 2 * state_bytes          # r, k, v, out; logw; two states
+        chunks = B * H * (S // L)
+        exps = chunks * (L * (L - 1) // 2) * K
+        # f32 flops: A (r k e, two products and a sum), r_dec @ S0, A @ v, k_dec^T @ v
+        flops = chunks * (3 * (L * (L - 1) // 2) * K + 2 * L * K * K
+                          + (L * (L - 1) // 2) * K * 2 + 2 * L * K * K)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_exp, t_flops = 1e3 * exps / SFU_PER_S, 1e3 * flops / FP32_FLOPS
+        t_ops = max(t_exp, t_flops)         # the SFU and the FMA pipes issue side by side
+        per[path] = {"B": B, "S": S, "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "exps": exps, "flops": flops}
+        print(f"rwkv6_scan timing B={B} H={H} S={S} K={K} L={L} bf16: {ms:.5f} ms/launch, plain "
+              f"{plain:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms ({per[path]['bound_by']}: "
+              f"{nbytes / 1e6:.2f} MB = {t_bytes:.6f} ms, {exps / 1e9:.4f} G exp = {t_exp:.6f} ms, "
+              f"{flops / 1e9:.3f} GFLOP f32 = {t_flops:.6f} ms); no library call computes it",
+              flush=True)
+        del states, r, k, v, logw
+    total = sum(w.values())
+    mean = {key: sum(w[p] * per[p][key] for p in per) / total for key in ("ms", "plain_ms", "bound_ms")}
+    heaviest = max(per, key=lambda p: w[p] * per[p]["bound_ms"])
+    return {
+        "name": "rwkv6_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:85",
+        **mean, "bound_by": per[heaviest]["bound_by"], "library_ms": None, "per_shape": per,
+    }
+
+
+def time_lut_sigmoid(torch, lut_mod, dev) -> dict:
+    """ms per launch over int32 (n, n) for n in LUT_SIZES; the kernels line
+    takes the largest, past the L2 cache.  Bound: 8 bytes per element."""
+    from repro_torch.kernels.lutact.ref import lut_sigmoid_ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    per = {}
+    for n in LUT_SIZES:
+        x = torch.randint(-12000, 12001, (n, n), generator=g, device=dev, dtype=torch.int32)
+        ms = cuda_ms(torch, lambda i: lut_mod.lut_sigmoid(x))
+        plain = cuda_ms(torch, lambda i: lut_sigmoid_ref(x), reps=5)
+        bound = 1e3 * 8 * n * n / HBM_BYTES_PER_S
+        per[f"{n}x{n}"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound}
+        print(f"lut_sigmoid timing {n}x{n} int32: {ms:.5f} ms/launch, plain {plain:.5f} ms, bound "
+              f"{bound:.6f} ms (bytes: {8 * n * n / 1e6:.1f} MB); no library call computes it",
+              flush=True)
+        del x
+    big = per[f"{LUT_SIZES[-1]}x{LUT_SIZES[-1]}"]
+    return {
+        "name": "lut_sigmoid", "route": "cuda",
+        "source": "src/repro_torch/kernels/lutact/csrc/lutact.cu",
+        "replaces": "src/repro/kernels/lutact/lutact.py:58",
+        **big, "bound_by": "bytes", "library_ms": None, "per_shape": per,
     }
 
 

@@ -18,6 +18,7 @@ _SMOKE: dict[str, ModelConfig] = {}
 
 _ARCH_MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 # The JAX package's other archs, with what the port still lacks for each.
@@ -27,7 +28,6 @@ _NOT_PORTED = {
     "granite-34b": "the other dense configs",
     "qwen2-moe-a2.7b": "the moe family (moe_sorted)",
     "qwen3-moe-30b-a3b": "the moe family (moe_sorted)",
-    "rwkv6-7b": "the rwkv6 family (rwkv6_scan)",
     "internvl2-2b": "the vlm family",
     "whisper-tiny": "the encdec family",
     "zamba2-1.2b": "the hybrid family (mamba2)",

@@ -5,6 +5,7 @@ from repro_torch.core.fixedpoint.luts import (
     fplog10,
     fpsigmoid,
     fpsigmoid_interp,
+    fpsigmoid_interp_t,
     fpsin,
     fpsqrt,
     fprelu,
@@ -22,6 +23,6 @@ from repro_torch.core.fixedpoint.fxp import (
 __all__ = [
     "LOG10_LUT", "SGLUT13", "SGLUT310",
     "fplog10", "fpsigmoid", "fpsigmoid_interp", "fpsin", "fpsqrt", "fprelu",
-    "fplog10_t", "fpsigmoid_t", "fpsin_t", "fpsqrt_t",
+    "fplog10_t", "fpsigmoid_t", "fpsigmoid_interp_t", "fpsin_t", "fpsqrt_t",
     "apply_scale", "apply_scale_t", "quantize_per_channel",
 ]

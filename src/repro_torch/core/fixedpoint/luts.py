@@ -205,6 +205,7 @@ def lut(name: str, device) -> torch.Tensor:
             "sg13": SGLUT13,
             "sg310": SGLUT310,
             "sinq": _SIN_QUARTER,
+            "sig_interp": _SIG_INTERP_LUT,
         }[name]
         _LUTS[key] = torch.as_tensor(np.asarray(arr, np.int32), device=device)
     return _LUTS[key]
@@ -263,3 +264,22 @@ def fpsqrt_t(x: torch.Tensor) -> torch.Tensor:
     r = torch.where(_fdiv(x, r) < r, r - 1, r)
     return torch.where(x == 0, 0, torch.clamp(r, min=0))
 
+
+def fpsigmoid_interp_t(x: torch.Tensor) -> torch.Tensor:
+    """The interpolated sigmoid over int32 tensors (the reference's
+    ``fpsigmoid_interp_jnp``; the plain version of the lut_sigmoid kernel).
+    Not the Alg. 2 ``fpsigmoid_t`` of the VM's ``sigmoid`` word.  At
+    INT_MIN ``abs`` wraps, the bucket clips to 0 and the product wraps, as
+    in the reference."""
+    x = x.to(torch.int32)
+    mirror = x < 0
+    ax = torch.abs(x)
+    step = _SIG_INTERP_MAX // _SIG_INTERP_N
+    i = torch.clamp(_fdiv(ax, step), 0, _SIG_INTERP_N - 1)
+    r = ax - i * step
+    tab = lut("sig_interp", x.device)
+    y0 = tab[i.long()]
+    y1 = tab[(i + 1).long()]
+    y = y0 + _fdiv((y1 - y0) * r, step)
+    y = torch.where(ax >= _SIG_INTERP_MAX, 1000, y)
+    return torch.where(mirror, 1000 - y, y)

@@ -19,7 +19,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.fixmatmul.ref import fixmatmul_ref
-from repro_torch.kernels.nvcc import CudaLibrary, check_launch
+from repro_torch.kernels.nvcc import CudaLibrary, check_launch, sm_count
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BN, BK = 64, 64                  # columns and k per block stage in csrc/fixmatmul.cu
@@ -34,7 +34,6 @@ def _bind(lib) -> None:
 
 
 LIBRARY = CudaLibrary("fixmatmul", CSRC, "fixmatmul.cu", (), _bind)
-_SMS: dict = {}
 
 
 def rows_per_thread(M: int) -> int:
@@ -80,9 +79,7 @@ def fixmatmul(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: torch.Te
         return torch.empty((M, N), dtype=torch.float32, device=dev)
     xq, wq, sx, sw = (t.contiguous() for t in (xq, wq, sx, sw))
     lib = LIBRARY.load()
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, per = k_splits(M, K, N, _SMS[dev])
+    splits, per = k_splits(M, K, N, sm_count(dev))
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     part = torch.empty((splits, M, N), dtype=torch.int32, device=dev) if splits > 1 else None
     err = lib.fixmatmul_launch(

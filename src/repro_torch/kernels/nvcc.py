@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Callable
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 
@@ -96,6 +98,16 @@ class CudaLibrary:
         the last compile's ``-Xptxas -v`` report."""
         keys = ("Function properties", "registers", "stack frame", "spill")
         return [ln.strip() for ln in self.log.splitlines() if any(k in ln for k in keys)]
+
+
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA ``device`` (cached)."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def check_launch(err: int, name: str) -> None:

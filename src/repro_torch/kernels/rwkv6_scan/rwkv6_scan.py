@@ -1,0 +1,100 @@
+"""The rwkv6_scan CUDA kernel: build, bind and launch.
+
+Replaces the TPU kernel ``rwkv6_scan`` of the JAX package
+(``src/repro/kernels/rwkv6_scan/rwkv6_scan.py``, ``pl.pallas_call``).  The
+source is ``csrc/rwkv6_scan.cu`` (see the note at its top for what bounds
+it), built by ``LIBRARY`` (``kernels/nvcc.py``) with nvcc for sm_90a at
+first use and loaded with ``ctypes``.
+
+A CUDA tensor launches the kernel, and a failed build or launch raises;
+only CPU tensors take the plain version (``ref.rwkv6_scan_ref``).
+``rwkv6_scan.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.nvcc import CudaLibrary, check_launch
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+MAX_K = 64                       # head size and chunk length the kernel's shared memory holds
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _bind(lib) -> None:
+    fn = lib.rwkv6_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("rwkv6_scan", CSRC, "rwkv6_scan.cu", (), _bind)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+               u: torch.Tensor, state0: torch.Tensor, *, chunk: int = 64,
+               state_out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV6 WKV over chunks of L = min(chunk, S).
+
+    r, k, v (B, H, S, K) in one dtype (f32 or bf16), logw (B, H, S, K) f32
+    (<= 0), u (H, K) f32, state0 (B, H, K, K) f32; any strides with K
+    contiguous.  Returns (out (B, H, S, K) in r's dtype, the new state).
+    The new state goes into ``state_out`` when it is given, which may be
+    ``state0`` itself (in place).  CUDA tensors launch the kernel (or
+    raise); CPU tensors take the plain version."""
+    B, H, S, K = r.shape
+    if any(tuple(t.shape) != (B, H, S, K) for t in (k, v, logw)) or tuple(u.shape) != (H, K) \
+            or tuple(state0.shape) != (B, H, K, K):
+        raise ValueError(f"rwkv6_scan: shapes r {tuple(r.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} logw {tuple(logw.shape)} u {tuple(u.shape)} "
+                         f"state0 {tuple(state0.shape)} do not agree")
+    L = min(chunk, S)
+    if L < 1 or S % L:
+        raise ValueError(f"rwkv6_scan: seq {S} is not a positive multiple of the chunk {L}")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError("rwkv6_scan: r, k and v must share one dtype")
+    if any(t.dtype != torch.float32 for t in (logw, u, state0)):
+        raise ValueError("rwkv6_scan: logw, u and state0 must be float32")
+    if state_out is not None and (tuple(state_out.shape) != (B, H, K, K)
+                                  or state_out.dtype != torch.float32):
+        raise ValueError("rwkv6_scan: state_out must be (B, H, K, K) float32")
+    dev = r.device
+    if any(t.device != dev for t in (k, v, logw, u, state0)) or (
+            state_out is not None and state_out.device != dev):
+        raise ValueError("rwkv6_scan: operands on different devices")
+    if dev.type == "cpu":
+        out, s1 = rwkv6_scan_ref(r, k, v, logw, u, state0, chunk=chunk)
+        if state_out is not None:
+            s1 = state_out.copy_(s1)
+        return out.to(r.dtype), s1
+    if dev.type != "cuda":
+        raise ValueError(f"rwkv6_scan: unsupported device {dev}")
+    if r.dtype not in _DTYPE_CODE:
+        raise ValueError(f"rwkv6_scan kernel takes float32 or bfloat16, got {r.dtype}")
+    if K > MAX_K or L > MAX_K:
+        raise ValueError(f"rwkv6_scan kernel takes head size and chunk <= {MAX_K}, "
+                         f"got {K} and {L}")
+    if state_out is not None and not state_out.is_contiguous():
+        raise ValueError("rwkv6_scan: state_out must be contiguous")
+    r, k, v, logw = (t if t.stride(-1) == 1 else t.contiguous() for t in (r, k, v, logw))
+    u, state0 = u.contiguous(), state0.contiguous()
+    lib = LIBRARY.load()
+    out = torch.empty((B, S, H, K), dtype=r.dtype, device=dev).movedim(2, 1)
+    s1 = state_out if state_out is not None else torch.empty_like(state0)
+    strides = (ctypes.c_longlong * 15)(*[s for t in (r, k, v, logw, out) for s in t.stride()[:3]])
+    err = lib.rwkv6_scan_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+        state0.data_ptr(), out.data_ptr(), s1.data_ptr(), strides, B, H, S, K, L,
+        _DTYPE_CODE[r.dtype], torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check_launch(err, "rwkv6_scan")
+    rwkv6_scan.launches += 1
+    return out, s1
+
+
+rwkv6_scan.launches = 0

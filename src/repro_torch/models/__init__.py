@@ -1,4 +1,4 @@
-"""The dense decoder LM of the PyTorch port (counterpart of ``repro.models``).
+"""The models of the PyTorch port (counterpart of ``repro.models``).
 
 ``Model`` and ``build_model`` load on first use: the flash attention
 kernel's plain version lives in ``models.attention``, and importing the

@@ -1,16 +1,18 @@
-"""Model factory for the decoder LM (counterpart of ``repro.models.model``,
-``family="dense"``).
+"""Model factory (counterpart of ``repro.models.model``) for the families
+the port builds: ``family="dense"`` (``Model``) and ``family="rwkv6"``
+(``RWKV6Model``).
 
-``build_model(cfg)`` returns a ``Model`` with
+``build_model(cfg)`` returns a model with
 
   * ``init(seed) -> params``                 nested dict; ``layers`` is a list
   * ``forward(params, batch) -> (logits, aux)``   prefill
-  * ``init_cache(batch, cache_len) -> KVCache``   decode state
+  * ``init_cache(batch, cache_len) -> cache``    decode state (a
+    ``KVCache``, or an ``RWKVState`` stacked over layers)
   * ``decode_step(params, cache, tokens) -> (logits, cache)``
 
 ``device=None`` builds on CUDA and raises when there is none;
 ``device="cpu"`` builds on the CPU.  The other families of the JAX package
-(moe, rwkv6, hybrid, encdec, vlm) raise: later slices of the port.
+(moe, hybrid, encdec, vlm) raise: later slices of the port.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.vm.machine import resolve_device
+from repro_torch.models import rwkv6 as rw
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import dtype_of, normal_init
@@ -46,9 +49,12 @@ class Model:
         p = {"embed": {"tokens": normal_init(gen, (v, cfg.d_model), dt)}}
         if not cfg.tie_embeddings:
             p["lm_head"] = normal_init(gen, (cfg.d_model, v), dt)
-        p["layers"] = [tf.init_decoder_layer(gen, cfg, dt) for _ in range(cfg.num_layers)]
+        p["layers"] = [self._init_layer(gen) for _ in range(cfg.num_layers)]
         p |= tf.init_norm(cfg, "final", cfg.d_model, dt, self.device)
         return p
+
+    def _init_layer(self, gen) -> dict:
+        return tf.init_decoder_layer(gen, self.cfg, self.dtype)
 
     def _embed(self, params, tokens):
         return params["embed"]["tokens"][tokens]
@@ -91,9 +97,75 @@ class Model:
         return self._unembed(params, x), KVCache(cache.k, cache.v, cache.pos + 1)
 
 
+class RWKV6Model(Model):
+    """RWKV6: pre-norm time mix (the rwkv6_scan kernel) and channel mix per
+    layer, an O(1) recurrent state instead of a KV cache."""
+
+    def _init_layer(self, gen) -> dict:
+        cfg, dt = self.cfg, self.dtype
+        p = {"time": rw.init_time_mix(gen, cfg.d_model, dt),
+             "chan": rw.init_channel_mix(gen, cfg.d_model, cfg.d_ff, dt)}
+        p |= tf.init_norm(cfg, "ln1", cfg.d_model, dt, self.device)
+        p |= tf.init_norm(cfg, "ln2", cfg.d_model, dt, self.device)
+        return p
+
+    def _layer(self, lp, x, state: rw.RWKVState, *, wkv=None, state_out=None):
+        K = self.cfg.ssm_head_dim
+        h = tf.norm(self.cfg, x, lp, "ln1")
+        att, shift_t, s1 = rw.time_mix(lp["time"], h, state.shift_t, state.wkv, K, wkv=wkv,
+                                       state_out=state_out)
+        x = x + att
+        h = tf.norm(self.cfg, x, lp, "ln2")
+        ch, shift_c = rw.channel_mix(lp["chan"], h, state.shift_c)
+        return x + ch, rw.RWKVState(s1, shift_t, shift_c)
+
+    def _zero_state(self, batch: int, layers: tuple = ()) -> rw.RWKVState:
+        cfg = self.cfg
+        K = cfg.ssm_head_dim
+        H = cfg.d_model // K
+        zeros = lambda *shape, dt: torch.zeros((*layers, batch, *shape), dtype=dt,
+                                               device=self.device)
+        return rw.RWKVState(zeros(H, K, K, dt=torch.float32), zeros(cfg.d_model, dt=self.dtype),
+                            zeros(cfg.d_model, dt=self.dtype))
+
+    def forward(self, params, batch, *, wkv=None):
+        """Full-sequence forward from a zero state.  ``wkv`` (the signature
+        of ``rwkv6.chunked_wkv``) replaces the rwkv6_scan op in every
+        layer; a check passes the plain version to hold the kernel's path
+        against it."""
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        state0 = self._zero_state(tokens.shape[0])
+        for lp in params["layers"]:
+            x, _ = self._layer(lp, x, state0, wkv=wkv)
+        x = tf.norm(self.cfg, x, params, "final")
+        return self._unembed(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def init_cache(self, batch: int, cache_len: int) -> rw.RWKVState:
+        """The recurrent state of every layer, zero; ``cache_len`` is
+        unused (the state does not grow)."""
+        return self._zero_state(batch, (self.cfg.num_layers,))
+
+    def decode_step(self, params, cache: rw.RWKVState, tokens):
+        """One token per row, ``tokens`` (B, 1).  The cache is updated in
+        place (the kernel writes each layer's new wkv state over the old
+        one) and returned."""
+        x = self._embed(params, tokens)
+        for i, lp in enumerate(params["layers"]):
+            state = rw.RWKVState(cache.wkv[i], cache.shift_t[i], cache.shift_c[i])
+            x, new = self._layer(lp, x, state, state_out=cache.wkv[i])
+            cache.shift_t[i].copy_(new.shift_t)
+            cache.shift_c[i].copy_(new.shift_c)
+        x = tf.norm(self.cfg, x, params, "final")
+        return self._unembed(params, x), cache
+
+
+_FAMILIES = {"dense": Model, "rwkv6": RWKV6Model}
+
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not in the PyTorch port yet; it builds "
-            "family='dense' (ROADMAP.md queue 1)")
-    return Model(cfg, device)
+            f"{sorted(_FAMILIES)} (ROADMAP.md queue 1)")
+    return _FAMILIES[cfg.family](cfg, device)

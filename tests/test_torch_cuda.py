@@ -2,7 +2,9 @@
 vmloop byte-identical over the per-opcode sweep and random node states
 (and the fleet's ``executor="cuda"`` identical to ``executor="batched"``),
 fixmatmul bitwise equal, flash attention within 1e-4 in f32 and 2e-2 in
-bf16; and a CUDA tensor never takes the plain version (each launch counter
+bf16, rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``) of the largest
+value, with its state written in place or not, lut_sigmoid bitwise equal;
+and a CUDA tensor never takes the plain version (each launch counter
 grows).  Needs an NVIDIA GPU with nvcc; every test here skips without one.
 
 Run on the card with ``python -m pytest tests/test_torch_cuda.py``.
@@ -19,9 +21,13 @@ from repro_torch.kernels.vmloop import check, vmloop as kmod
 from repro_torch.kernels.fixmatmul.ref import fixmatmul_ref
 from repro_torch.kernels.flashattn import flash_attention
 from repro_torch.kernels.flashattn.ref import flash_attention_ref
+from repro_torch.kernels.lutact.ref import lut_sigmoid_ref
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.kernels.vmloop.ref import core_of, vmloop_ref
 
 fmod = importlib.import_module("repro_torch.kernels.fixmatmul.fixmatmul")
+lmod = importlib.import_module("repro_torch.kernels.lutact.lutact")
+rmod = importlib.import_module("repro_torch.kernels.rwkv6_scan.rwkv6_scan")
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +123,46 @@ def test_flash_attention_matches_plain_version(B, H, KV, Sq, Sk, hd, causal, win
     assert flash_attention.launches == launches + 1 and out.dtype == dtype
     ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     assert float((out.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype,out_tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("B,H,S,K,chunk", [
+    (1, 4, 256, 64, 64), (2, 3, 128, 16, 32), (8, 8, 1, 64, 64), (1, 2, 40, 16, 64),
+    (2, 2, 48, 64, 16), (1, 2, 8, 16, 1),
+])
+def test_rwkv6_scan_matches_plain_version(B, H, S, K, chunk, dtype, out_tol, cuda):
+    """Tolerances are relative to the largest value of the plain version;
+    bf16 ``out`` is rounded once, so it may differ by one bf16 step."""
+    g = torch.Generator(device=cuda).manual_seed(B * S + K)
+    r, k, v = ((torch.randn((B, H, S, K), generator=g, device=cuda) * 0.5).to(dtype)
+               for _ in range(3))
+    logw = -torch.exp(torch.rand((B, H, S, K), generator=g, device=cuda) * 2 - 6)
+    u = torch.randn((H, K), generator=g, device=cuda) * 0.5
+    s0 = torch.randn((B, H, K, K), generator=g, device=cuda) * 0.1
+    launches = rmod.rwkv6_scan.launches
+    out, s1 = rmod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rmod.rwkv6_scan.launches == launches + 1 and out.dtype == dtype
+    ref, ref_s1 = rwkv6_scan_ref(r, k, v, logw, u, s0, chunk=chunk)
+    assert float((out.float() - ref).abs().max()) <= out_tol * max(1.0, float(ref.abs().max()))
+    assert float((s1 - ref_s1).abs().max()) <= 1e-4 * max(1.0, float(ref_s1.abs().max()))
+    s_in = s0.clone()
+    out2, s2 = rmod.rwkv6_scan(r, k, v, logw, u, s_in, chunk=chunk, state_out=s_in)
+    torch.cuda.synchronize()
+    assert s2 is s_in and torch.equal(out2, out) and torch.equal(s_in, s1)
+
+
+def test_lut_sigmoid_bitwise_equals_plain_version(cuda):
+    i32 = torch.iinfo(torch.int32)
+    edges = [i32.min, i32.min + 1, i32.max, 0, 1, -1] + [s * x for s in (1, -1)
+                                                         for x in (7999, 8000, 8001)]
+    edges += [m + d for m in range(-8250, 8251, 250) for d in (-1, 0, 1)]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    rnd = torch.randint(i32.min, i32.max, (1 << 20,), generator=g, device=cuda, dtype=torch.int32)
+    x = torch.cat([torch.tensor(edges, dtype=torch.int32, device=cuda), rnd])
+    for shaped in (x, x[1:], x[:3 * 7 * 1000].reshape(3, 7, 1000)):
+        launches = lmod.lut_sigmoid.launches
+        out = lmod.lut_sigmoid(shaped)
+        torch.cuda.synchronize()
+        assert lmod.lut_sigmoid.launches == launches + 1 and out.shape == shaped.shape
+        assert torch.equal(out, lut_sigmoid_ref(shaped))

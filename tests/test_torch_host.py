@@ -209,11 +209,15 @@ def _port_modules() -> list[str]:
 def test_port_imports_without_jax():
     """Every module of the port imports with jax blocked (and so with no
     module of the JAX package, which imports jax): the VM, the kernels, and
-    the serving path's config, models, serve and launch modules."""
+    the serving path's config, models (dense and rwkv6), serve and launch
+    modules."""
     mods = _port_modules()
     for m in ("repro_torch.kernels.fixmatmul.fixmatmul", "repro_torch.kernels.flashattn.ops",
               "repro_torch.models.model", "repro_torch.models.convert", "repro_torch.serve.vmhook",
-              "repro_torch.launch.serve", "repro_torch.configs.h2o_danube_1_8b"):
+              "repro_torch.launch.serve", "repro_torch.configs.h2o_danube_1_8b",
+              "repro_torch.configs.rwkv6_7b", "repro_torch.models.rwkv6",
+              "repro_torch.kernels.rwkv6_scan.rwkv6_scan", "repro_torch.kernels.rwkv6_scan.ops",
+              "repro_torch.kernels.lutact.lutact", "repro_torch.kernels.lutact.ops"):
         assert m in mods, m
     code = (
         "import sys, importlib\n"

@@ -68,7 +68,7 @@ def test_config_equals_reference():
 
 def test_other_archs_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
-        get_arch("rwkv6-7b")
+        get_arch("starcoder2-7b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     with pytest.raises(NotImplementedError):
