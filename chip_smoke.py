@@ -10,8 +10,9 @@ each printing its results on a line of its own:
   1. the card's name and power limit (nvidia-smi);
   2. build the five CUDA kernels (vmloop, fixmatmul, flash attention,
      rwkv6_scan, lut_sigmoid) from the sources in the checkout, one nvcc
-     each, all started together, and print each one's ptxas register and
-     spill lines;
+     per source (flash attention has two: bf16 on the tensor cores, f32 on
+     the FP32 pipes), all started together, and print each one's ptxas
+     register and spill lines;
   3. hold vmloop against its plain PyTorch version on the card: the
      per-opcode sweep and a batch of random node states, byte for byte on
      every field and on n_exec/bailed/bail_op; every claimed word must run
@@ -26,7 +27,9 @@ each printing its results on a line of its own:
   6. fixmatmul bitwise against its plain version at danube's decode shapes
      (M = 1, 8, 64), ragged shapes and extreme codes; flash attention
      against its plain version in bf16 and f32 over causal / non-causal,
-     windows, GQA, Sq != Sk, ragged lengths and head_dim 64/80/128;
+     windows (one of no multiple of 64), GQA, B 2, Sq != Sk, ragged
+     lengths, head_dim 16/36/64/72/80/128 and strided views (the BSHD
+     view, a row stride the bf16 kernel's 16-byte copies cannot take);
      rwkv6_scan against its plain version in bf16 and f32 (chunks of 64,
      32, 16 and 1, S < 64, many chunks, a non-zero and an aliased state,
      head size 64 and 16, a decay steep enough to clip, chained halves);
@@ -34,7 +37,8 @@ each printing its results on a line of its own:
      every LUT knot and its neighbours, 2**24 random values, 1-D and 3-D);
   7. the serve path at full width: h2o-danube-1.8b (24 layers, bf16,
      weights drawn on the card from a seed).  (a) prefill: Model.forward at
-     B = 1, S = 8192 through the flash kernel (24 launches), held against
+     B = 1, S = 8192 through the flash kernel (24 launches, all on the
+     tensor cores), held against
      the same forward with the plain attention; (b) quantize_params, then
      ServeEngine with FleetServeMonitor(n=64, executor="cuda") as on_step,
      64 greedy tokens for 8 prompts of 128 seeded tokens: 169 fixmatmul
@@ -131,7 +135,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nodes", type=int, default=N_NODES, help="fleet size of phase 4")
-    n_nodes = ap.parse_args().nodes
+    args = ap.parse_args()
+    n_nodes = args.nodes
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -164,7 +169,8 @@ def main() -> int:
 
     # 2. build: one nvcc per kernel, all started together
     t0 = time.perf_counter()
-    libs = (kmod.LIBRARY, fix_mod.LIBRARY, flash_mod.LIBRARY, rwkv_mod.LIBRARY, lut_mod.LIBRARY)
+    libs = (kmod.LIBRARY, fix_mod.LIBRARY, flash_mod.LIBRARY, flash_mod.TC_LIBRARY,
+            rwkv_mod.LIBRARY, lut_mod.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:
         for lib, fut in [(lib, pool.submit(lib.build)) for lib in libs]:
             try:
@@ -175,8 +181,8 @@ def main() -> int:
         lib.load()
         print(f"build: {lib.name} {lib.seconds:.2f} s nvcc", flush=True)
         print(f"ptxas {lib.name}: " + " | ".join(lib.ptxas_lines()), flush=True)
-    print(f"build: all five {time.perf_counter() - t0:.2f} s with loading", flush=True)
-
+    print(f"build: all {len(libs)} sources {time.perf_counter() - t0:.2f} s with loading",
+          flush=True)
     # 3. kernel vs plain version on the card
     max_err = 0
     for cfg in (VMConfig(cs_size=2048, steps_per_slice=64, mbox_size=4), VMConfig()):
@@ -463,32 +469,50 @@ def check_fixmatmul(torch, fix_mod, dev) -> float:
 
 
 def check_flash(torch, flash_mod, dev) -> float:
-    """Returns the largest error in bf16, the main path's type."""
+    """Returns the largest error in bf16, the main path's type.  Every
+    bf16 case must launch the tensor-core kernel, every f32 case the FP32
+    one."""
     from repro_torch.kernels.flashattn.ref import flash_attention_ref
 
+    fa = flash_mod.flash_attention
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    cases = [  # (B, H, KV, Sq, Sk, hd, causal, window)
-        (1, 32, 8, 512, 512, 80, True, 4096),
-        (1, 32, 8, 700, 700, 80, True, 8),
-        (2, 8, 8, 200, 200, 64, True, None),
-        (1, 8, 2, 100, 333, 128, False, None),
-        (2, 4, 1, 129, 129, 80, False, 8),
-        (1, 4, 4, 65, 193, 64, False, 4096),
-        (1, 8, 2, 300, 300, 128, True, 100),
+    cases = [  # (B, H, KV, Sq, Sk, hd, causal, window, layout)
+        (1, 32, 8, 512, 512, 80, True, 4096, "bhsd"),
+        (1, 32, 8, 700, 700, 80, True, 8, "bhsd"),
+        (2, 8, 8, 200, 200, 64, True, None, "bhsd"),
+        (1, 8, 2, 100, 333, 128, False, None, "bhsd"),      # non-causal ragged Sk
+        (2, 4, 1, 129, 129, 80, False, 8, "bhsd"),
+        (1, 4, 4, 65, 193, 64, False, 4096, "bhsd"),
+        (1, 8, 2, 300, 300, 128, True, 100, "bhsd"),
+        (1, 4, 2, 130, 130, 16, True, None, "bhsd"),        # hd 16 (SMOKE), ragged Sq
+        (1, 8, 2, 200, 200, 72, True, 100, "bhsd"),         # hd 72: zeroed columns 72..80
+        (1, 4, 1, 150, 150, 36, True, 70, "bhsd"),          # hd 36: the padded copy
+        (2, 8, 2, 333, 333, 80, True, 200, "bhsd"),         # B 2, GQA 4, window % 64 != 0
+        (2, 8, 2, 257, 257, 80, True, 100, "bshd"),         # ops.attention's view
+        (1, 8, 2, 200, 200, 80, True, None, "stride84"),    # no 16-byte row copies
     ]
     worst = {}
     for dt in (torch.bfloat16, torch.float32):
         tol = FLASH_TOL[str(dt).split(".")[1]]
         errs = []
-        for B, H, KV, Sq, Sk, hd, causal, window in cases:
-            q, k, v = (torch.randn(sh, generator=g, device=dev).to(dt)
-                       for sh in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
-            out = flash_mod.flash_attention(q, k, v, causal=causal, window=window)
+        for B, H, KV, Sq, Sk, hd, causal, window, layout in cases:
+            if layout == "bshd":
+                q, k, v = (torch.randn(sh, generator=g, device=dev).to(dt).movedim(1, 2)
+                           for sh in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+            else:
+                w = 84 if layout == "stride84" else hd
+                q, k, v = (torch.randn(sh, generator=g, device=dev).to(dt)[..., :hd]
+                           for sh in ((B, H, Sq, w), (B, KV, Sk, w), (B, KV, Sk, w)))
+            n, tc = fa.launches, fa.tc_launches
+            out = fa(q, k, v, causal=causal, window=window)
             ref = flash_attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            if (fa.launches, fa.tc_launches) != (n + 1, tc + (dt == torch.bfloat16)):
+                fail(f"flash attention {dt} {(B, H, KV, Sq, Sk, hd, causal, window, layout)}: "
+                     f"launched {fa.launches - n} kernels, {fa.tc_launches - tc} on the tensor cores")
             err = float((out.float() - ref.float()).abs().max())
-            if not (out.dtype == dt and err <= tol):
-                fail(f"flash attention {dt} {(B, H, KV, Sq, Sk, hd, causal, window)}: "
+            if not (out.dtype == dt and out.shape == q.shape and err <= tol):
+                fail(f"flash attention {dt} {(B, H, KV, Sq, Sk, hd, causal, window, layout)}: "
                      f"max abs err {err} > {tol}")
             errs.append(err)
         worst[dt] = max(errs)
@@ -648,7 +672,7 @@ def prefill_tokens(torch, cfg, dev):
 
 
 def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
-            plain_alt: dict | None = None) -> int:
+            plain_alt: dict | None = None, counters: tuple = ("launches",)) -> int:
     """(a) Model.forward at B 1, S PREFILL_LEN through ``kernel`` (one
     launch per layer), held against the same forward with ``plain`` (the
     forward's hook, e.g. ``{"attention": blocked_attention}``): the logits
@@ -656,14 +680,19 @@ def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
     plain version with its sums in another order) is given, the kernel's
     mean |logit difference| may instead be up to ALT_MEAN_TOL times what
     that reordering alone moves it, and its argmax agreement at most
-    ALT_AGREE_TOL below the reordering's.  Returns the kernel's launches."""
+    ALT_AGREE_TOL below the reordering's.  Each of the kernel's
+    ``counters`` (``launches``, and per route where it has one) must count
+    one launch per layer.  Returns the kernel's launches."""
     tokens = prefill_tokens(torch, cfg, dev)
     model.forward(params, {"tokens": tokens[:, :1024]})           # warm-up
-    kernel.launches = 0
+    for c in counters:
+        setattr(kernel, c, 0)
     (logits, _), prefill_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}))
+    counts = {f"{kernel.__name__}_{c}": getattr(kernel, c) for c in counters}
     launches = kernel.launches
-    if launches != cfg.num_layers:
-        fail(f"{cfg.name} prefill launched {kernel.__name__} {launches} times, not {cfg.num_layers}")
+    for name, n in counts.items():
+        if n != cfg.num_layers:
+            fail(f"{cfg.name} prefill: {name} = {n}, not one per layer ({cfg.num_layers})")
     (ref, _), plain_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}, **plain))
     if logits.shape != (1, PREFILL_LEN, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
         fail(f"{cfg.name} prefill logits: shape {tuple(logits.shape)}, "
@@ -691,11 +720,12 @@ def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
                 "tolerance_mean": ALT_MEAN_TOL * a_mean, "tolerance_agreement": a_agree - ALT_AGREE_TOL}
         ok = mean <= res["tolerance_mean"] and agree >= res["tolerance_agreement"]
     print(json.dumps({"phase": "prefill", "arch": cfg.name, "batch": 1, "seq": PREFILL_LEN, **extra,
-                      f"{kernel.__name__}_launches": launches, "ms": prefill_ms,
+                      **counts, "ms": prefill_ms,
                       "tokens_per_s": PREFILL_LEN / (prefill_ms / 1e3),
                       f"plain_{next(iter(plain))}_ms": plain_ms, **res}), flush=True)
     print(f"serve: {cfg.name} prefill {PREFILL_LEN / (prefill_ms / 1e3):.1f} tokens/s "
-          f"(Model.forward, B 1, S {PREFILL_LEN})", flush=True)
+          f"(Model.forward, B 1, S {PREFILL_LEN}); argmax agreement with the plain forward "
+          f"{100 * agree:.2f}%", flush=True)
     if not ok:
         fail(f"{cfg.name} prefill logits: kernel vs plain {res}")
     return launches
@@ -778,7 +808,8 @@ def serve_danube(torch, dev, fix_mod, flash_mod, kmod):
 
     # (a) prefill through the flash kernel, against the plain attention
     launches_flash = prefill(torch, model, params, cfg, dev, flash_mod.flash_attention,
-                             {"attention": blocked_attention}, {"window": cfg.sliding_window})
+                             {"attention": blocked_attention}, {"window": cfg.sliding_window},
+                             counters=("launches", "tc_launches"))
     torch.cuda.empty_cache()
 
     # (b) quantize, then serve with the VM fleet as the measuring job
@@ -1024,7 +1055,7 @@ def library_int_mm(torch, K, N, ws, sx, sw, dev, g):
 
 def time_flash(torch, flash_mod, dev) -> dict:
     """The prefill's shape: B 1, S 8192, 32 heads over 8 KV heads, hd 80,
-    causal with a 4096 window, bf16."""
+    causal with a 4096 window, bf16 (the tensor-core kernel)."""
     import torch.nn.functional as F
 
     from repro_torch.config import get_arch
@@ -1035,7 +1066,11 @@ def time_flash(torch, flash_mod, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     q, k, v = (torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
                for sh in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)))
-    ms = cuda_ms(torch, lambda i: flash_mod.flash_attention(q, k, v, causal=True, window=W))
+    fa = flash_mod.flash_attention
+    n, tc = fa.launches, fa.tc_launches
+    ms = cuda_ms(torch, lambda i: fa(q, k, v, causal=True, window=W))
+    if fa.tc_launches - tc != fa.launches - n or fa.launches == n:
+        fail("flash timing: the bf16 launches did not all take the tensor-core kernel")
     plain = cuda_ms(torch, lambda i: flash_attention_ref(q, k, v, causal=True, window=W),
                     reps=3, warmup=1)
     pos = torch.arange(S, device=dev)
@@ -1052,16 +1087,19 @@ def time_flash(torch, flash_mod, dev) -> dict:
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     t_ops = 1e3 * flops / BF16_FLOPS
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    print(f"flash timing B={B} S={S} H={H} KV={KV} hd={hd} W={W} bf16: {ms:.4f} ms/launch, "
+    tflops = flops / (ms * 1e-3) / 1e12
+    print(f"flash timing B={B} S={S} H={H} KV={KV} hd={hd} W={W} bf16: {ms:.4f} ms/launch "
+          f"({tflops:.1f} TFLOP/s, {ms / max(t_ops, t_bytes):.2f}x the bound), "
           f"plain {plain:.4f} ms, SDPA with the window as a mask {lib:.4f} ms, "
           f"bound {max(t_ops, t_bytes):.6f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)",
           flush=True)
     return {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flashattn/csrc/flashattn.cu",
+        "name": "flash_attention", "route": "cuda", "path": "cuda-mma",
+        "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_tc.cu",
         "replaces": "src/repro/kernels/flashattn/flashattn.py:97",
         "ms": ms, "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib,
+        "flops": flops, "tflops": tflops,
     }
 
 

@@ -1,32 +1,29 @@
 // flashattn.cu — forward flash attention (causal and sliding window, GQA)
-// as a CUDA kernel for Hopper (sm_90a).  It replaces the TPU kernel
-// `flash_attention` of the JAX package
-// (src/repro/kernels/flashattn/flashattn.py, pl.pallas_call), whose grid
-// walked the key blocks of one query block in order on one core, carrying
-// the online-softmax state in VMEM scratch.
+// in float32 as a CUDA kernel for Hopper (sm_90a).  It replaces the TPU
+// kernel `flash_attention` of the JAX package
+// (src/repro/kernels/flashattn/flashattn.py, pl.pallas_call) for f32
+// inputs, whose grid walked the key blocks of one query block in order on
+// one core, carrying the online-softmax state in VMEM scratch.  bf16
+// inputs go to the tensor-core kernel of flashattn_tc.cu.
 //
 // What bounds it on this card: the operations.  At the prefill's shapes
 // (S = 8192, head_dim 80, a 4096-key window) every q/k/v byte is used by
 // thousands of multiply-adds, so the bytes are far below the time of the
-// arithmetic; the tensor cores' 989 TFLOP/s in bf16 are the true bound.
+// arithmetic.  In f32 that arithmetic runs on the FP32 pipes (67 TFLOP/s):
+// TF32 tensor-core products would keep only about three decimal digits.
 //
 // Design: one block of 256 threads per (batch, head, 64-query tile), four
 // threads to a query row.  A loop over 64-key tiles takes the place of the
 // TPU's sequential grid axis; it starts at the first tile inside the
 // window and stops after the causal frontier, so tiles wholly outside
-// either are never touched.  K and V tiles go through shared memory (in
-// f32, rows padded to an odd stride so the threads of a warp hit distinct
-// banks); each thread scores 16 keys of its row, the row's four threads
-// agree on the maximum and the sum with shuffles, and the online-softmax
-// state (m, l and the row's output slice) stays in f32 registers.  As in
-// the reference, p is rounded to the value type before it meets V.  GQA
-// reads KV head h / (H / KV) in place, ragged edges of Sq and Sk are
-// masked rather than padded, and f32 inputs run in f32 throughout.  The
-// products run on the FP32 pipes, not the tensor cores: mma/wgmma and TMA
-// are later work, and until then the kernel sits well above its bound.
-// A row that sees no key at all (it cannot occur in causal
+// either are never touched.  K and V tiles go through shared memory (rows
+// padded to an odd stride so the threads of a warp hit distinct banks);
+// each thread scores 16 keys of its row, the row's four threads agree on
+// the maximum and the sum with shuffles, and the online-softmax state (m,
+// l and the row's output slice) stays in f32 registers.  GQA reads KV head
+// h / (H / KV) in place, and ragged edges of Sq and Sk are masked rather
+// than padded.  A row that sees no key at all (it cannot occur in causal
 // self-attention) gets an unspecified value, as in the reference.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,13 +43,9 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16_rn(x);
-}
 
 __host__ __device__ constexpr int odd(int x) { return x | 1; }
 
@@ -200,25 +193,22 @@ int dispatch(const void* q, const void* k, const void* v, void* out, const Strid
 
 }  // namespace
 
-// Plain C interface for ctypes.  q (B, H, Sq, hd), k and v (B, KV, Sk, hd),
-// out like q, each with its last dimension contiguous; `strides` holds the
-// b, h, s element strides of q, k, v and out (12 values).  hd <= 128,
-// H % KV == 0, window <= 0 for none, dtype 0 = float32, 1 = bfloat16.
-// Launches on `stream` and returns the CUDA error (0 = launched).
+// Plain C interface for ctypes.  float32 q (B, H, Sq, hd), k and v (B, KV,
+// Sk, hd), out like q, each with its last dimension contiguous; `strides`
+// holds the b, h, s element strides of q, k, v and out (12 values).
+// hd <= 128, H % KV == 0, window <= 0 for none.  Launches on `stream` and
+// returns the CUDA error (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       const long long* strides, int B, int H, int KV, int Sq,
                                       int Sk, int hd, int causal, int window, float scale,
-                                      int dtype, void* stream) {
+                                      void* stream) {
     if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
     Strides st[4];
     for (int i = 0; i < 4; ++i) st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     int err = 0;
-    if (B > 0 && H > 0 && Sq > 0) {
-        err = dtype == 1
-                  ? dispatch<__nv_bfloat16>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, causal, window, scale, s)
-                  : dispatch<float>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
-    }
+    if (B > 0 && H > 0 && Sq > 0)
+        err = dispatch<float>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
     if (err != 0) return err;
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,20 +1,27 @@
-"""The flash attention CUDA kernel: build, bind and launch.
+"""The flash attention CUDA kernels: build, bind and launch.
 
-Replaces the TPU kernel ``flash_attention`` of the JAX package
-(``src/repro/kernels/flashattn/flashattn.py``, ``pl.pallas_call``).  The
-source is ``csrc/flashattn.cu`` (see the note at its top for what bounds
-it), built by ``LIBRARY`` (``kernels/nvcc.py``) with nvcc for sm_90a at
-first use and loaded with ``ctypes``.
+Replace the TPU kernel ``flash_attention`` of the JAX package
+(``src/repro/kernels/flashattn/flashattn.py``, ``pl.pallas_call``), by
+dtype (see the notes at the top of the sources for what bounds each):
 
-A CUDA tensor launches the kernel, and a failed build or launch raises;
-only CPU tensors take the plain version (``ref.flash_attention_ref``).
-``flash_attention.launches`` counts kernel launches.
+  bf16 — ``csrc/flashattn_tc.cu`` on the tensor cores (``mma.sync``,
+         ``ldmatrix``, ``cp.async``), built by ``TC_LIBRARY``;
+  f32  — ``csrc/flashattn.cu`` on the FP32 pipes, built by ``LIBRARY``.
+
+Both are built by ``kernels/nvcc.py`` with nvcc for sm_90a at first use and
+loaded with ``ctypes``.  ``route`` picks the kernel, and whether bf16
+operands first go through a zero-padded contiguous copy.  A CUDA tensor
+launches a kernel, and a failed build or launch raises; only CPU tensors
+take the plain version (``ref.flash_attention_ref``).
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.tc_launches`` those of the tensor-core kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -24,25 +31,63 @@ from repro_torch.models.attention import softmax_scale
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 MAX_HEAD_DIM = 128
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _bind(lib) -> None:
-    fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [
-        ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _binder(name: str, n_ints: int):
+    """Binds the launch function ``name``: four pointers, the strides,
+    ``n_ints`` ints, the scale and the stream."""
+    def bind(lib) -> None:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [
+            ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return bind
 
 
-LIBRARY = CudaLibrary("flashattn", CSRC, "flashattn.cu", (), _bind)
+LIBRARY = CudaLibrary("flashattn", CSRC, "flashattn.cu", (), _binder("flash_attention_launch", 8))
+# The tensor-core entry also takes hd_pad, the instance ``route`` chose.
+TC_LIBRARY = CudaLibrary("flashattn_tc", CSRC, "flashattn_tc.cu", (),
+                         _binder("flash_attention_tc_launch", 9))
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class Route(NamedTuple):
+    kernel: str          # "mma": bf16 on the tensor cores; "fp32": f32 on the FP32 pipes
+    hd_pad: int          # the kernel instance launched (mma: roundup(hd, 16), passed to the C entry)
+    padded_copy: bool    # q/k/v go through zero-padded contiguous (..., roundup(hd, 8)) copies
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Route:
+    """Which kernel takes these operands.  The tensor-core kernel copies
+    16-byte rows, so it needs hd % 8 == 0, a contiguous last dimension,
+    16-byte aligned pointers and strides that are multiples of 8; operands
+    that miss any of that are copied first."""
+    hd = q.shape[-1]
+    if q.dtype == torch.float32:
+        return Route("fp32", hd, False)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
+    aligned = hd % 8 == 0 and all(
+        t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+        for t in (q, k, v))
+    return Route("mma", _round_up(hd, 16), not aligned)
+
+
+def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
+    buf = t.new_zeros((*t.shape[:-1], width))
+    buf[..., :t.shape[-1]] = t
+    return buf
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
     """Forward attention, q (B, H, Sq, hd), k/v (B, KV, Sk, hd) -> like q.
     GQA by ``h // (H // KV)``; causal and sliding-window masks; bf16 or
-    f32.  Any strides with the last dimension contiguous.  CUDA tensors
-    launch the kernel (or raise); CPU tensors take the plain version."""
+    f32.  Any strides.  CUDA tensors launch a kernel (or raise); CPU
+    tensors take the plain version."""
     B, H, Sq, hd = q.shape
     Bk, KV, Sk, hdk = k.shape
     if tuple(v.shape) != tuple(k.shape) or Bk != B or hdk != hd or KV < 1 or H % KV:
@@ -59,22 +104,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {hd}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    lib = LIBRARY.load()
+    r = route(q, k, v)
+    if r.padded_copy:
+        q, k, v = (_padded(t, _round_up(hd, 8)) for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)               # q's layout, so a BSHD view stays one
     strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, out) for s in t.stride()[:3]])
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        B, H, KV, Sq, Sk, hd, int(causal), window or 0, softmax_scale(hd),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides)
+    mask = (int(causal), window or 0, softmax_scale(hd), torch.cuda.current_stream(dev).cuda_stream)
+    if r.kernel == "mma":
+        err = TC_LIBRARY.load().flash_attention_tc_launch(
+            *ptrs, B, H, KV, Sq, Sk, q.shape[-1], r.hd_pad, *mask)
+    else:
+        err = LIBRARY.load().flash_attention_launch(*ptrs, B, H, KV, Sq, Sk, hd, *mask)
     check_launch(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    if r.kernel == "mma":
+        flash_attention.tc_launches += 1
+    return out[..., :hd] if r.padded_copy else out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0

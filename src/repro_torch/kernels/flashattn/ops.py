@@ -1,7 +1,8 @@
 """Public flash attention op in the model's BSHD layout (counterpart of
-the JAX package's ``kernels/flashattn/ops.py``).  The kernel takes strides
-and masks ragged lengths, so the BSHD <-> BHSD change is a view, with no
-copy and no padding."""
+the JAX package's ``kernels/flashattn/ops.py``).  The kernels take strides
+and mask ragged lengths, so the BSHD <-> BHSD change is a view, with no
+copy and no padding of the sequence (bf16 with a head_dim that is no
+multiple of 8 is copied once, see ``flashattn.route``)."""
 
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """The port's CUDA kernels on the card, each against its plain version:
 vmloop byte-identical over the per-opcode sweep and random node states
 (and the fleet's ``executor="cuda"`` identical to ``executor="batched"``),
-fixmatmul bitwise equal, flash attention within 1e-4 in f32 and 2e-2 in
-bf16, rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``) of the largest
-value, with its state written in place or not, lut_sigmoid bitwise equal;
+fixmatmul bitwise equal, flash attention within 1e-4 in f32 (the FP32
+kernel) and 2e-2 in bf16 (the tensor-core kernel, one bf16 step of the
+output and of p), rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``) of
+the largest value, with its state written in place or not, lut_sigmoid
+bitwise equal;
 and a CUDA tensor never takes the plain version (each launch counter
 grows).  Needs an NVIDIA GPU with nvcc; every test here skips without one.
 
@@ -106,23 +108,78 @@ def test_fixmatmul_bitwise_equals_plain_version(M, K, N, cuda):
     assert torch.equal(out, fixmatmul_ref(xq, wq, sx, sw))
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+FLASH_TOL = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+def _flash_vs_plain(q, k, v, causal, window, tol):
+    """One launch, held against the plain version; bf16 must take the
+    tensor-core kernel, f32 the FP32 one."""
+    launches, tc = flash_attention.launches, flash_attention.tc_launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1 and out.dtype == q.dtype
+    assert flash_attention.tc_launches == tc + (q.dtype == torch.bfloat16)
+    assert out.shape == q.shape
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOL)
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", [
     (1, 32, 8, 300, 300, 80, True, 64),
     (2, 4, 4, 100, 257, 128, False, None),
     (1, 8, 2, 129, 129, 64, True, None),
+    (1, 4, 2, 130, 130, 16, True, None),        # hd 16 (the SMOKE config), Sq ragged
+    (1, 8, 2, 200, 200, 72, True, 100),         # hd 72: columns 72..80 zeroed in smem
+    (1, 4, 1, 150, 150, 36, True, 70),          # hd 36: the padded copy (to 40)
+    (2, 8, 2, 333, 333, 80, True, 200),         # B 2, GQA 4, a window of no multiple of 64
+    (1, 8, 2, 100, 333, 80, False, None),       # non-causal ragged Sk
 ])
 def test_flash_attention_matches_plain_version(B, H, KV, Sq, Sk, hd, causal, window, dtype,
                                                tol, cuda):
     g = torch.Generator(device=cuda).manual_seed(Sq + hd)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for shape in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd)))
-    launches = flash_attention.launches
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    _flash_vs_plain(q, k, v, causal, window, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOL)
+def test_flash_attention_strided_views(dtype, tol, cuda):
+    """The BSHD view that ops.attention passes (the output stays a BSHD
+    view), and a row stride of 84 values that the bf16 kernel's 16-byte
+    copies cannot take (the wrapper copies it)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, H, KV, S, hd = 2, 8, 2, 257, 80
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=cuda).to(dtype).movedim(1, 2)
+               for n in (H, KV, KV))
+    out = _flash_vs_plain(q, k, v, True, 100, tol)
+    assert out.stride() == q.stride()
+    wide = torch.randn((B, H, S, 84), generator=g, device=cuda).to(dtype)[..., :hd]
+    _flash_vs_plain(wide, k, v, True, None, tol)
+
+
+@pytest.mark.parametrize("hd,hd_pad,shift", [
+    (80, 80, 0), (80, 96, 0), (80, 64, 0), (72, 72, 0), (40, 48, 0), (64, 64, 1),
+])
+def test_flash_tc_entry_takes_only_the_routed_instance(hd, hd_pad, shift, cuda):
+    """The tensor-core C entry launches the instance the wrapper's ``route``
+    names, roundup(hd, 16), and refuses (cudaErrorInvalidValue, 1) any
+    other, or a pointer that is not 16-byte aligned, rather than reading
+    out of bounds."""
+    import ctypes
+
+    famod = importlib.import_module("repro_torch.kernels.flashattn.flashattn")
+    B, H, S = 1, 2, 64
+    buf = torch.zeros(4, B * H * S * hd + 8, dtype=torch.bfloat16, device=cuda)
+    q, k, v, out = (buf[i, shift:shift + B * H * S * hd].view(B, H, S, hd) for i in range(4))
+    strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, out) for s in t.stride()[:3]])
+    err = famod.TC_LIBRARY.load().flash_attention_tc_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, B, H, H, S, S, hd,
+        hd_pad, 1, 0, 1.0, torch.cuda.current_stream(cuda).cuda_stream)
     torch.cuda.synchronize()
-    assert flash_attention.launches == launches + 1 and out.dtype == dtype
-    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
-    assert float((out.float() - ref.float()).abs().max()) <= tol
+    valid = hd_pad == famod.route(q, k, v).hd_pad and shift == 0
+    assert err == (0 if valid else 1)
 
 
 @pytest.mark.parametrize("dtype,out_tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])

@@ -4,7 +4,10 @@ port's wrappers take their plain versions.
 
 fixmatmul and ``quantized_matmul`` are exact: int32 sums and the same two
 f32 scale multiplies.  Flash attention is held at atol = rtol = 1e-5 in
-f32: the two sum the same terms in another order.
+f32: the two sum the same terms in another order.  In bf16 (the serving
+path's type) it is held at atol 1e-2: both round p to bf16 before P V and
+the output to bf16 at the end, so a sum taken in another order can move an
+output by one bf16 step, 2**-8 = 0.0039 at |x| < 1.
 """
 
 import jax
@@ -24,6 +27,7 @@ from repro_torch.core.fixedpoint import quantize_per_channel
 from repro_torch.kernels.fixmatmul import fixmatmul, fixmatmul_ref, quantize_weight, quantized_matmul
 from repro_torch.kernels.fixmatmul.fixmatmul import BK, k_splits
 from repro_torch.kernels.flashattn import attention, flash_attention, flash_attention_ref
+from repro_torch.kernels.flashattn.flashattn import Route, route
 
 torch.set_num_threads(1)
 
@@ -194,6 +198,80 @@ def test_attention_op_ragged_matches_jax(Sq, Sk, causal, window):
     out = attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), causal=causal, window=window)
     assert out.shape == tuple(ref.shape)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+FLASH_BF16_SHAPES = [
+    # danube-like: hd 80, GQA 4, a window (B, H, KV, Sq, Sk, hd, causal, window)
+    (1, 8, 2, 128, 128, 80, True, 8),
+    (1, 8, 2, 192, 192, 80, True, 100),
+    (2, 4, 1, 128, 128, 80, True, None),
+]
+
+
+def _bf16_pair(a):
+    """The same bf16 values on both sides (each rounds to nearest even)."""
+    return jnp.array(a).astype(jnp.bfloat16), torch.tensor(a).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal,window", FLASH_BF16_SHAPES)
+def test_flash_plain_matches_jax_kernel_bf16(B, H, KV, Sq, Sk, hd, causal, window):
+    """The plain version (which CUDA kernels are held against on the card)
+    against the Pallas kernel, both in bf16; tolerance in the module doc."""
+    rng = np.random.default_rng(Sq * 17 + (window or 0))
+    (jq, q), (jk, k), (jv, v) = (_bf16_pair(a) for a in _qkv(rng, B, H, KV, Sq, Sk, hd))
+    ref = jflash(jq, jk, jv, causal=causal, window=window, bq=64, bk=64, interpret=True)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=1e-2, rtol=0)
+
+
+def test_attention_op_ragged_matches_jax_bf16():
+    """A ragged Sq (no multiple of 64) in bf16 through the BSHD ops, causal
+    with a window (the JAX op pads to its blocks; causal masks the pad)."""
+    rng = np.random.default_rng(7)
+    B, H, KV, S, hd, window = 1, 8, 2, 100, 80, 40
+    (jq, q), (jk, k), (jv, v) = (
+        _bf16_pair((rng.normal(size=(B, S, n, hd)) * 0.5).astype(np.float32))
+        for n in (H, KV, KV))
+    ref = jattention(jq, jk, jv, causal=True, window=window, bq=64, bk=64)
+    out = attention(q, k, v, causal=True, window=window)
+    assert out.shape == tuple(ref.shape) and out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("hd,hd_pad,copy", [(16, 16, False), (64, 64, False), (72, 80, False),
+                                            (80, 80, False), (128, 128, False), (36, 48, True),
+                                            (100, 112, True)])
+def test_flash_route_bf16_head_dims(hd, hd_pad, copy):
+    """bf16 goes to the tensor-core kernel, built for hd rounded up to 16
+    (the columns past hd are zeroed in shared memory); a head_dim that is
+    no multiple of 8 is copied first into a buffer of roundup(hd, 8)."""
+    q = torch.zeros((2, 8, 33, hd), dtype=torch.bfloat16)
+    k = torch.zeros((2, 2, 40, hd), dtype=torch.bfloat16)
+    assert route(q, k, k) == Route("mma", hd_pad, copy)
+
+
+def test_flash_route_layouts_and_dtypes():
+    z = lambda *shape: torch.zeros(shape, dtype=torch.bfloat16)
+    kv = z(1, 2, 8, 80)
+    # f32 keeps the FP32-pipe kernel, any strides, no copy.
+    f = torch.zeros((1, 4, 8, 84))[..., :80]
+    assert route(f, f, f) == Route("fp32", 80, False)
+    # The model's BSHD view: strides 2560, 80, 320 — no copy.
+    bshd = z(1, 8, 4, 80).movedim(1, 2)
+    assert route(bshd, kv, kv) == Route("mma", 80, False)
+    # A row stride of 84 values (168 bytes): no 16-byte copy fits it.
+    assert route(z(1, 4, 8, 84)[..., :80], kv, kv) == Route("mma", 80, True)
+    assert route(bshd, kv, z(1, 2, 8, 84)[..., :80]) == Route("mma", 80, True)
+    # A pointer 2 bytes past a 16-byte boundary.
+    off = z(4 * 8 * 80 + 1)[1:].view(1, 4, 8, 80)
+    assert off.data_ptr() % 16 != 0 and route(off, kv, kv) == Route("mma", 80, True)
+    # head_dim not contiguous.
+    assert route(z(1, 4, 80, 8).transpose(-1, -2), kv, kv) == Route("mma", 80, True)
+    with pytest.raises(ValueError):
+        route(*(torch.zeros((1, 1, 8, 16), dtype=torch.float16),) * 3)
 
 
 def test_flash_rejects_bad_operands():
