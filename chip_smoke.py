@@ -23,9 +23,12 @@ each printing its results on a line of its own:
      draws `rnd` and spawns a task, so the interpreter tail runs on the
      card.  Run with service_every=1 and 8, each held byte for byte against
      executor="batched" on the card; every node must halt;
-  5. vmloop's time per launch, its plain version's time, and its bound;
+  5. vmloop's time per launch, its plain version's time, and its bound,
+     on the fleet (n = 4096) and on the serve monitor's 64 nodes;
   6. fixmatmul bitwise against its plain version at danube's decode shapes
-     (M = 1, 8, 64), ragged shapes and extreme codes; flash attention
+     (M = 1, 2, 4, 8, 16 on the streaming kernel, 17 and 64 on the tiled
+     one), rwkv6's lm_head, ragged shapes, operands misaligned by a byte
+     and extreme codes; flash attention
      against its plain version in bf16 and f32 over causal / non-causal,
      windows (one of no multiple of 64), GQA, B 2, Sq != Sk, ragged
      lengths, head_dim 16/36/64/72/80/128 and strided views (the BSHD
@@ -55,7 +58,7 @@ each printing its results on a line of its own:
      fixed_sigmoid over int32 activations of 1024 x 1024 and 8192 x 8192;
   8. each kernel's time per launch at the main path's shapes, its plain
      version's, one PyTorch library call's where there is one, and its
-     bound.
+     bound; fixmatmul per decode shape, beside its tiled kernel's time.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -314,54 +317,25 @@ def main() -> int:
             "preempt_route_warp_ms": ms[3],
         }), flush=True)
 
-    # 5. time per launch at n=4096, beside the plain version and the bound
-    S0 = vms.to_device(vms.stack_states(init), dev)
-    from repro_torch.core.vm.interp import interp_for
-    interp_for(cfg).schedule(S0)
-    work = vms.clone(S0)
-    core = core_of(work)
-    reps = 20
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    total = 0.0
-    for rep in range(reps + 2):                 # two warm-up launches
-        for a, b in zip(work, S0):
-            a.copy_(b)
-        start.record()
-        n_exec = kmod.vmloop_call(core, cfg.steps_per_slice, cfg)[1]
-        end.record()
-        torch.cuda.synchronize()
-        if rep >= 2:
-            total += start.elapsed_time(end)
-    ms = total / reps
-    plain = vms.clone(S0)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    vmloop_ref(plain, cfg.steps_per_slice, cfg)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t)
-    err, bad = check.max_abs_diff(work, plain)
-    if bad:
-        fail(f"timed launch != plain version on {bad}")
-    # Bound: the cells this launch changed (each written once) plus each
-    # node's loaded code frame (its program and arrays, each read once).
-    changed = sum(int((a != b).sum()) for a, b in zip(work, S0))
-    frame_cells = sum(sum(f.end - f.start for f in vm.frames.frames.values()) for vm in nodes)
-    nbytes = 4 * (changed + frame_cells)
-    instrs = int(n_exec.sum())
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * instrs / INT32_OPS_PER_S
-    print(f"vmloop timing n={n_nodes}: {ms:.4f} ms/launch, plain {plain_ms:.2f} ms, "
-          f"{instrs} instructions, bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B)", flush=True)
+    # 5. time per launch at n=4096, beside the plain version and the bound;
+    # then at the serve monitor's 64 nodes, which launch it once a round
+    fleet_t = time_vmloop(torch, kmod, nodes, init, cfg, dev)
+    from repro_torch.serve import FleetServeMonitor
+
+    mon = FleetServeMonitor(n=MONITOR_NODES, executor="cuda", device=dev)
+    for node, frame in zip(mon.fleet.nodes, mon._frames):     # as one engine step does
+        node.dios_write("stats", [PROMPT_LEN + 1, SERVE_BATCH * PROMPT_LEN, SERVE_BATCH])
+        node.launch(frame)
+    mon_t = time_vmloop(torch, kmod, mon.fleet.nodes, [vm.state for vm in mon.fleet.nodes], cfg, dev)
     records = [{
         "name": "vmloop", "route": "cuda",
         "source": "src/repro_torch/kernels/vmloop/csrc/vmloop.cu",
         "replaces": "src/repro/kernels/vmloop/vmloop.py:64",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        **{k: fleet_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "per_shape": {f"n{n_nodes}": fleet_t, f"n{MONITOR_NODES}_monitor": mon_t},
     }]
-    del nodes, init, results, S, S0, work, plain, fleet
+    del nodes, init, results, S, fleet, mon
     torch.cuda.empty_cache()
 
     # 6. the other kernels against their plain versions
@@ -425,6 +399,60 @@ def timed(torch, fn):
     return out, 1e3 * (time.perf_counter() - t)
 
 
+def time_vmloop(torch, kmod, nodes, states, cfg, dev) -> dict:
+    """One slice (cfg.steps_per_slice) of vmloop over the stacked ``states``
+    of ``nodes``, scheduled as the executor does: ms per launch (CUDA
+    events around each of 20 launches after 2 warm-ups, the state restored
+    and a spin kernel queued before each, so the events time the device),
+    the plain version's ms, held equal, and the bound: the cells the launch
+    changed (each written once) plus each node's loaded code frame (its
+    program and arrays, each read once), or its instructions at the INT32
+    rate."""
+    from repro_torch.core.vm import vmstate as vms
+    from repro_torch.core.vm.interp import interp_for
+    from repro_torch.kernels.vmloop import check
+    from repro_torch.kernels.vmloop.ref import core_of, vmloop_ref
+
+    S0 = vms.to_device(vms.stack_states(states), dev)
+    interp_for(cfg).schedule(S0)
+    work = vms.clone(S0)
+    core = core_of(work)
+    reps = 20
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for rep in range(reps + 2):                 # two warm-up launches
+        for a, b in zip(work, S0):
+            a.copy_(b)
+        torch.cuda._sleep(SPIN_CYCLES // 100)   # the launch is queued before the events run
+        start.record()
+        n_exec = kmod.vmloop_call(core, cfg.steps_per_slice, cfg)[1]
+        end.record()
+        torch.cuda.synchronize()
+        if rep >= 2:
+            total += start.elapsed_time(end)
+    ms = total / reps
+    plain = vms.clone(S0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vmloop_ref(plain, cfg.steps_per_slice, cfg)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    err, bad = check.max_abs_diff(work, plain)
+    if bad:
+        fail(f"timed launch (n={len(nodes)}) != plain version on {bad}")
+    changed = sum(int((a != b).sum()) for a, b in zip(work, S0))
+    frame_cells = sum(sum(f.end - f.start for f in vm.frames.frames.values()) for vm in nodes)
+    nbytes = 4 * (changed + frame_cells)
+    instrs = int(n_exec.sum())
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * instrs / INT32_OPS_PER_S
+    print(f"vmloop timing n={len(nodes)}: {ms:.4f} ms/launch, plain {plain_ms:.2f} ms, "
+          f"{instrs} instructions, bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B)", flush=True)
+    return {"nodes": len(nodes), "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "instructions": instrs,
+            "bytes": nbytes}
+
+
 def danube_gemms():
     """(K, N, launches per decode step) of the quantized danube projections:
     per layer wq, wk, wv, wo, w1, w3, w2; then lm_head."""
@@ -436,35 +464,63 @@ def danube_gemms():
             (c.d_ff, d, L), (d, c.padded_vocab, 1)]
 
 
-def fix_operands(torch, M, K, N, dev, g, code=None):
-    if code is None:
-        xq = torch.randint(-128, 128, (M, K), generator=g, device=dev).to(torch.int8)
-        wq = torch.randint(-128, 128, (K, N), generator=g, device=dev).to(torch.int8)
-    else:
-        xq = torch.full((M, K), code, dtype=torch.int8, device=dev)
-        wq = torch.full((K, N), code, dtype=torch.int8, device=dev)
+def rwkv6_lm_head():
+    """(K, N) of rwkv6-7b's quantized lm_head, its one fixmatmul a step."""
+    from repro_torch.config import get_arch
+
+    c = get_arch(RWKV_ARCH)
+    return c.d_model, c.padded_vocab
+
+
+def fix_operands(torch, M, K, N, dev, g, code=None, offset=0):
+    """Random int8 codes (or all ``code``) and scales; xq and wq start
+    ``offset`` bytes into larger buffers, so offset 1 misaligns them."""
+    ops = []
+    for n in (M * K, K * N):
+        if code is None:
+            buf = torch.randint(-128, 128, (n + offset,), generator=g, device=dev).to(torch.int8)
+        else:
+            buf = torch.full((n + offset,), code, dtype=torch.int8, device=dev)
+        ops.append(buf[offset:])
+    xq, wq = ops[0].view(M, K), ops[1].view(K, N)
     sx = torch.rand(M, generator=g, device=dev) * 0.05 + 1e-3
     sw = torch.rand(N, generator=g, device=dev) * 0.05 + 1e-3
     return xq, wq, sx, sw
 
 
 def check_fixmatmul(torch, fix_mod, dev) -> float:
+    """Bitwise against the plain version: danube's decode shapes at M 1 to
+    64 (the streaming kernel at M <= 16, the tiled one above), rwkv6's
+    lm_head, ragged N and K, xq and wq misaligned by one byte, and
+    extreme codes at K = 6912."""
     from repro_torch.kernels.fixmatmul.ref import fixmatmul_ref
+    from repro_torch.kernels.nvcc import sm_count
 
     g = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [(M, K, N, None) for M in (1, 8, 64) for K, N, _ in danube_gemms()]
-    cases += [(3, 100, 37, None), (65, 257, 129, None), (1, 1, 1, None), (17, 6912, 2560, None),
-              (8, 6912, 640, -128), (8, 6912, 640, 127), (64, 6912, 2560, -128)]
-    for M, K, N, code in cases:
-        ops = fix_operands(torch, M, K, N, dev, g, code)
+    cases = [(M, K, N, None, 0) for M in (1, 2, 4, 8, 16, 17, 64) for K, N, _ in danube_gemms()]
+    cases += [(SERVE_BATCH, *rwkv6_lm_head(), None, 0)]
+    cases += [(M, K, N, None, 0) for M in (3, 16) for K, N in ((100, 37), (2560, 641), (6913, 640))]
+    cases += [(65, 257, 129, None, 0), (1, 1, 1, None, 0), (17, 6912, 2560, None, 0)]
+    cases += [(M, K, N, None, 1) for M, K, N in ((8, 2560, 640), (16, 6912, 2560), (3, 100, 37),
+                                                 (65, 257, 129))]
+    cases += [(M, 6912, 640, code, 0) for M in (1, 8, 16) for code in (-128, 127)]
+    cases += [(64, 6912, 2560, -128, 0)]
+    kinds = set()
+    for M, K, N, code, offset in cases:
+        ops = fix_operands(torch, M, K, N, dev, g, code, offset)
         out, ref = fix_mod.fixmatmul(*ops), fixmatmul_ref(*ops)
         torch.cuda.synchronize()
+        kinds.add(fix_mod.plan(M, K, N, sm_count(dev)).kernel)
         if not torch.equal(out, ref):
             err = float((out - ref).abs().max())
-            fail(f"fixmatmul (M, K, N) = {(M, K, N)}, codes {code}: kernel != plain version, "
-                 f"max abs err {err}")
-    print(f"check fixmatmul: {len(cases)} shapes (danube decode at M = 1/8/64, ragged, "
-          f"extreme codes at K = 6912): bitwise equal", flush=True)
+            fail(f"fixmatmul (M, K, N) = {(M, K, N)}, codes {code}, offset {offset}: kernel != "
+                 f"plain version, max abs err {err}")
+        del ops, out, ref
+    if kinds != {"stream", "tiled"}:
+        fail(f"check fixmatmul reached only the {kinds} kernel(s)")
+    print(f"check fixmatmul: {len(cases)} shapes (danube decode at M = 1/2/4/8/16/17/64, rwkv6 "
+          f"lm_head at M = 8, ragged, misaligned by a byte, extreme codes at K = 6912; both "
+          f"kernels): bitwise equal", flush=True)
     return 0.0
 
 
@@ -994,47 +1050,73 @@ def profile_decode(torch, model, qparams, cfg, dev) -> None:
 
 
 def time_fixmatmul(torch, fix_mod, dev) -> dict:
-    """ms per launch over the decode step's mix of (K, N) at M = batch, each
-    shape timed alone with its weights rotated past the L2 cache."""
+    """ms per launch at M = batch for each decode shape, timed alone with
+    its weights rotated past the L2 cache: the kernel the planner picks
+    (the streaming kernel) and the tiled kernel on the same operands, in
+    turns (stream, tiled, tiled, stream).  The kernels line takes the mean
+    over danube's decode mix, weighted by launches a step; rwkv6-7b's
+    lm_head is timed on a line of its own, outside that mean."""
     from repro_torch.kernels.fixmatmul.ref import fixmatmul_ref
+    from repro_torch.kernels.nvcc import sm_count
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    M = SERVE_BATCH
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "n": 0}
-    t_bytes_all = t_ops_all = 0.0
-    lib_m = None
-    for K, N, per_step in danube_gemms():
+    M, sms = SERVE_BATCH, sm_count(dev)
+    shapes = [("danube", K, N, n) for K, N, n in danube_gemms()] + [("rwkv6", *rwkv6_lm_head(), 1)]
+    per_shape = []
+    for arch, K, N, per_step in shapes:
         xq, wq, sx, sw = fix_operands(torch, M, K, N, dev, g)
         copies = max(2, int(-(-2 * L2_BYTES // (K * N))))
         ws = [wq] + [wq.clone() for _ in range(copies - 1)]
-        ms = cuda_ms(torch, lambda i: fix_mod.fixmatmul(xq, ws[i % copies], sx, sw))
+        p, tp = fix_mod.plan(M, K, N, sms), fix_mod.tiled_plan(M, K, N, sms)
+        if p.kernel != "stream" or not torch.equal(fix_mod.launch(xq, wq, sx, sw, tp),
+                                                   fixmatmul_ref(xq, wq, sx, sw)):
+            fail(f"fixmatmul timing {(M, K, N)}: plan {p}, or the tiled kernel != plain version")
+        stream = lambda i: fix_mod.fixmatmul(xq, ws[i % copies], sx, sw)
+        tiled = lambda i: fix_mod.launch(xq, ws[i % copies], sx, sw, tp)
+        turns = [cuda_ms(torch, fn) for fn in (stream, tiled, tiled, stream)]
+        ms, tiled_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         plain = cuda_ms(torch, lambda i: fixmatmul_ref(xq, ws[i % copies], sx, sw), reps=5)
         lib, lib_m = library_int_mm(torch, K, N, ws, sx, sw, dev, g)
-        lib_txt = f"{lib:.5f} ms" if lib is not None else "refused"
         nbytes = M * K + K * N + 4 * M + 4 * N + 4 * M * N
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         t_ops = 1e3 * 2 * M * N * K / INT8_OPS_PER_S
-        print(f"fixmatmul timing M={M} K={K} N={N} (x{per_step} per step): {ms:.5f} ms/launch, "
-              f"plain {plain:.5f} ms, torch._int_mm+scales at M={lib_m} {lib_txt}, "
-              f"bound {max(t_bytes, t_ops):.6f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})",
-              flush=True)
-        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", max(t_bytes, t_ops))):
-            tot[key] = None if val is None or tot[key] is None else tot[key] + per_step * val
-        t_bytes_all += per_step * t_bytes
-        t_ops_all += per_step * t_ops
-        tot["n"] += per_step
-        del ws
-    n = tot.pop("n")
-    print(f"fixmatmul: one decode step's {n} launches take {tot['ms']:.4f} ms on the card "
-          f"(bound {tot['bound_ms']:.4f} ms)", flush=True)
+        bound = max(t_bytes, t_ops)
+        rec = {"arch": arch, "M": M, "K": K, "N": N, "per_step": per_step, "plan": p._asdict(),
+               "tiled_plan": tp._asdict(), "ms": ms, "tiled_ms": tiled_ms, "turns_ms": turns,
+               "plain_ms": plain, "library_ms": lib, "library_M": lib_m, "bound_ms": bound,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "x_bound": ms / bound, "tiled_x_bound": tiled_ms / bound}
+        print(json.dumps({"phase": "fixmatmul_shape", **rec}), flush=True)
+        per_shape.append(rec)
+        del ws, xq, wq
+    mix = {}
+    for arch in ("danube", "rwkv6"):
+        rows = [r for r in per_shape if r["arch"] == arch]
+        n = sum(r["per_step"] for r in rows)
+        mix[arch] = {"launches_per_step": n, **{
+            key: (None if any(r[key] is None for r in rows)
+                  else sum(r["per_step"] * r[key] for r in rows) / n)
+            for key in ("ms", "tiled_ms", "plain_ms", "library_ms", "bound_ms")}}
+    print(json.dumps({"phase": "fixmatmul_timing", "M": M, **{
+        arch: {"us_per_launch": 1e3 * m["ms"], "tiled_us_per_launch": 1e3 * m["tiled_ms"],
+               "bound_us": 1e3 * m["bound_ms"], "x_bound": m["ms"] / m["bound_ms"],
+               "tiled_x_bound": m["tiled_ms"] / m["bound_ms"],
+               "ms_per_step": m["ms"] * m["launches_per_step"],
+               "tiled_ms_per_step": m["tiled_ms"] * m["launches_per_step"],
+               "launches_per_step": m["launches_per_step"]}
+        for arch, m in mix.items()}}), flush=True)
+    d = mix["danube"]
+    print(f"fixmatmul: danube's decode mix at M={M}: {1e3 * d['ms']:.3f} us/launch "
+          f"({d['ms'] / d['bound_ms']:.2f}x the {1e3 * d['bound_ms']:.3f} us bound), the tiled "
+          f"kernel {1e3 * d['tiled_ms']:.3f} us; rwkv6 lm_head {1e3 * mix['rwkv6']['ms']:.3f} us",
+          flush=True)
     return {
         "name": "fixmatmul", "route": "cuda",
         "source": "src/repro_torch/kernels/fixmatmul/csrc/fixmatmul.cu",
         "replaces": "src/repro/kernels/fixmatmul/fixmatmul.py:57",
-        "ms": tot["ms"] / n, "plain_ms": tot["plain_ms"] / n, "bound_ms": tot["bound_ms"] / n,
-        "bound_by": "bytes" if t_bytes_all >= t_ops_all else "operations",
-        "library_ms": tot["library_ms"] / n if tot["library_ms"] is not None else None,
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in per_shape) else "operations",
+        "library_ms": d["library_ms"], "tiled_ms": d["tiled_ms"], "per_shape": per_shape,
     }
 
 

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.flashattn.ref import flash_attention_ref
+from repro_torch.kernels.grad import refuse_grad
 from repro_torch.kernels.nvcc import CudaLibrary, check_launch
 from repro_torch.models.attention import softmax_scale
 
@@ -104,6 +105,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
+    refuse_grad("flash_attention", q, k, v)
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {hd}")
     r = route(q, k, v)

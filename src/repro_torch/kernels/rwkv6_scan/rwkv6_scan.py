@@ -18,6 +18,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.grad import refuse_grad
 from repro_torch.kernels.nvcc import CudaLibrary, check_launch
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -74,6 +75,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
         return out.to(r.dtype), s1
     if dev.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {dev}")
+    refuse_grad("rwkv6_scan", r, k, v, logw, u, state0)
     if r.dtype not in _DTYPE_CODE:
         raise ValueError(f"rwkv6_scan kernel takes float32 or bfloat16, got {r.dtype}")
     if K > MAX_K or L > MAX_K:

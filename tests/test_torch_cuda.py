@@ -1,13 +1,15 @@
 """The port's CUDA kernels on the card, each against its plain version:
 vmloop byte-identical over the per-opcode sweep and random node states
 (and the fleet's ``executor="cuda"`` identical to ``executor="batched"``),
-fixmatmul bitwise equal, flash attention within 1e-4 in f32 (the FP32
-kernel) and 2e-2 in bf16 (the tensor-core kernel, one bf16 step of the
-output and of p), rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``) of
-the largest value, with its state written in place or not, lut_sigmoid
-bitwise equal;
-and a CUDA tensor never takes the plain version (each launch counter
-grows).  Needs an NVIDIA GPU with nvcc; every test here skips without one.
+fixmatmul bitwise equal (the streaming kernel at every decode batch
+M = 1..16 and shape, ragged, misaligned and at extreme codes, one launch
+a call; the tiled kernel above), flash attention within 1e-4 in f32 (the
+FP32 kernel) and 2e-2 in bf16 (the tensor-core kernel, one bf16 step of
+the output and of p), rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``)
+of the largest value, with its state written in place or not, lut_sigmoid
+bitwise equal; a CUDA tensor never takes the plain version (each launch
+counter grows), and no kernel runs on inputs that require grad.  Needs an
+NVIDIA GPU with nvcc; every test here skips without one.
 
 Run on the card with ``python -m pytest tests/test_torch_cuda.py``.
 """
@@ -106,6 +108,128 @@ def test_fixmatmul_bitwise_equals_plain_version(M, K, N, cuda):
     torch.cuda.synchronize()
     assert fmod.fixmatmul.launches == launches + 1
     assert torch.equal(out, fixmatmul_ref(xq, wq, sx, sw))
+
+
+def _fix_operands(M, K, N, dev, seed, offset=0, code=None):
+    """Random int8 codes (or all ``code``) and scales; ``offset`` bytes into
+    a larger buffer, so a non-zero one misaligns xq and wq."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ops = []
+    for n in (M * K, K * N):
+        buf = (torch.full((n + offset,), code, dtype=torch.int8, device=dev) if code is not None
+               else torch.randint(-128, 128, (n + offset,), generator=g, device=dev).to(torch.int8))
+        ops.append(buf[offset:])
+    xq, wq = ops[0].view(M, K), ops[1].view(K, N)
+    sx = torch.rand(M, generator=g, device=dev) * 0.05 + 1e-3
+    sw = torch.rand(N, generator=g, device=dev) * 0.05 + 1e-3
+    return xq, wq, sx, sw
+
+
+def _fix_vs_plain(ops):
+    launches = fmod.fixmatmul.launches
+    out = fmod.fixmatmul(*ops)
+    torch.cuda.synchronize()
+    assert fmod.fixmatmul.launches == launches + 1
+    ref = fixmatmul_ref(*ops)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+# danube's decode (K, N), rwkv6-7b's lm_head, then ragged N and K.
+STREAM_KN = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560), (2560, 32000), (4096, 65536),
+             (100, 37), (2560, 641), (6913, 640)]
+
+
+@pytest.mark.parametrize("K,N", STREAM_KN)
+def test_fixmatmul_stream_bitwise_equals_plain_version(K, N, cuda):
+    """The streaming kernel at every decode batch, M = 1..16."""
+    for M in range(1, fmod.STREAM_MAX_M + 1):
+        assert fmod.plan(M, K, N, 132).kernel == "stream"
+        _fix_vs_plain(_fix_operands(M, K, N, cuda, seed=M * 131 + K + N))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2560, 640), (16, 6912, 2560), (3, 100, 37), (1, 2560, 32000)])
+def test_fixmatmul_stream_misaligned_operands(M, K, N, cuda):
+    """xq and wq one byte past a 16-byte boundary take the byte loads."""
+    ops = _fix_operands(M, K, N, cuda, seed=K + N, offset=1)
+    assert ops[0].data_ptr() % 16 and ops[1].data_ptr() % 16
+    _fix_vs_plain(ops)
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("code", [-128, 127])
+def test_fixmatmul_stream_extreme_codes(M, code, cuda):
+    """All codes at one extreme at K = 6912: the largest sums of decode."""
+    _fix_vs_plain(_fix_operands(M, 6912, 640, cuda, seed=0, code=code))
+
+
+def test_fixmatmul_stream_is_one_launch(cuda):
+    """At M <= 16 a call is one kernel on the card (no partial-sum array,
+    no second kernel), as torch.profiler sees it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ops = _fix_operands(8, 2560, 640, cuda, seed=1)
+    fmod.fixmatmul(*ops)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fmod.fixmatmul(*ops)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 3 and all("fixmatmul_stream_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("M,kernel,tile,splits,per", [
+    (17, 1, 64, 4, 640),        # the streaming kernel takes M <= 16
+    (8, 1, 64, 9, 320),         # at most 8 blocks a cluster
+    (8, 1, 32, 4, 640),         # no such column tile
+    (8, 1, 64, 5, 624),         # splits are whole 32-deep steps
+    (8, 1, 64, 2, 640),         # the splits do not cover K
+    (8, 2, 64, 4, 640),         # no such kernel
+    (8, 0, 3, 4, 640),          # the tiled kernel has no 3 rows a thread
+])
+def test_fixmatmul_entry_refuses_what_it_does_not_take(M, kernel, tile, splits, per, cuda):
+    K, N = 2560, 640
+    xq, wq, sx, sw = _fix_operands(M, K, N, cuda, seed=2)
+    out = torch.empty((M, N), device=cuda)
+    part = torch.empty((splits, M, N), dtype=torch.int32, device=cuda)
+    err = fmod.LIBRARY.load().fixmatmul_launch(
+        xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        part.data_ptr(), M, K, N, kernel, tile, splits, per,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1                                   # cudaErrorInvalidValue
+
+
+def _grad_case(name, dev):
+    """(kernel, inputs, the index of the float inputs) at a small shape."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    if name == "fixmatmul":
+        xq, wq, sx, sw = _fix_operands(4, 64, 32, dev, seed=3)
+        return fmod.fixmatmul, (xq, wq, sx, sw), (2, 3)
+    if name == "flash_attention":
+        q, k, v = (torch.randn((1, 2, 64, 16), generator=g, device=dev) for _ in range(3))
+        return flash_attention, (q, k, v), (0, 1, 2)
+    r, k, v = (torch.randn((1, 2, 16, 16), generator=g, device=dev) * 0.5 for _ in range(3))
+    logw = -torch.exp(torch.rand((1, 2, 16, 16), generator=g, device=dev) - 4)
+    u = torch.randn((2, 16), generator=g, device=dev)
+    s0 = torch.zeros((1, 2, 16, 16), device=dev)
+    return rmod.rwkv6_scan, (r, k, v, logw, u, s0), (0, 1, 2, 3, 4, 5)
+
+
+@pytest.mark.parametrize("name", ["fixmatmul", "flash_attention", "rwkv6_scan"])
+def test_kernels_refuse_autograd(name, cuda):
+    """A kernel has no backward pass: a floating input that requires grad
+    raises under grad mode (each of them in turn) instead of a silently
+    constant output; under no_grad the kernel runs."""
+    fn, args, floats = _grad_case(name, cuda)
+    for i in floats:
+        leaf = [a.clone().requires_grad_(j == i) if j in floats else a for j, a in enumerate(args)]
+        with pytest.raises(RuntimeError, match=f"{name}.*no backward"):
+            fn(*leaf)
+        with torch.no_grad():
+            fn(*leaf)
+    torch.cuda.synchronize()
 
 
 FLASH_TOL = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]

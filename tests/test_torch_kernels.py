@@ -8,6 +8,10 @@ f32: the two sum the same terms in another order.  In bf16 (the serving
 path's type) it is held at atol 1e-2: both round p to bf16 before P V and
 the output to bf16 at the end, so a sum taken in another order can move an
 output by one bf16 step, 2**-8 = 0.0039 at |x| < 1.
+
+Also on the CPU: fixmatmul's launch planner (which kernel, column tile and
+K splits the card gets) and ``refuse_grad``, the kernels' guard against
+inputs that require grad.
 """
 
 import jax
@@ -25,9 +29,12 @@ from repro.kernels.flashattn.ops import attention as jattention
 
 from repro_torch.core.fixedpoint import quantize_per_channel
 from repro_torch.kernels.fixmatmul import fixmatmul, fixmatmul_ref, quantize_weight, quantized_matmul
-from repro_torch.kernels.fixmatmul.fixmatmul import BK, k_splits
+from repro_torch.kernels.fixmatmul.fixmatmul import (BK, MAX_CLUSTER, STREAM_K_STEP, STREAM_MAX_M,
+                                                     STREAM_TILES, Plan, k_splits, plan,
+                                                     rows_per_thread)
 from repro_torch.kernels.flashattn import attention, flash_attention, flash_attention_ref
 from repro_torch.kernels.flashattn.flashattn import Route, route
+from repro_torch.kernels.grad import refuse_grad
 
 torch.set_num_threads(1)
 
@@ -118,15 +125,61 @@ def test_quantize_per_channel_equals_jax(axis):
     assert np.array_equal(s.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 2560, 2560), (8, 2560, 640), (8, 2560, 6912),
-                                   (64, 6912, 2560), (8, 2560, 32000), (3, 100, 37)])
+# The decode shapes (K, N) of the serving paths: danube's wq/wo, wk/wv,
+# w1/w3, w2 and lm_head, then rwkv6-7b's lm_head.
+DECODE_KN = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560), (2560, 32000), (4096, 65536)]
+PLAN_CASES = [(1, 2560, 2560), (8, 2560, 640), (8, 2560, 6912), (64, 6912, 2560), (8, 2560, 32000),
+              (3, 100, 37)]
+PLAN_CASES += [(M, K, N) for K, N in DECODE_KN for M in range(1, STREAM_MAX_M + 2)
+               if (M, K, N) not in PLAN_CASES]
+
+
+@pytest.mark.parametrize("M,K,N", PLAN_CASES)
 def test_k_splits_cover_k(M, K, N):
-    """The kernel's split of K: whole 64-deep stages that cover K, and no
-    more splits than keep the partial sums under a quarter of the weight
-    bytes (or one split)."""
-    splits, per = k_splits(M, K, N, sms=132)
+    """The tiled kernel's split of K: whole 64-deep stages that cover K,
+    and no more splits than keep the partial sums under a quarter of the
+    weight bytes (or one split).  ``plan`` sends M > 16 there and M <= 16
+    to the streaming kernel, whose K splits (at most 8: one cluster) put
+    every k in exactly one split.  On one H100's 132 SMs it takes the
+    widest column tile that can reach half the SMs with 8 splits, and
+    splits until the grid has 1.5 blocks an SM or the splits run out; every
+    decode shape gets at least half the SMs."""
+    sms = 132
+    splits, per = k_splits(M, K, N, sms=sms)
     assert per % BK == 0 and splits * per >= K > (splits - 1) * per
     assert splits == 1 or 8 * splits * M * N <= K * N // 4 + 8 * M * N
+    p = plan(M, K, N, sms=sms)
+    if M > STREAM_MAX_M:
+        assert p == Plan("tiled", rows_per_thread(M), splits, per)
+        return
+    assert p.kernel == "stream" and p.tile in STREAM_TILES and 1 <= p.splits <= MAX_CLUSTER
+    assert p.k_per_split % STREAM_K_STEP == 0
+    cover = np.zeros(K, np.int64)
+    for z in range(p.splits):
+        lo, hi = z * p.k_per_split, min(K, (z + 1) * p.k_per_split)
+        assert hi > lo                                   # no empty split
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    tiles = -(-N // p.tile)
+    wider = [t for t in STREAM_TILES if t > p.tile]
+    assert all(-(-N // t) * MAX_CLUSTER < sms / 2 for t in wider)
+    steps = -(-K // STREAM_K_STEP)
+    assert tiles * p.splits >= 1.5 * sms or p.splits == min(MAX_CLUSTER, steps)
+    assert tiles * (p.splits - 1) < 1.5 * sms                # no more splits than that
+    if (K, N) in DECODE_KN:
+        assert tiles * p.splits >= sms / 2
+
+
+def test_refuse_grad():
+    """The kernels' guard: a floating input that requires grad under grad
+    mode raises; no_grad and integer tensors pass."""
+    x = torch.ones(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="some_kernel.*no backward"):
+        refuse_grad("some_kernel", torch.ones(2), x)
+    with torch.no_grad():
+        refuse_grad("some_kernel", x)
+    refuse_grad("some_kernel", torch.ones(3, dtype=torch.int32), torch.ones(2))
+    refuse_grad("some_kernel", x.detach())
 
 
 def test_fixmatmul_rejects_bad_operands():
