@@ -35,7 +35,9 @@ each printing its results on a line of its own:
      view, a row stride the bf16 kernel's 16-byte copies cannot take);
      rwkv6_scan against its plain version in bf16 and f32 (chunks of 64,
      32, 16 and 1, S < 64, many chunks, a non-zero and an aliased state,
-     head size 64 and 16, a decay steep enough to clip, chained halves);
+     head size 64, 36 and 16, a decay steep enough to clip, chained
+     halves), every call of two or more chunks on the two passes (state
+     pass, output pass) and of one chunk on the one-block kernel;
      lut_sigmoid byte for byte (INT_MIN, INT_MAX, the saturation edge,
      every LUT knot and its neighbours, 2**24 random values, 1-D and 3-D);
   7. the serve path at full width: h2o-danube-1.8b (24 layers, bf16,
@@ -50,15 +52,18 @@ each printing its results on a line of its own:
      quantized engine on the card gives the CPU's tokens; (d) where a
      decode step's device time goes (torch.profiler); (e) rwkv6-7b at full
      width (32 layers, d 4096, 64 heads of 64, bf16), after danube is
-     freed: prefill B 1, S 8192 (32 rwkv6_scan launches) against the same
-     forward through the plain chunked_wkv; the quantized engine with the
-     64-node monitor (32 rwkv6_scan and 1 fixmatmul launches per decode
-     step); the SMOKE config's quantized engine on the card gives the
-     CPU's tokens; a decode step's profile; (f) the lutact path:
+     freed: prefill B 1, S 8192 (32 rwkv6_scan launches, all on the two
+     passes) against the same forward through the plain chunked_wkv; the
+     quantized engine with the 64-node monitor (32 rwkv6_scan and 1
+     fixmatmul launches per decode step, on the one-block kernel); the
+     SMOKE config's quantized engine on the card gives the CPU's tokens; a
+     decode step's profile; (f) the lutact path:
      fixed_sigmoid over int32 activations of 1024 x 1024 and 8192 x 8192;
   8. each kernel's time per launch at the main path's shapes, its plain
      version's, one PyTorch library call's where there is one, and its
-     bound; fixmatmul per decode shape, beside its tiled kernel's time.
+     bound; fixmatmul per decode shape, beside its tiled kernel's time;
+     rwkv6_scan's two passes at the prefill shape in turns with its
+     one-block kernel, and each pass's device time.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -597,6 +602,7 @@ def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     cases = [  # (B, H, S, K, chunk, decay)
         (1, 64, 512, 64, 64, "slow"),      # L 64, eight chunks, the full model's heads
+        (2, 3, 192, 36, 64, "slow"),       # K 36: rows of no 16-byte multiple, plain loads
         (2, 8, 256, 64, 32, "slow"),       # L 32
         (2, 4, 128, 16, 16, "slow"),       # L 16, the SMOKE head size
         (8, 64, 1, 64, 64, "slow"),        # L 1: the decode step's shape
@@ -608,9 +614,11 @@ def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
     worst = {}
     for dt in (torch.bfloat16, torch.float32):
         tol = RWKV_TOL[str(dt).split(".")[1]]
-        errs, rels = [], []
+        errs, rels, two_pass = [], [], 0
         for B, H, S, K, chunk, decay in cases:
             r, k, v, logw, u, s0 = rwkv6_inputs(torch, B, H, S, K, dt, dev, g, decay)
+            before = rwkv_mod.rwkv6_scan.chunked_launches
+            chunked = rwkv_mod.route(S, chunk) == "chunked"
             out, s1 = rwkv_mod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk)
             ref, ref_s1 = rwkv6_scan_ref(r, k, v, logw, u, s0, chunk=chunk)
             s_in = s0.clone()
@@ -627,6 +635,10 @@ def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
                      f"{RWKV_STATE_TOL})")
             if not (s2 is s_in and torch.equal(out2, out) and torch.equal(s_in, s1)):
                 fail(f"rwkv6_scan {dt} {(B, H, S, K, chunk)}: the state written in place differs")
+            if rwkv_mod.rwkv6_scan.chunked_launches != before + 2 * chunked:
+                fail(f"rwkv6_scan {dt} {(B, H, S, K, chunk)}: took the wrong route "
+                     f"(chunked_launches {before} -> {rwkv_mod.rwkv6_scan.chunked_launches})")
+            two_pass += chunked
             errs.append(err)
             rels.append((rel, s_rel))
         # chained halves: the state carried across two calls == one call
@@ -643,7 +655,8 @@ def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
                 c_s > RWKV_STATE_TOL * max(1.0, float(s_full.abs().max())):
             fail(f"rwkv6_scan {dt}: chained halves differ from the whole: out {c_err}, state {c_s}")
         worst[dt] = max(errs)
-        print(f"check rwkv6_scan {dt}: {len(cases)} shapes + chained halves, out max abs err "
+        print(f"check rwkv6_scan {dt}: {len(cases)} shapes ({two_pass} on the two passes) + "
+              f"chained halves, out max abs err "
               f"{max(errs):.3g} (largest relative {max(x for x, _ in rels):.3g}, tolerance {tol}), "
               f"state relative {max(y for _, y in rels):.3g} (tolerance {RWKV_STATE_TOL}); "
               f"chained: out {c_err:.3g}, state {c_s:.3g}; state written in place: equal",
@@ -730,7 +743,9 @@ def prefill_tokens(torch, cfg, dev):
 def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
             plain_alt: dict | None = None, counters: tuple = ("launches",)) -> int:
     """(a) Model.forward at B 1, S PREFILL_LEN through ``kernel`` (one
-    launch per layer), held against the same forward with ``plain`` (the
+    launch per layer), timed after a warm-up at 1024 tokens and again at
+    the same length (then the allocator and the libraries have met every
+    shape), held against the same forward with ``plain`` (the
     forward's hook, e.g. ``{"attention": blocked_attention}``): the logits
     may differ by PREFILL_REL_TOL of the largest.  When ``plain_alt`` (the
     plain version with its sums in another order) is given, the kernel's
@@ -749,6 +764,7 @@ def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
     for name, n in counts.items():
         if n != cfg.num_layers:
             fail(f"{cfg.name} prefill: {name} = {n}, not one per layer ({cfg.num_layers})")
+    _, again_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}))
     (ref, _), plain_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}, **plain))
     if logits.shape != (1, PREFILL_LEN, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
         fail(f"{cfg.name} prefill logits: shape {tuple(logits.shape)}, "
@@ -777,10 +793,12 @@ def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
         ok = mean <= res["tolerance_mean"] and agree >= res["tolerance_agreement"]
     print(json.dumps({"phase": "prefill", "arch": cfg.name, "batch": 1, "seq": PREFILL_LEN, **extra,
                       **counts, "ms": prefill_ms,
-                      "tokens_per_s": PREFILL_LEN / (prefill_ms / 1e3),
+                      "tokens_per_s": PREFILL_LEN / (prefill_ms / 1e3), "ms_again": again_ms,
+                      "tokens_per_s_again": PREFILL_LEN / (again_ms / 1e3),
                       f"plain_{next(iter(plain))}_ms": plain_ms, **res}), flush=True)
-    print(f"serve: {cfg.name} prefill {PREFILL_LEN / (prefill_ms / 1e3):.1f} tokens/s "
-          f"(Model.forward, B 1, S {PREFILL_LEN}); argmax agreement with the plain forward "
+    print(f"serve: {cfg.name} prefill {PREFILL_LEN / (prefill_ms / 1e3):.1f} tokens/s, again "
+          f"{PREFILL_LEN / (again_ms / 1e3):.1f} (Model.forward, B 1, S {PREFILL_LEN}); argmax "
+          f"agreement with the plain forward "
           f"{100 * agree:.2f}%", flush=True)
     if not ok:
         fail(f"{cfg.name} prefill logits: kernel vs plain {res}")
@@ -922,7 +940,8 @@ def serve_rwkv6(torch, dev, fix_mod, rwkv_mod, kmod):
     # bf16 step on every layer's real inputs.
     launches = {"prefill": prefill(torch, model, params, cfg, dev, rwkv_mod.rwkv6_scan,
                                    {"wkv": chunked_wkv}, {"chunk": 64},
-                                   {"wkv": functools.partial(chunked_wkv, chunk=32)})}
+                                   {"wkv": functools.partial(chunked_wkv, chunk=32)},
+                                   counters=("launches", "chunked_launches"))}
     torch.cuda.empty_cache()
     check_wkv_layers(torch, model, params, cfg, dev)
     torch.cuda.empty_cache()
@@ -1034,7 +1053,7 @@ def profile_decode(torch, model, qparams, cfg, dev) -> None:
         us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
         name = ev.key.lower()
         key = ("fixmatmul" if "fixmatmul" in name else
-               "rwkv6_scan" if "rwkv6_scan" in name else
+               "rwkv6_scan" if "rwkv6" in name else
                "memcpy/memset" if "memcpy" in name or "memset" in name else
                "gemm (torch)" if "gemm" in name or "cutlass" in name or "gemv" in name else
                "reduce/softmax" if "reduce" in name or "softmax" in name else
@@ -1187,10 +1206,14 @@ def time_flash(torch, flash_mod, dev) -> dict:
 
 def time_rwkv6_scan(torch, rwkv_mod, dev, launches: dict) -> dict:
     """ms per launch at the prefill's shape (B 1, S 8192) and the decode
-    step's (B 8, S 1), bf16, H 64, K 64; the kernels line takes their
-    mean weighted by the main path's launches of each.  The decode shape's
-    states rotate through copies past the L2 cache, as 32 layers' states
-    find it cold."""
+    step's (B 8, S 1), bf16, H 64, K 64, each on the route the main path
+    takes there (the two passes, the one-block kernel); the kernels line
+    takes their mean weighted by the main path's launches of each.  At the
+    prefill shape the one-block kernel is timed in turns with the two
+    passes (two passes, one block, one block, two passes) and held to the
+    same outputs, and torch.profiler splits the two passes' device time.
+    The decode shape's states rotate through copies past the L2 cache, as
+    32 layers' states find it cold."""
     from repro_torch.config import get_arch
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -1202,10 +1225,33 @@ def time_rwkv6_scan(torch, rwkv_mod, dev, launches: dict) -> dict:
     for path, B, S in (("prefill", 1, PREFILL_LEN), ("serve", SERVE_BATCH, 1)):
         r, k, v, logw, u, s0 = rwkv6_inputs(torch, B, H, S, K, torch.bfloat16, dev, g)
         L = min(64, S)
+        kernel = rwkv_mod.route(S)
         state_bytes = 4 * B * H * K * K
         copies = max(1, int(-(-2 * L2_BYTES // state_bytes))) if S == 1 else 1
         states = [s0] + [s0.clone() for _ in range(copies - 1)]
-        ms = cuda_ms(torch, lambda i: rwkv_mod.rwkv6_scan(r, k, v, logw, u, states[i % copies]))
+
+        def call(i, kern=kernel):
+            return rwkv_mod.rwkv6_scan(r, k, v, logw, u, states[i % copies], kernel=kern)
+
+        extra = {"route": kernel}
+        if kernel == "chunked":
+            runs = {"chunked": [], "one_block": []}
+            for kern in ("chunked", "one_block", "one_block", "chunked"):
+                runs[kern].append(cuda_ms(torch, functools.partial(call, kern=kern)))
+            ms, one_ms = (sum(runs[x]) / 2 for x in ("chunked", "one_block"))
+            (out, s1), (one, one_s1) = call(0), call(0, "one_block")
+            torch.cuda.synchronize()
+            rel = float((out.float() - one.float()).abs().max()) / max(1.0, float(one.float().abs().max()))
+            s_rel = float((s1 - one_s1).abs().max()) / max(1.0, float(one_s1.abs().max()))
+            if rel > RWKV_TOL["bfloat16"] or s_rel > RWKV_STATE_TOL:
+                fail(f"rwkv6_scan at the prefill shape: two passes vs one block: out {rel}, "
+                     f"state {s_rel}")
+            extra |= {"one_block_ms": one_ms, "runs_ms": runs, "speedup": one_ms / ms,
+                      "two_pass_vs_one_block": {"out": rel, "state": s_rel},
+                      **profile_passes(torch, call)}
+            del out, s1, one, one_s1
+        else:
+            ms = cuda_ms(torch, call)
         plain = cuda_ms(torch, lambda i: rwkv6_scan_ref(r, k, v, logw, u, states[i % copies]),
                         reps=3, warmup=1)
         n = B * H * S * K
@@ -1220,12 +1266,15 @@ def time_rwkv6_scan(torch, rwkv_mod, dev, launches: dict) -> dict:
         t_ops = max(t_exp, t_flops)         # the SFU and the FMA pipes issue side by side
         per[path] = {"B": B, "S": S, "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "bytes": nbytes, "exps": exps, "flops": flops}
-        print(f"rwkv6_scan timing B={B} H={H} S={S} K={K} L={L} bf16: {ms:.5f} ms/launch, plain "
-              f"{plain:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms ({per[path]['bound_by']}: "
-              f"{nbytes / 1e6:.2f} MB = {t_bytes:.6f} ms, {exps / 1e9:.4f} G exp = {t_exp:.6f} ms, "
-              f"{flops / 1e9:.3f} GFLOP f32 = {t_flops:.6f} ms); no library call computes it",
-              flush=True)
+                     "bytes": nbytes, "exps": exps, "flops": flops, **extra}
+        turns = (f", one-block kernel in turns {extra['one_block_ms']:.5f} ms "
+                 f"({extra['speedup']:.2f}x), state pass {extra['state_pass_ms']} ms, output "
+                 f"pass {extra['output_pass_ms']} ms" if kernel == "chunked" else "")
+        print(f"rwkv6_scan timing B={B} H={H} S={S} K={K} L={L} bf16 ({kernel}): {ms:.5f} "
+              f"ms/launch{turns}, plain {plain:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms "
+              f"({per[path]['bound_by']}: {nbytes / 1e6:.2f} MB = {t_bytes:.6f} ms, "
+              f"{exps / 1e9:.4f} G exp = {t_exp:.6f} ms, {flops / 1e9:.3f} GFLOP f32 = "
+              f"{t_flops:.6f} ms); no library call computes it", flush=True)
         del states, r, k, v, logw
     total = sum(w.values())
     mean = {key: sum(w[p] * per[p][key] for p in per) / total for key in ("ms", "plain_ms", "bound_ms")}
@@ -1236,6 +1285,30 @@ def time_rwkv6_scan(torch, rwkv_mod, dev, launches: dict) -> dict:
         "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:85",
         **mean, "bound_by": per[heaviest]["bound_by"], "library_ms": None, "per_shape": per,
     }
+
+
+def profile_passes(torch, call, reps: int = 5) -> dict:
+    """Device ms a launch of the state pass and of the output pass over
+    ``reps`` calls of ``call`` (the two passes), from torch.profiler: each
+    kernel's device time over the launches it recorded; "not measured"
+    where it recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            call(i)
+        torch.cuda.synchronize()
+    us = {"state_pass_ms": [0.0, 0], "output_pass_ms": [0.0, 0]}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        key = ("state_pass_ms" if "rwkv6_state_kernel" in ev.key else
+               "output_pass_ms" if "rwkv6_chunk_out_kernel" in ev.key else None)
+        if key:
+            us[key][0] += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            us[key][1] += ev.count
+    return {key: t / 1e3 / n if n else "not measured" for key, (t, n) in us.items()}
 
 
 def time_lut_sigmoid(torch, lut_mod, dev) -> dict:

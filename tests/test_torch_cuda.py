@@ -6,7 +6,9 @@ M = 1..16 and shape, ragged, misaligned and at extreme codes, one launch
 a call; the tiled kernel above), flash attention within 1e-4 in f32 (the
 FP32 kernel) and 2e-2 in bf16 (the tensor-core kernel, one bf16 step of
 the output and of p), rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``)
-of the largest value, with its state written in place or not, lut_sigmoid
+of the largest value on both routes (the two passes at two or more chunks,
+the one-block kernel at one, and the two held against each other), with
+its state written in place or not, lut_sigmoid
 bitwise equal; a CUDA tensor never takes the plain version (each launch
 counter grows), and no kernel runs on inputs that require grad.  Needs an
 NVIDIA GPU with nvcc; every test here skips without one.
@@ -306,31 +308,102 @@ def test_flash_tc_entry_takes_only_the_routed_instance(hd, hd_pad, shift, cuda):
     assert err == (0 if valid else 1)
 
 
-@pytest.mark.parametrize("dtype,out_tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("B,H,S,K,chunk", [
-    (1, 4, 256, 64, 64), (2, 3, 128, 16, 32), (8, 8, 1, 64, 64), (1, 2, 40, 16, 64),
-    (2, 2, 48, 64, 16), (1, 2, 8, 16, 1),
-])
-def test_rwkv6_scan_matches_plain_version(B, H, S, K, chunk, dtype, out_tol, cuda):
-    """Tolerances are relative to the largest value of the plain version;
-    bf16 ``out`` is rounded once, so it may differ by one bf16 step."""
-    g = torch.Generator(device=cuda).manual_seed(B * S + K)
-    r, k, v = ((torch.randn((B, H, S, K), generator=g, device=cuda) * 0.5).to(dtype)
+RWKV_TOL = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]
+
+
+def _rwkv_inputs(B, H, S, K, dtype, dev, seed, decay="slow"):
+    """``decay="fast"`` draws log decays down to -7.4 a step, so a chunk's
+    cumulative decays pass the clip at -60."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = ((torch.randn((B, H, S, K), generator=g, device=dev) * 0.5).to(dtype)
                for _ in range(3))
-    logw = -torch.exp(torch.rand((B, H, S, K), generator=g, device=cuda) * 2 - 6)
-    u = torch.randn((H, K), generator=g, device=cuda) * 0.5
-    s0 = torch.randn((B, H, K, K), generator=g, device=cuda) * 0.1
-    launches = rmod.rwkv6_scan.launches
+    lo, hi = (-6.0, -4.0) if decay == "slow" else (-1.0, 2.0)
+    logw = -torch.exp(torch.rand((B, H, S, K), generator=g, device=dev) * (hi - lo) + lo)
+    u = torch.randn((H, K), generator=g, device=dev) * 0.5
+    s0 = torch.randn((B, H, K, K), generator=g, device=dev) * 0.1
+    return r, k, v, logw, u, s0
+
+
+def _rwkv_close(out, s1, ref, ref_s1, out_tol):
+    """Tolerances relative to the largest value of ``ref``; bf16 ``out``
+    is rounded once, so it may differ by one bf16 step."""
+    assert float((out.float() - ref.float()).abs().max()) <= out_tol * max(
+        1.0, float(ref.float().abs().max()))
+    assert float((s1 - ref_s1).abs().max()) <= 1e-4 * max(1.0, float(ref_s1.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,out_tol", RWKV_TOL)
+@pytest.mark.parametrize("B,H,S,K,chunk,decay", [
+    (1, 4, 256, 64, 64, "slow"), (2, 3, 128, 16, 32, "slow"), (8, 8, 1, 64, 64, "slow"),
+    (1, 2, 40, 16, 64, "slow"), (2, 2, 48, 64, 16, "slow"), (1, 2, 8, 16, 1, "slow"),
+    (1, 64, 1024, 64, 64, "slow"),      # the prefill's heads, 16 chunks
+    (2, 3, 512, 64, 64, "slow"),        # a ragged head count
+    (2, 4, 256, 16, 16, "slow"),        # the SMOKE head size
+    (1, 8, 256, 64, 64, "fast"),        # the clip at -60 active
+    (2, 4, 96, 36, 32, "slow"),         # K 36: no 16-byte rows, plain loads
+])
+def test_rwkv6_scan_matches_plain_version(B, H, S, K, chunk, decay, dtype, out_tol, cuda):
+    """Each call takes the kernel ``route`` picks (the two passes when it
+    holds two or more chunks, ``chunked_launches`` counting them), and
+    ``state_out=state0`` in place gives the fresh result bit for bit."""
+    r, k, v, logw, u, s0 = _rwkv_inputs(B, H, S, K, dtype, cuda, B * S + K, decay)
+    launches, chunked = rmod.rwkv6_scan.launches, rmod.rwkv6_scan.chunked_launches
     out, s1 = rmod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk)
     torch.cuda.synchronize()
     assert rmod.rwkv6_scan.launches == launches + 1 and out.dtype == dtype
+    two_pass = S >= 2 * min(chunk, S)
+    assert rmod.route(S, chunk) == ("chunked" if two_pass else "one_block")
+    assert rmod.rwkv6_scan.chunked_launches == chunked + two_pass
     ref, ref_s1 = rwkv6_scan_ref(r, k, v, logw, u, s0, chunk=chunk)
-    assert float((out.float() - ref).abs().max()) <= out_tol * max(1.0, float(ref.abs().max()))
-    assert float((s1 - ref_s1).abs().max()) <= 1e-4 * max(1.0, float(ref_s1.abs().max()))
+    _rwkv_close(out, s1, ref, ref_s1, out_tol)
     s_in = s0.clone()
     out2, s2 = rmod.rwkv6_scan(r, k, v, logw, u, s_in, chunk=chunk, state_out=s_in)
     torch.cuda.synchronize()
     assert s2 is s_in and torch.equal(out2, out) and torch.equal(s_in, s1)
+
+
+@pytest.mark.parametrize("dtype,out_tol", RWKV_TOL)
+@pytest.mark.parametrize("B,H,S,K,chunk,decay,view", [
+    (1, 64, 1024, 64, 64, "slow", "bshk"),    # the model's (B, S, D) layout, viewed
+    (1, 8, 512, 64, 64, "fast", "dense"),
+    (2, 4, 256, 16, 16, "slow", "dense"),
+    (1, 4, 128, 64, 64, "slow", "shifted"),   # operands one element off 16 bytes
+    (2, 4, 96, 36, 32, "slow", "dense"),
+])
+def test_rwkv6_scan_two_passes_match_one_block(B, H, S, K, chunk, decay, view, dtype, out_tol,
+                                               cuda):
+    """The two passes against the one-block kernel on the same operands:
+    the same outputs and state within the plain version's tolerances."""
+    r, k, v, logw, u, s0 = _rwkv_inputs(B, H, S, K, dtype, cuda, S + K, decay)
+    if view == "bshk":
+        r, k, v, logw = (t.movedim(1, 2).contiguous().movedim(2, 1) for t in (r, k, v, logw))
+    elif view == "shifted":
+        def shifted(t):
+            buf = t.new_empty(t.numel() + 1)
+            out = buf[1:].view(t.shape)
+            out.copy_(t)
+            return out
+        r, k, v, logw = (shifted(t) for t in (r, k, v, logw))
+    chunked = rmod.rwkv6_scan.chunked_launches
+    out, s1 = rmod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk, kernel="chunked")
+    one, one_s1 = rmod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk, kernel="one_block")
+    torch.cuda.synchronize()
+    assert rmod.rwkv6_scan.chunked_launches == chunked + 1
+    _rwkv_close(out, s1, one, one_s1, out_tol)
+
+
+def test_rwkv6_scan_route_sends_one_chunk_to_one_block(cuda):
+    """S / L = 1 (the decode step, a prompt shorter than a chunk) takes the
+    one-block kernel; two chunks or more take the two passes."""
+    for S, chunk in ((1, 64), (40, 64), (64, 64), (16, 16)):
+        assert rmod.route(S, chunk) == "one_block"
+        r, k, v, logw, u, s0 = _rwkv_inputs(2, 4, S, 16, torch.float32, cuda, S)
+        chunked = rmod.rwkv6_scan.chunked_launches
+        rmod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk)
+        assert rmod.rwkv6_scan.chunked_launches == chunked
+    for S, chunk in ((128, 64), (32, 16), (2, 1)):
+        assert rmod.route(S, chunk) == "chunked"
+    torch.cuda.synchronize()
 
 
 def test_lut_sigmoid_bitwise_equals_plain_version(cuda):

@@ -1,6 +1,8 @@
 """The PyTorch port's rwkv6 family against the JAX package: the plain
 version of the rwkv6_scan kernel (``chunked_wkv`` behind the CPU wrapper)
-against the Pallas kernel in interpret mode, and the rwkv6-7b SMOKE model
+and the two-pass split of its CUDA prefill route (each chunk's start
+state, then every chunk's output from it) against the Pallas kernel in
+interpret mode, the kernels' ``route``, and the rwkv6-7b SMOKE model
 (2 layers, d 64, 4 heads of 16, f32) with the JAX weights carried across
 by ``params_from_jax``: forward, decode steps, the quantized ``lm_head``,
 the serve engine's greedy tokens and the CLI.
@@ -13,6 +15,7 @@ Quantized codes and scales, and greedy tokens, are exact.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -38,8 +41,11 @@ from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.models.quantized import quantize_params
 from repro_torch.models.rwkv6 import RWKVState, chunked_wkv
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_ref, wkv
+from repro_torch.kernels.rwkv6_scan.ref import chunk_states_ref, rwkv6_scan_two_pass_ref
 from repro_torch.serve import ServeEngine
 from repro_torch.utils.tree import tree_flatten_with_names
+
+rmod = importlib.import_module("repro_torch.kernels.rwkv6_scan.rwkv6_scan")
 
 torch.set_num_threads(1)
 
@@ -75,13 +81,16 @@ def _both(arrays):
 # the scan
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("B,H,S,K,chunk", [
+SCAN_SHAPES = [
     (1, 2, 64, 16, 32), (2, 3, 128, 16, 64), (1, 1, 256, 32, 64),   # tests/test_kernels.py
     (2, 2, 8, 16, 1),                                               # L = 1
     (1, 2, 40, 16, 64),                                             # S < 64: L = S
     (2, 2, 1, 64, 64),                                              # decode: S = 1, K 64
     (1, 2, 96, 16, 16),                                             # six chunks of 16
-])
+]
+
+
+@pytest.mark.parametrize("B,H,S,K,chunk", SCAN_SHAPES)
 def test_scan_matches_pallas_kernel(B, H, S, K, chunk):
     ins = _scan_inputs(B * 100 + S + chunk, B, H, S, K)
     (jr, jk, jv, jw, ju, js0), args = _both(ins)
@@ -90,6 +99,56 @@ def test_scan_matches_pallas_kernel(B, H, S, K, chunk):
     assert out.shape == (B, H, S, K) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **SCAN_TOL)
     np.testing.assert_allclose(s1.numpy(), np.asarray(js1), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("B,H,S,K,chunk", SCAN_SHAPES)
+def test_two_pass_decomposition_matches_chunked_wkv_and_pallas(B, H, S, K, chunk):
+    """The split the CUDA prefill route makes, in plain PyTorch: each
+    chunk's start state by the state pass's recurrence, then every chunk's
+    output from its start state, gives chunked_wkv's result and the Pallas
+    kernel's (interpret mode)."""
+    ins = _scan_inputs(B * 100 + S + chunk, B, H, S, K)
+    (jr, jk, jv, jw, ju, js0), args = _both(ins)
+    jout, js1 = jrwkv6_scan(jr, jk, jv, jw, ju, js0, chunk=chunk, interpret=True)
+    out, s1 = rwkv6_scan_two_pass_ref(*args, chunk=chunk)
+    ref, ref_s1 = rwkv6_scan_ref(*args, chunk=chunk)
+    assert out.shape == (B, H, S, K) and out.dtype == torch.float32
+    for got, want in ((out, np.asarray(jout)), (s1, np.asarray(js1)), (out, ref.numpy()),
+                      (s1, ref_s1.numpy())):
+        np.testing.assert_allclose(got.numpy(), want, **SCAN_TOL)
+
+
+def test_chunk_states_are_the_states_after_each_prefix():
+    """Chunk c's start state is s0 for c = 0, then the state after the
+    first c chunks (the plain version over that prefix)."""
+    r, k, v, logw, u, s0 = (torch.tensor(a) for a in _scan_inputs(11, 2, 3, 96, 16))
+    states, s1 = chunk_states_ref(k, v, logw, s0, chunk=16)
+    assert states.shape == (2, 3, 6, 16, 16) and torch.equal(states[:, :, 0], s0)
+    for c in range(1, 6):
+        _, s_c = rwkv6_scan_ref(r[:, :, :16 * c], k[:, :, :16 * c], v[:, :, :16 * c],
+                                logw[:, :, :16 * c], u, s0, chunk=16)
+        np.testing.assert_allclose(states[:, :, c].numpy(), s_c.numpy(), **SCAN_TOL)
+    np.testing.assert_allclose(s1.numpy(), rwkv6_scan_ref(r, k, v, logw, u, s0, chunk=16)[1].numpy(),
+                               **SCAN_TOL)
+
+
+@pytest.mark.parametrize("S,chunk,route", [
+    (1, 64, "one_block"), (40, 64, "one_block"), (64, 64, "one_block"), (1, 1, "one_block"),
+    (16, 16, "one_block"), (128, 64, "chunked"), (8192, 64, "chunked"), (32, 16, "chunked"),
+    (2, 1, "chunked"), (192, 64, "chunked"),
+])
+def test_route_takes_the_two_passes_from_two_chunks(S, chunk, route):
+    """One chunk of L = min(chunk, S) (the decode step) goes to the
+    one-block kernel, two or more (the prefill) to the two passes."""
+    assert rmod.route(S, chunk) == route
+
+
+def test_scan_rejects_an_unknown_kernel():
+    args = [torch.tensor(a) for a in _scan_inputs(12, 1, 2, 64, 16)]
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        rwkv6_scan(*args, kernel="two_pass")
+    out, _ = rwkv6_scan(*args, kernel="chunked")      # the CPU takes the plain version either way
+    assert torch.equal(out, rwkv6_scan(*args)[0])
 
 
 def test_scan_state_chains():
