@@ -15,16 +15,23 @@ each printing its results on a line of its own:
      register and spill lines;
   3. hold vmloop against its plain PyTorch version on the card: the
      per-opcode sweep and a batch of random node states, byte for byte on
-     every field and on n_exec/bailed/bail_op; every claimed word must run
-     in the kernel, task/rnd/FIOS must bail;
+     every field and on n_exec/bailed/bail_op, over every node and over a
+     row list with per-row budgets; every claimed word must run in the
+     kernel, task/rnd/FIOS must bail;
   4. the fleet's main path: FleetVM(VMConfig(), n=4096, executor="cuda"),
      every node running a small fixed-point ANN (vecfold + dotprod +
      sigmoid), then sending its result round a ring; every 16th node also
-     draws `rnd` and spawns a task, so the interpreter tail runs on the
-     card.  Run with service_every=1 and 8, each held byte for byte against
-     executor="batched" on the card; every node must halt;
+     spawns a task and draws `rnd`, words the kernel declines and hands to
+     the interpreter one at a time.  Run with service_every=1 and 8, each
+     held byte for byte against executor="batched" on the card; every node
+     must halt, and bail_hist must be {"task": 256, "rnd": 256} with 512
+     instructions in the interpreter.  Each FleetVM.run is split into
+     start, rounds and sync; (4b) three rounds split into the executor's
+     own layers (schedule, each kernel launch, each hand-back, preempt)
+     and routing;
   5. vmloop's time per launch, its plain version's time, and its bound,
-     on the fleet (n = 4096) and on the serve monitor's 64 nodes;
+     on the fleet (n = 4096) and on the serve monitor's 64 nodes, with the
+     longest node's instructions and the ns each took;
   6. fixmatmul bitwise against its plain version at danube's decode shapes
      (M = 1, 2, 4, 8, 16 on the streaming kernel, 17 and 64 on the tiled
      one), rwkv6's lm_head, ragged shapes, operands misaligned by a byte
@@ -226,6 +233,7 @@ def main() -> int:
             fail(f"random states (cs_size={cfg.cs_size}): kernel != plain on {bad}, max abs err {err}")
         print(f"check cs_size={cfg.cs_size}: sweep {len(pairs)} programs, random 1024 nodes "
               f"({int(n_k.sum())} instructions, {int(b_k.sum())} bails): byte-identical", flush=True)
+        check_rows_budget(torch, kmod, check, cfg, dev)
 
     # 4. the main path: the full-size fleet
     cfg = VMConfig()
@@ -242,12 +250,16 @@ def main() -> int:
             vm.state = vms.clone(st)
             vm.out_stream.clear()
         fleet = FleetVM(nodes=nodes, executor=executor, device=dev)
+        split = {}
+        for name in ("start", "sync"):
+            setattr(fleet, name, synchronized(torch, getattr(fleet, name), split, name + "_ms"))
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = fleet.run(max_rounds=200, service_every=service_every)
         dt = time.perf_counter() - t
+        split["rounds_ms"] = 1e3 * dt - split["start_ms"] - split["sync_ms"]
         final = vms.stack_states([vm.state for vm in nodes])
-        return fleet, res, dt, final
+        return fleet, res, dt, final, split
 
     kmod.vmloop_call.launches = 0
     results = {}
@@ -255,9 +267,10 @@ def main() -> int:
         for executor in ("cuda", "batched"):
             results[executor, every] = run(executor, every)
     launches = kmod.vmloop_call.launches
+    spawners = len(range(0, n_nodes, 16))         # nodes that meet task and rnd
     for every in (1, 8):
-        fc, rc, dtc, Sc = results["cuda", every]
-        fb, rb, dtb, Sb = results["batched", every]
+        fc, rc, dtc, Sc, split_c = results["cuda", every]
+        fb, rb, dtb, Sb, split_b = results["batched", every]
         if rc.statuses != ["halt"] * n_nodes:
             fail(f"service_every={every}: not every node halted: "
                  f"{sorted(set(rc.statuses))}")
@@ -266,9 +279,12 @@ def main() -> int:
             fail(f"service_every={every}: cuda != batched on {bad} (max abs err {err})")
         steps = int(rc.steps.sum())
         ks = fc.kernel_stats()
-        if ks["kernel_steps"] <= 0 or ks["fallback_steps"] <= 0:
-            fail(f"service_every={every}: kernel {ks['kernel_steps']} / tail "
-                 f"{ks['fallback_steps']} steps: both must run")
+        if (ks["bail_hist"] != {"task": spawners, "rnd": spawners}
+                or ks["fallback_steps"] != 2 * spawners
+                or ks["kernel_steps"] + ks["fallback_steps"] != steps):
+            fail(f"service_every={every}: bail_hist {ks['bail_hist']}, kernel "
+                 f"{ks['kernel_steps']} / interpreter {ks['fallback_steps']} steps of {steps}: "
+                 f"each of {spawners} nodes must hand back task and rnd once")
         print(json.dumps({
             "phase": "fleet", "service_every": every, "nodes": n_nodes, "rounds": rc.rounds,
             "steps": steps, "steps_per_s": steps / dtc, "rounds_per_s": rc.rounds / dtc,
@@ -276,6 +292,7 @@ def main() -> int:
             "kernel_steps": ks["kernel_steps"], "tail_steps": ks["fallback_steps"],
             "bail_hist": ks["bail_hist"], "bailed_node_rounds": ks["bailed_node_rounds"],
             "batched_steps_per_s": steps / dtb, "batched_ms_per_round": 1e3 * dtb / rb.rounds,
+            "split_ms": split_c, "batched_split_ms": split_b,
             "identical_to_batched": True,
         }), flush=True)
     if launches <= 0:
@@ -283,43 +300,34 @@ def main() -> int:
     print(f"main path: vmloop launched {launches} times over 4 fleet runs "
           f"(2 on executor=cuda)", flush=True)
 
-    # 4b. where a round's time goes: the layers of CudaSliceExecutor and the
-    # round, each closed by a synchronize (host clock), on a fresh fleet
-    from repro_torch.kernels.vmloop.ops import fleet_vmloop
-
+    # 4b. where a round's time goes: the executor's own layers, each closed
+    # by a synchronize (host clock), on a fresh fleet
     for vm, st in zip(nodes, init):
         vm.state = vms.clone(st)
     fleet = FleetVM(nodes=nodes, executor="cuda", device=dev)
     fleet.start()
     S, kern = fleet._S, fleet.kernels
-    it = kern.interp
     for rnd in range(3):
         marks = []
 
-        def mark():
+        def mark(layer):
             torch.cuda.synchronize()
-            marks.append(time.perf_counter())
+            marks.append((layer, time.perf_counter()))
 
-        mark()
-        steps0 = S.steps.clone()
-        it.schedule(S)
-        mark()
-        S, n_exec, bailed, _ = fleet_vmloop(S, cfg.steps_per_slice, cfg)
-        mark()
-        tail = bailed != 0
-        n_tail = int(tail.sum())
-        if n_tail:
-            it.vmloop(S, cfg.steps_per_slice, active=tail, budget=cfg.steps_per_slice - n_exec)
-        mark()
-        it.preempt(S)
-        kern.post_slice(S, steps0)
-        mark()
-        ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+        mark("start")
+        steps0 = int(S.steps.sum())
+        S, n_exec, _, _ = kern.round_aux(S, cfg.steps_per_slice, mark)
+        mark("route")
+        ms: dict = {}
+        for (_, a), (layer, b) in zip(marks, marks[1:]):
+            ms[layer] = ms.get(layer, 0.0) + 1e3 * (b - a)
+        passes = sum(layer == "tail" for layer, _ in marks)
         print(json.dumps({
-            "phase": "breakdown", "round": rnd, "schedule_ms": ms[0], "kernel_ms": ms[1],
-            "tail_ms": ms[2], "tail_nodes": n_tail, "tail_steps": int(S.steps.sum() - steps0.sum()
-                                                                    - n_exec.sum()),
-            "preempt_route_warp_ms": ms[3],
+            "phase": "breakdown", "round": rnd, "schedule_ms": ms["schedule"],
+            "kernel_ms": ms["kernel"], "kernel_launches": passes + 1, "tail_ms": ms.get("tail", 0.0),
+            "passes": passes, "tail_steps": int(S.steps.sum()) - steps0 - int(n_exec.sum()),
+            "preempt_ms": ms["preempt"], "route_warp_ms": ms["route"],
+            "round_ms": 1e3 * (marks[-1][1] - marks[0][1]),
         }), flush=True)
 
     # 5. time per launch at n=4096, beside the plain version and the bound;
@@ -404,6 +412,42 @@ def timed(torch, fn):
     return out, 1e3 * (time.perf_counter() - t)
 
 
+def synchronized(torch, fn, into: dict, key: str):
+    """``fn`` timed by the host clock with the device synchronized on both
+    sides; each call's ms lands in ``into[key]``."""
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        into[key] = 1e3 * (time.perf_counter() - t)
+        return out
+    return call
+
+
+def check_rows_budget(torch, kmod, check, cfg, dev) -> None:
+    """The kernel over a row list (every third node of 1024 random ones,
+    shuffled) with per-row budgets, byte for byte against the plain
+    version."""
+    from repro_torch.core.vm import vmstate as vms
+    from repro_torch.kernels.vmloop.ref import core_of
+
+    R = check.random_states(cfg, 1024, seed=cfg.cs_size + 1, device=dev)
+    Rp = vms.clone(R)
+    g = torch.Generator().manual_seed(cfg.cs_size)
+    rows = torch.arange(0, 1024, 3)[torch.randperm(342, generator=g)].to(torch.int32).to(dev)
+    budget = torch.randint(0, 70, (342,), generator=g).to(torch.int32).to(dev)
+    out_k = kmod.vmloop_call(core_of(R), 64, cfg, rows=rows, budget=budget)[1:]
+    out_p = kmod.run_core(core_of(Rp), kmod._tables(None, dev)[0], 64, cfg, rows=rows,
+                          budget=budget)[1:]
+    torch.cuda.synchronize()
+    err, bad = check.max_abs_diff(R, Rp)
+    if bad or not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+        fail(f"rows/budget (cs_size={cfg.cs_size}): kernel != plain on {bad}, max abs err {err}")
+    print(f"check cs_size={cfg.cs_size}: 342 rows of 1024 nodes, budgets 0..69 "
+          f"({int(out_k[0].sum())} instructions): byte-identical", flush=True)
+
+
 def time_vmloop(torch, kmod, nodes, states, cfg, dev) -> dict:
     """One slice (cfg.steps_per_slice) of vmloop over the stacked ``states``
     of ``nodes``, scheduled as the executor does: ms per launch (CUDA
@@ -449,12 +493,15 @@ def time_vmloop(torch, kmod, nodes, states, cfg, dev) -> dict:
     frame_cells = sum(sum(f.end - f.start for f in vm.frames.frames.values()) for vm in nodes)
     nbytes = 4 * (changed + frame_cells)
     instrs = int(n_exec.sum())
+    longest = int(n_exec.max())
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * instrs / INT32_OPS_PER_S
     print(f"vmloop timing n={len(nodes)}: {ms:.4f} ms/launch, plain {plain_ms:.2f} ms, "
-          f"{instrs} instructions, bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B)", flush=True)
+          f"{instrs} instructions, longest node {longest} ({1e6 * ms / longest:.1f} ns each), "
+          f"bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B)", flush=True)
     return {"nodes": len(nodes), "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "instructions": instrs,
+            "longest_node": longest, "ns_per_instruction": 1e6 * ms / longest,
             "bytes": nbytes}
 
 

@@ -12,8 +12,9 @@
   * :class:`CudaSliceExecutor`    — ``executor="cuda"`` of the fleet (the
                                     reference's ``PallasSliceExecutor``):
                                     schedule, the vmloop kernel over every
-                                    node, the interpreter as the tail over the
-                                    nodes that bailed, preempt.
+                                    node, each declined word in the
+                                    interpreter and the kernel resumed after
+                                    it, preempt.
 
 All update a stacked state in place and are byte-exact with each other and
 with the JAX reference.
@@ -45,19 +46,31 @@ class BatchedSliceExecutor:
 
 
 class CudaSliceExecutor:
-    """The vmloop kernel plus the interpreter tail.
+    """The vmloop kernel, handing each declined word to the interpreter.
 
-    ``run_slice_batched_aux(S, steps)`` runs, per node: the scheduler
-    (batched, in torch), the kernel over every node, the interpreter tail
-    over the nodes that bailed before a declined word (with the budget the
-    kernel left them), and preemption.  It returns ``(found, n_exec,
-    bailed, bail_op)``.  Byte-exact with the batched executor: the kernel
-    stops *before* the declined instruction, so the tail resumes from the
-    same state.  Nodes the scheduler left asleep never satisfy the loops'
-    ST_RUN condition.
+    ``run_slice_batched_aux(S, steps, mark=None)`` runs, per node: the
+    scheduler (batched, in torch); the kernel over every node; then, while
+    some node bailed with budget left, that node's declined instruction in
+    the batched interpreter (one instruction, no claim mask) and the kernel
+    again over those rows, each with ``steps`` less what it has retired in
+    kernel and interpreter; then preemption.
 
-    Choosing the tail's rows costs one small device-to-host read per slice
-    (the indices of the bailed nodes).
+    It returns ``(found, n_exec, bailed, hist)``: per node the kernel's
+    instructions summed over all passes and whether the node bailed at all
+    ((N,) int32), and per opcode the nodes that met it at least once as a
+    declined word ((num_ops + 1,) int64, index num_ops for FIOS/trap).
+
+    Byte-exact with the batched executor: the kernel stops *before* the
+    declined instruction and the interpreter executes exactly that one, so
+    each node runs the same instructions in the same order.  Each pass
+    retires at least one instruction a row, so there are at most ``steps``
+    passes, and the interpreter runs only declined instructions.  Nodes the
+    scheduler left asleep never satisfy the loops' ST_RUN condition.  The
+    host syncs once a pass to pick the rows, and once in the interpreter's
+    step.
+
+    ``mark(layer)``, when given, is called after each layer: "schedule",
+    "kernel" (each launch), "tail" (each interpreter step), "preempt".
     """
 
     backend = "cuda"
@@ -67,17 +80,43 @@ class CudaSliceExecutor:
         self.isa = isa
         self.interp = interp_for(cfg, isa)
 
-    def run_slice_batched_aux(self, S, steps: int):
+    def run_slice_batched_aux(self, S, steps: int, mark=None):
         from repro_torch.kernels.vmloop.ops import fleet_vmloop
 
         it = self.interp
+        mark = mark or (lambda layer: None)
+        N, nops = S.pc.shape[0], it.num_ops
+        dev = S.pc.device
         found = it.schedule(S)
+        mark("schedule")
         S, n_exec, bailed, bail_op = fleet_vmloop(S, steps, self.cfg, self.isa)
-        tail = bailed != 0
-        if bool(tail.any()):
-            it.vmloop(S, steps, active=tail, budget=steps - n_exec)
+        mark("kernel")
+        rows = torch.arange(N, device=dev)
+        retired = n_exec.clone()
+        ever = bailed != 0
+        met = torch.zeros(N * (nops + 1), dtype=torch.bool, device=dev)
+        while True:
+            hit = bailed != 0
+            cell = rows * (nops + 1) + torch.clamp(bail_op, 0, nops).long()
+            met[cell] = met[cell] | hit
+            pending = torch.zeros(N, dtype=torch.bool, device=dev)
+            pending[rows] = hit & (retired[rows] < steps)
+            rows = pending.nonzero().flatten()          # the pass's one sync
+            if rows.numel() == 0:
+                break
+            retired += it.vmloop(S, 1, active=pending)[0]
+            mark("tail")
+            S, n_r, bailed, bail_op = fleet_vmloop(
+                S, steps, self.cfg, self.isa,
+                rows=rows.to(torch.int32), budget=steps - retired[rows],
+            )
+            mark("kernel")
+            n_exec.index_add_(0, rows, n_r)
+            retired.index_add_(0, rows, n_r)
+            ever[rows] = ever[rows] | (bailed != 0)
         it.preempt(S)
-        return found, n_exec, bailed, bail_op
+        mark("preempt")
+        return found, n_exec, ever.to(torch.int32), met.view(N, nops + 1).sum(dim=0)
 
     def run_slice_batched(self, S, steps: int) -> torch.Tensor:
         return self.run_slice_batched_aux(S, steps)[0]

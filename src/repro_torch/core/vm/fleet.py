@@ -6,7 +6,8 @@ A round is three layers, all updating that state in place:
 
   1. one micro-slice per node (``schedule -> vmloop -> preempt``) on the
      batched interpreter (``executor="batched"``) or on the vmloop CUDA
-     kernel with the interpreter as its tail (``executor="cuda"``);
+     kernel, which hands each word it declines to the interpreter
+     (``executor="cuda"``);
   2. the virtual clock: ``now += max(1, executed * us_per_instr // 1000)``;
   3. mailbox routing (``routing.build_router``): all sends in (node, task)
      order, then all receives;
@@ -59,9 +60,11 @@ class FleetKernels:
     """Slice + routing + clock for one (VMConfig, ISA, executor).
 
     ``round(S, steps)`` is one fleet round; ``round_aux`` also returns the
-    kernel's per-node step counts, bail flags and the per-opcode bail
-    histogram (``executor="cuda"`` only; None otherwise); ``rounds_aux(S,
-    steps, n)`` runs ``n`` whole rounds and sums those."""
+    kernel's per-node step counts (over all its launches of the slice),
+    whether each node bailed, and per opcode the nodes that met it as a
+    declined word (``executor="cuda"`` only; None otherwise; ``mark`` as
+    ``CudaSliceExecutor.run_slice_batched_aux``'s); ``rounds_aux(S, steps,
+    n)`` runs ``n`` whole rounds and sums those."""
 
     def __init__(self, cfg: VMConfig, isa: ISA | None = None, executor: str = "batched"):
         self.cfg = cfg
@@ -105,12 +108,9 @@ class FleetKernels:
         self.post_slice(S, steps0)
         return S
 
-    def round_aux(self, S, steps: int):
-        nops = self.isa.num_ops
+    def round_aux(self, S, steps: int, mark=None):
         steps0 = S.steps.clone()
-        _, n_exec, bailed, bail_op = self.executor.run_slice_batched_aux(S, steps)
-        hist = torch.zeros(nops + 1, dtype=torch.int64, device=S.pc.device)
-        hist.index_add_(0, torch.clamp(bail_op, 0, nops).long(), bailed.long())
+        _, n_exec, bailed, hist = self.executor.run_slice_batched_aux(S, steps, mark)
         self.post_slice(S, steps0)
         return S, n_exec, bailed, hist
 
@@ -206,9 +206,20 @@ class FleetVM:
 
     def kernel_stats(self) -> dict:
         """Instructions retired inside the vmloop kernel vs the interpreter
-        tail (zeros under the batched executor); the keys of the
-        reference's ``pallas_stats()``.  ``bail_hist`` maps each bailing
-        word (``task``, ``rnd`` or ``fios/trap``) to its node-rounds."""
+        (zeros under the batched executor), with the keys and meanings of
+        the reference's ``pallas_stats()``: ``kernel_steps`` in the kernel,
+        ``fallback_steps`` in the interpreter, ``bailed_node_rounds`` the
+        node-rounds with at least one bail, and ``bail_hist`` each declined
+        word (``task``, ``rnd`` or ``fios/trap``) with the node-rounds that
+        met it at least once.
+
+        The values differ from the reference's: its kernel stops at a
+        node's first bail of a slice and the interpreter runs the rest, so
+        a word met later in that slice (``rnd`` after ``task``) is never
+        counted.  Here each declined word is handed to the interpreter and
+        the kernel resumes after it, so ``fallback_steps`` counts only the
+        declined instructions, and a node-round that meets ``task`` and
+        then ``rnd`` counts once under each."""
         kernel = int(self._kernel_steps_acc)
         total = int(self._total_steps_acc)
         fallback = max(total - kernel, 0)

@@ -943,13 +943,15 @@ class Interpreter:
         dev = S.pc.device
         n = torch.zeros(N, dtype=I32, device=dev)
         bailed = torch.zeros(N, dtype=torch.bool, device=dev)
+        passes = None                   # with one budget, no node steps more than `steps` times
         if budget is None:
             budget = torch.full((N,), int(steps), dtype=I32, device=dev)
+            passes = int(steps)
         live = self.running(S) & (n < budget)
         if active is not None:
             live = live & active
         rows = torch.arange(N, device=dev)
-        while True:
+        while passes != 0:
             key, pc_ok, tag, payload = self._keys(S, live, sup)
             order = torch.argsort(key, stable=True)
             keys, counts = torch.unique_consecutive(key[order], return_counts=True)
@@ -970,6 +972,8 @@ class Interpreter:
                 self._finish(S, grp)
                 n[grp] = n[grp] + 1
             live = live & ~bailed & (n < budget) & self.running(S)
+            if passes is not None:
+                passes -= 1
         pc_ok, tag, payload = self._fetch(S)
         bail_op = torch.where(bailed, torch.clamp(payload, 0, self.num_ops), -1).to(I32)
         return n, bailed.to(I32), bail_op

@@ -1,59 +1,89 @@
 // vmloop.cu — the REXAVM fleet's per-node interpreter loop as a CUDA kernel
 // for Hopper (sm_90a).  It replaces the TPU kernel `vmloop_call` of the JAX
-// package (src/repro/kernels/vmloop/vmloop.py, pl.pallas_call), which held
+// package (src/repro/kernels/vmloop/vmloop.py:64, pl.pallas_call), which held
 // one node's machine state in VMEM per grid program.
 //
-// Design: one thread per node.  The loop is scalar control flow over a
-// 100-way switch with data-dependent trip counts, so there is nothing to
-// vectorise across a node; nodes are independent, so they map to threads.
-// The state stays in device memory as node-strided field arrays (the
-// stacked VMState tensors themselves) and is updated IN PLACE: the kernel
-// reads and writes only the cells its instructions touch, and no copy of a
-// node (~49 KB at the default VMConfig, just over the 48 KB static
-// shared-memory limit) is staged.
+// Design: one thread per node (a launch row), blocks of 1-32 nodes, the
+// count chosen by the wrapper from the rows and the SM count (vmloop.py
+// nodes_per_block: 8 at the 4096-node fleet, about four blocks an SM, so
+// that each SM interleaves several chains; one a block for a small fleet,
+// which spreads over the SMs).  A node's instructions form one dependent
+// chain (fetch -> decode -> stack effect -> next pc), so the design
+// shortens that chain (vmloop_core.h):
+//   * the current task's scalars (pc, dsp, rsp, fsp, status, steps, ...) in
+//     registers, loaded once and stored back once;
+//   * vector loops over the cells a word uses, not the whole max_vec window;
+//   * the arithmetic words of one shape sharing one pop and push, which
+//     keeps the dispatch short.
+// The stacks, the code and the arrays stay in device memory (through L1),
+// and the packed opcode table with them; the value LUTs go through the
+// read-only path, `cs` does not, since programs store into their code
+// segment.  scripts/vmloop_sweep.py builds the designs that were tried and
+// dropped (stacks staged in shared memory, the opcode table in shared
+// memory, the long words out of line) by editing this source, and times
+// them beside it.
+// Rows: an optional row list and per-row budget, so that the executor can
+// resume only the nodes it handed back after a declined word.
 //
-// What bounds it: the bytes the retired instructions read and write in
-// device memory (a few cells each), with no reuse across threads; threads
-// of a warp touch cells ~50 KB apart, so each access is its own memory
-// transaction, and a warp whose nodes take different branches serialises
-// them.  Staging a node in dynamic shared memory, or a warp per node, is
-// work for a later change.
+// What bounds it: the per-instruction chain of each node, not bytes.  A
+// launch moves a few MB (the cells it changes plus each node's code and
+// arrays: ~1.3 us at 3.35 TB/s for 4096 nodes), while each node retires up
+// to a slice of instructions that each wait on the one before: the cs fetch
+// and the opcode table through L1, a tree of branches to the word's body,
+// its stack cells through L1, the step count and the exception check.  A
+// warp whose nodes take different words runs their bodies one after
+// another, and a few warps an SM hide little of the latency, so the time is
+// the longest node's chain.
 //
-// Contract (ref.run_core): per node, up to `steps` instructions; stop on
-// the budget, a status change, or before the first declined opcode; write
-// n_exec / bailed / bail_op per node.
+// Contract (ref.run_core): per row, up to its budget of instructions; stop
+// on the budget, a status change, or before the first declined opcode;
+// write n_exec / bailed / bail_op per row.
 #include <cuda_runtime.h>
 
 #include "vmloop_core.h"
 
 using namespace rexavm;
 
-__global__ void vmloop_kernel(Fields f, Dims d, Tabs tb, int32_t n_nodes, int32_t steps,
-                              int32_t* n_exec, int32_t* bailed, int32_t* bail_op) {
-    int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n_nodes) return;
-    run_core(f, d, tb, i, steps, n_exec, bailed, bail_op);
+constexpr int MAX_BLOCK = 32;
+
+// Thread t of block b runs launch row b * blockDim.x + t.
+__global__ void __launch_bounds__(MAX_BLOCK)
+vmloop_kernel(Fields f, Dims d, Tabs tb, const int32_t* meta, int32_t n_nodes, int32_t steps,
+              const int32_t* rows, const int32_t* budget, int32_t n_rows, int32_t* n_exec,
+              int32_t* bailed, int32_t* bail_op) {
+    const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (j >= n_rows) return;
+    run_core(f, d, tb, meta, j, launch_row(rows, budget, n_nodes, steps, j, n_rows), n_exec,
+             bailed, bail_op);
 }
 
 // Plain C interface for ctypes.  `fields` holds the 24 CoreState base
 // pointers (ref.CORE_FIELDS order), `tables` the 9 table pointers
-// (ref.Tables order), `dims` CS, MEM, T, DS, RS, FS, OUTN, MV.  Launches on
-// `stream` and returns cudaGetLastError() (0 = launched).
-extern "C" int vmloop_launch(void* const* fields, void* const* tables, const int32_t* dims,
-                             int32_t n_nodes, int32_t steps, void* n_exec, void* bailed,
-                             void* bail_op, void* stream, int32_t block) {
+// (ref.Tables order), `meta` the packed opcode table (vmloop.py
+// pack_meta), `dims` CS, MEM, T, DS, RS, FS, OUTN, MV (vmloop_core.h
+// Dims).  `rows` and `budget` are (n_rows,) int32 or null (then row j is
+// node j, and every row runs `steps`).  Launches on `stream` in blocks of
+// `block` nodes and returns cudaGetLastError() (0 = launched).
+extern "C" int vmloop_launch(void* const* fields, void* const* tables, const void* meta,
+                             const int32_t* dims, int32_t n_nodes, int32_t steps,
+                             const void* rows, const void* budget, int32_t n_rows, void* n_exec,
+                             void* bailed, void* bail_op, void* stream, int32_t block) {
+    if (block < 1 || block > MAX_BLOCK || n_rows < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     Fields f;
     int32_t** fp = reinterpret_cast<int32_t**>(&f);
     for (int k = 0; k < 24; ++k) fp[k] = static_cast<int32_t*>(fields[k]);
     Tabs tb;
     const int32_t** tp = reinterpret_cast<const int32_t**>(&tb);
     for (int k = 0; k < 9; ++k) tp[k] = static_cast<const int32_t*>(tables[k]);
-    Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6], dims[7]};
-    int grid = (n_nodes + block - 1) / block;
+    const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5], dims[6], dims[7]};
+    const int grid = (n_rows + block - 1) / block;
     if (grid > 0) {
         vmloop_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-            f, d, tb, n_nodes, steps, static_cast<int32_t*>(n_exec),
-            static_cast<int32_t*>(bailed), static_cast<int32_t*>(bail_op));
+            f, d, tb, static_cast<const int32_t*>(meta), n_nodes, steps,
+            static_cast<const int32_t*>(rows), static_cast<const int32_t*>(budget), n_rows,
+            static_cast<int32_t*>(n_exec), static_cast<int32_t*>(bailed),
+            static_cast<int32_t*>(bail_op));
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -175,15 +175,36 @@ def merge_core(S, core: CoreState):
 
 # --- the plain loop ------------------------------------------------------------
 
-def run_core(core: CoreState, tb: Tables, steps: int, cfg: VMConfig, isa: ISA | None = None):
-    """Per node, up to ``steps`` instructions of the current task, stopping
-    on the budget, a status change, or *before* the first declined opcode.
-    Updates ``core`` in place and returns ``(core, n_exec, bailed,
-    bail_op)``, each of the last three (N,) int32, as the reference's
-    ``run_core``: ``bail_op`` is -1 where the node did not bail, else the
-    declined opcode (``num_ops`` for FIOS calls and traps)."""
-    n_exec, bailed, bail_op = interp_for(cfg, isa).vmloop(core, steps, sup=tb.sup)
-    return core, n_exec, bailed, bail_op
+def run_core(core: CoreState, tb: Tables, steps: int, cfg: VMConfig, isa: ISA | None = None,
+             rows: torch.Tensor | None = None, budget: torch.Tensor | None = None):
+    """Per row, up to its budget of instructions of the node's current
+    task, stopping on the budget, a status change, or *before* the first
+    declined opcode.  Updates ``core`` in place and returns ``(core, n_exec,
+    bailed, bail_op)``, each of the last three (R,) int32, as the
+    reference's ``run_core``: ``bail_op`` is -1 where the row did not bail,
+    else the declined opcode (``num_ops`` for FIOS calls and traps).
+
+    Without ``rows`` row j is node j (R = N); with it, row j is node
+    ``rows[j]`` (distinct; a row outside [0, N) runs nothing).  Row j runs
+    up to ``budget[j]`` instructions, or ``steps`` without a budget."""
+    it = interp_for(cfg, isa)
+    if rows is None and budget is None:
+        n_exec, bailed, bail_op = it.vmloop(core, steps, sup=tb.sup)
+        return core, n_exec, bailed, bail_op
+    N = core.pc.shape[0]
+    dev = core.pc.device
+    if rows is None:
+        rows = torch.arange(N, dtype=torch.int32, device=dev)
+    ok = (rows >= 0) & (rows < N)
+    node = torch.clamp(rows, 0, N - 1).long()
+    active = torch.zeros(N, dtype=torch.bool, device=dev)
+    active[node[ok]] = True
+    per_node = torch.zeros(N, dtype=torch.int32, device=dev)
+    per_node[node[ok]] = (budget if budget is not None
+                          else torch.full_like(rows, int(steps)))[ok]
+    n_exec, bailed, bail_op = it.vmloop(core, steps, active=active, budget=per_node, sup=tb.sup)
+    return (core, torch.where(ok, n_exec[node], 0), torch.where(ok, bailed[node], 0),
+            torch.where(ok, bail_op[node], -1))
 
 
 def vmloop_ref(S, steps: int, cfg: VMConfig, isa: ISA | None = None):

@@ -8,9 +8,12 @@ FP32 kernel) and 2e-2 in bf16 (the tensor-core kernel, one bf16 step of
 the output and of p), rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``)
 of the largest value on both routes (the two passes at two or more chunks,
 the one-block kernel at one, and the two held against each other), with
-its state written in place or not, lut_sigmoid
-bitwise equal; a CUDA tensor never takes the plain version (each launch
-counter grows), and no kernel runs on inputs that require grad.  Needs an
+its state written in place or not, lut_sigmoid bitwise equal; vmloop
+also over row lists and per-row budgets and at any block, and the
+fleet's hand-back of declined words
+byte-identical to ``executor="batched"``; a CUDA tensor never takes the
+plain version (each launch counter grows), and no kernel runs on inputs
+that require grad.  Needs an
 NVIDIA GPU with nvcc; every test here skips without one.
 
 Run on the card with ``python -m pytest tests/test_torch_cuda.py``.
@@ -95,6 +98,99 @@ def test_fleet_cuda_equals_batched(cuda):
     assert check.max_abs_diff(Sc, Sb) == (0, [])
     stats = fc.kernel_stats()
     assert stats["kernel_steps"] > 0 and stats["bail_hist"].get("rnd", 0) > 0
+
+
+def _rows_cases(n, steps, dev):
+    g = torch.Generator().manual_seed(n)
+    i32 = dict(dtype=torch.int32, device=dev)
+    perm = torch.randperm(n, generator=g).to(**i32)
+    return {
+        "budget_only": (None, torch.randint(-3, steps + 5, (n,), generator=g).to(**i32)),
+        "zero_budgets": (None, torch.zeros(n, **i32)),
+        "rows_skip_nodes": (perm[: n // 3].sort().values, None),
+        "rows_ragged_budget": (perm[: n - 5], torch.randint(0, 9, (n - 5,), generator=g).to(**i32)),
+        "rows_outside_fleet": (torch.tensor([n + 3, -1, 0, n - 1], **i32),
+                               torch.tensor([5, 5, 2, 7], **i32)),
+    }
+
+
+@pytest.mark.parametrize("case", ["budget_only", "zero_budgets", "rows_skip_nodes",
+                                  "rows_ragged_budget", "rows_outside_fleet"])
+def test_kernel_rows_and_budget_match_plain_version(case, cuda):
+    """The kernel over a row list and per-row budgets, on 203 random nodes
+    (a quarter of them not ST_RUN; no multiple of any block) and on the
+    sweep, against the plain version."""
+    cfg = CFGS[0]
+    for S in (check.random_states(cfg, 203, 4, cuda), check.sweep_states(cfg, cuda)[1]):
+        N = S.pc.shape[0]
+        if N == 203:
+            S.tstatus[torch.arange(0, N, 4, device=cuda), S.cur[::4].long()] = 7
+        rows, budget = _rows_cases(N, cfg.steps_per_slice, cuda)[case]
+        P = vms.clone(S)
+        launches = kmod.vmloop_call.launches
+        _, *k = kmod.vmloop_call(core_of(S), cfg.steps_per_slice, cfg, rows=rows, budget=budget)
+        _, *p = kmod.run_core(core_of(P), kmod._tables(None, cuda)[0], cfg.steps_per_slice, cfg,
+                              rows=rows, budget=budget)
+        torch.cuda.synchronize()
+        assert kmod.vmloop_call.launches == launches + 1
+        for name, a, b in zip(("n_exec", "bailed", "bail_op"), k, p):
+            assert torch.equal(a, b), name
+        assert check.max_abs_diff(S, P) == (0, [])
+
+
+@pytest.mark.parametrize("block", [1, 3, 7, 32])
+def test_kernel_any_block_matches_plain_version(block, cuda, monkeypatch):
+    """Blocks of 1 to 32 nodes over 101 nodes (ragged last block)."""
+    cfg = CFGS[1]
+    S = check.random_states(cfg, 101, 6, cuda)
+    P = vms.clone(S)
+    monkeypatch.setattr(kmod, "nodes_per_block", lambda rows, sms: block)
+    _, *k = kmod.vmloop_call(core_of(S), 64, cfg)
+    _, *p = vmloop_ref(P, 64, cfg)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("n_exec", "bailed", "bail_op"), k, p):
+        assert torch.equal(a, b), name
+    assert check.max_abs_diff(S, P) == (0, [])
+
+
+HANDBACK = {
+    "task_then_rnd": (": w 3 . end ; 0 0 $ w task drop 7 rnd . halt", 2),
+    "rnd_every_other": ("0 9 0 do 3 rnd drop 5 rnd drop 1+ loop . halt", 18),
+    "exception_after_handback": (
+        ": h 42 . ; $ h exception divbyzero catch 0= if 7 rnd 0 / drop endif 1 . halt", 1),
+    "ring": (None, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HANDBACK))
+def test_fleet_handback_equals_batched(case, cuda):
+    """executor="cuda" hands each declined word to the interpreter and
+    resumes the kernel after it: byte-identical to executor="batched", the
+    interpreter running only the declined instructions."""
+    cfg = CFGS[0]
+    n = 48
+    text, declined = HANDBACK[case]
+
+    def prog(i):
+        if text is not None:
+            return text
+        return (f"1 {1 % n} send receive swap . . halt" if i == 0
+                else f"receive swap . 1+ {(i + 1) % n} send 7 rnd drop halt")
+
+    out = {}
+    for executor in ("cuda", "batched"):
+        fleet = FleetVM(cfg, n=n, executor=executor, device=cuda)
+        for i, node in enumerate(fleet.nodes):
+            node.launch(node.load(prog(i)))
+        res = fleet.run(max_rounds=300, service_every=3)
+        assert res.statuses == ["halt"] * n
+        out[executor] = (res, vms.stack_states([vm.state for vm in fleet.nodes]), fleet)
+    (rc, Sc, fc), (rb, Sb, _) = out["cuda"], out["batched"]
+    assert rc.outputs == rb.outputs and rc.rounds == rb.rounds
+    assert check.max_abs_diff(Sc, Sb) == (0, [])
+    stats = fc.kernel_stats()
+    assert stats["fallback_steps"] == declined * (n if text is not None else n - 1)
+    assert stats["kernel_steps"] + stats["fallback_steps"] == stats["total_steps"]
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 2560, 640), (1, 6912, 2560), (64, 2560, 6912),

@@ -20,7 +20,7 @@ from repro.core.vm import reference_round as jref_round
 
 from repro_torch.config import VMConfig
 from repro_torch.core.vm import REXAVM, FleetVM, HostLink, reference_round, vmstate as vms
-from repro_torch.core.vm.spec import ST_HALT
+from repro_torch.core.vm.spec import ST_HALT, get_isa
 
 # The suite runs in several worker processes on shared cores: keep torch's
 # CPU kernels to one thread each so these tests do not crowd out the rest.
@@ -205,6 +205,114 @@ def test_mixed_workload_service_every_8():
     stats = fc.kernel_stats()
     assert stats["bail_hist"].get("task", 0) >= 1 and stats["bail_hist"].get("rnd", 0) >= 1
     assert 0 < stats["kernel_steps"] < stats["total_steps"]
+
+
+# Programs that meet declined words (task, rnd, FIOS calls) several times a
+# slice, each with the number of declined instructions one node executes.
+HANDBACK_CASES = {
+    "task_then_rnd": (": w 3 . end ; 0 0 $ w task drop 7 rnd . halt", 2),
+    "rnd_loop": ("0 12 0 do 5 rnd + 1+ loop . halt", 12),
+    "rnd_every_other": ("0 9 0 do 3 rnd drop 5 rnd drop 1+ loop . halt", 18),
+    "fios_call": ("seven 1+ . seven . halt", 2),
+    "exception_after_handback": (
+        ": h 42 . ; $ h exception divbyzero catch 0= if 7 rnd 0 / drop endif 1 . halt", 1),
+    "task_rnd_fios": (": w 9 rnd drop end ; 0 0 $ w task drop seven rnd 1 + . halt", 4),
+}
+
+
+def _handback_fleet(prog: str, n: int, executor: str):
+    fleet = FleetVM(CFG, n=n, executor=executor, device="cpu")
+    for node in fleet.nodes:
+        node.fios_add("seven", lambda: 7, args=0, ret=1)
+        node.launch(node.load(prog))
+    return fleet
+
+
+@pytest.mark.parametrize("case", sorted(HANDBACK_CASES))
+def test_handback_equals_batched_and_reference(case):
+    """executor="cuda" hands each declined word to the interpreter and
+    resumes the kernel after it: byte-exact with executor="batched" and
+    the reference, with only the declined instructions in the
+    interpreter (fallback_steps)."""
+    prog, declined = HANDBACK_CASES[case]
+    n = 3
+    out = {}
+    for executor in EXECUTORS:
+        fleet = _handback_fleet(prog, n, executor)
+        res = fleet.run(max_rounds=60)
+        assert res.statuses == ["halt"] * n, (executor, res.statuses)
+        out[executor] = (fleet, res)
+    (fb, rb), (fc, rc) = out["batched"], out["cuda"]
+    assert rb.rounds == rc.rounds and rb.outputs == rc.outputs
+    for a, b in zip(fb.nodes, fc.nodes):
+        for f in vms.VMState._fields:
+            assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+    ref = [JVM(JCFG, backend="oracle", seed=1 + i) for i in range(n)]
+    for node in ref:
+        node.fios_add("seven", lambda: 7, args=0, ret=1)
+        node.launch(node.load(prog))
+    for _ in range(rc.rounds):
+        jref_round(ref, JCFG.steps_per_slice)
+        for node in ref:
+            node._service_io()
+    assert rc.outputs == [vm.output() for vm in ref]
+    assert_equal(fc, ref, skip=("out", "outp"))           # run() drained the rings
+    stats = fc.kernel_stats()
+    assert stats["fallback_steps"] == declined * n
+    assert (stats["kernel_steps"] + stats["fallback_steps"] == stats["total_steps"]
+            == int(rc.steps.sum()))
+    assert stats["bailed_node_rounds"] >= n
+
+
+def test_handback_several_words_a_slice():
+    """Within one slice a node hands back 18 declined words; the slice
+    matches the batched executor, the kernel's counts sum over its
+    launches, and each word counts once a node-round in the histogram."""
+    prog, declined = HANDBACK_CASES["rnd_every_other"]
+    steps = 256                                   # the whole program in one slice
+    fleets = [_handback_fleet(prog, 2, e) for e in EXECUTORS]
+    for fl in fleets:
+        fl.start()
+    fb, fc = fleets
+    fb.kernels.round(fb._S, steps)
+    layers = []
+    S, n_exec, bailed, hist = fc.kernels.round_aux(fc._S, steps, mark=layers.append)
+    for f in vms.VMState._fields:
+        assert torch.equal(getattr(fb._S, f), getattr(S, f)), f
+    assert S.tstatus[:, 0].tolist() == [ST_HALT, ST_HALT]
+    rnd = get_isa().opcode["rnd"]
+    assert bailed.tolist() == [1, 1] and int(hist[rnd]) == 2 and int(hist.sum()) == 2
+    assert (S.steps - n_exec).tolist() == [declined, declined]
+    assert layers == ["schedule", "kernel"] + ["tail", "kernel"] * declined + ["preempt"]
+
+
+def test_ring_cell_bail_hist_counts_each_word():
+    """The ring cell of chip_smoke.py at 32 nodes: every 16th node meets
+    task and then rnd in round 0; each counts once under each word, and the
+    interpreter runs only those two instructions a node."""
+    n, iters = 32, 3
+
+    def ann(i):
+        extra = (": worker 5 0 do i acc +! loop ; 0 0 $ worker task drop 100 rnd acc +! "
+                 if i % 16 == 0 else "")
+        return ("array x { 10 20 30 40 } array w { 1 2 3 4 5 6 7 8 9 10 11 12 13 14 15 16 } "
+                f"array y {{ 0 0 0 0 }} var acc {extra}"
+                f"0 begin 1+ x w y 0 vecfold x y dotprod acc +! dup {iters} >= until drop "
+                f"acc @ 4000 mod 2000 - sigmoid {(i + 1) % n} send "
+                "receive swap drop acc ! acc @ . halt")
+
+    results = {}
+    for executor in EXECUTORS:
+        fleet = make_fleet([ann(i) for i in range(n)], executor)
+        results[executor] = (fleet, fleet.run(max_rounds=60))
+    (fb, rb), (fc, rc) = results["batched"], results["cuda"]
+    assert rc.statuses == ["halt"] * n and rc.outputs == rb.outputs
+    for a, b in zip(fb.nodes, fc.nodes):
+        for f in vms.VMState._fields:
+            assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+    stats = fc.kernel_stats()
+    assert stats["bail_hist"] == {"task": 2, "rnd": 2}
+    assert stats["fallback_steps"] == 4 and stats["bailed_node_rounds"] == 2
 
 
 def test_kernel_stats_keys_equal_pallas_stats():

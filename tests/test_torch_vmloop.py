@@ -11,7 +11,9 @@ and random node states.  Every comparison is exact on every field.
 """
 
 import ctypes
+import functools
 import hashlib
+import os
 import pathlib
 import re
 import shutil
@@ -35,6 +37,7 @@ from repro_torch.core.vm import vmstate as vms
 from repro_torch.core.vm.spec import ST_RUN, get_isa
 from repro_torch.kernels.vmloop import check, ref as pref
 from repro_torch.kernels.vmloop.ops import fleet_vmloop
+from repro_torch.kernels.vmloop import vmloop as kmod
 from repro_torch.kernels.vmloop.vmloop import vmloop_call
 
 # The suite runs in several worker processes on shared cores: keep torch's
@@ -182,37 +185,46 @@ def test_vmloop_call_on_cpu_takes_the_plain_version(ref_states):
 # The kernel's C++ op bodies, built for the CPU with g++
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def host_kernel():
+def _build_host():
+    """The header's CPU build (vmloop_host.cpp), bound: ``run(S, cfg,
+    steps, rows=None, budget=None) -> [n_exec, bailed, bail_op]``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernel's op bodies for the CPU")
     src = CSRC / "vmloop_host.cpp"
-    digest = hashlib.sha256(src.read_bytes() + (CSRC / "vmloop_core.h").read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes()
+                            + (CSRC / "vmloop_core.h").read_bytes()).hexdigest()[:16]
     out = ROOT / "build" / "repro_torch_test" / f"libvmloop_host_{digest}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(".tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
         subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror",
                         "-o", str(tmp), str(src)], check=True, capture_output=True, text=True)
         tmp.replace(out)
     fn = ctypes.CDLL(str(out)).vmloop_host
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32] + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32] + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
 
-    def run(S, cfg, steps):
+    def run(S, cfg, steps, rows=None, budget=None):
         core = pref.core_of(S)
-        tb = pref.device_tables(None, "cpu")
-        n = S.pc.shape[0]
-        outs = [torch.empty(n, dtype=torch.int32) for _ in range(3)]
+        tb, meta = kmod._tables(None, "cpu")
+        n = S.pc.shape[0] if rows is None else rows.shape[0]
+        outs = [torch.full((n,), 12345, dtype=torch.int32) for _ in range(3)]
         fields = (ctypes.c_void_p * 24)(*[getattr(core, f).data_ptr() for f in pref.CORE_FIELDS])
         tabs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in tb])
-        dims = (ctypes.c_int32 * 8)(cfg.cs_size, cfg.mem_size, cfg.max_tasks, cfg.ds_size,
-                                    cfg.rs_size, cfg.fs_size, cfg.out_ring_size, cfg.max_vec)
-        assert fn(fields, tabs, dims, n, steps, *[o.data_ptr() for o in outs]) == 0
+        dims = kmod._dims(cfg)
+        ptr = [None if x is None else x.data_ptr() for x in (rows, budget)]
+        assert fn(fields, tabs, meta.data_ptr(), dims, S.pc.shape[0], steps, *ptr, n,
+                  *[o.data_ptr() for o in outs]) == 0
         return outs
     return run
+
+
+@pytest.fixture(scope="module")
+def host_kernel():
+    return _build_host()
 
 
 @pytest.mark.parametrize("cfg", [CFG, VMConfig()], ids=["small", "default"])
@@ -225,3 +237,104 @@ def test_host_build_of_kernel_matches_plain_version(cfg, host_kernel):
         for name, a, b in zip(("n_exec", "bailed", "bail_op"), plain, kern):
             assert torch.equal(a, b), name
         assert check.max_abs_diff(A, B) == (0, [])
+
+
+def _rows_cases(n: int, steps: int, seed: int) -> dict:
+    """Row lists and budgets over n nodes: (rows, budget), either None."""
+    rng = np.random.default_rng(seed)
+    i32 = functools.partial(torch.tensor, dtype=torch.int32)
+    skip = np.sort(rng.choice(n, size=n // 3, replace=False))
+    return {
+        "budget_only": (None, i32(rng.integers(-3, steps + 5, size=n))),
+        "zero_budgets": (None, i32(np.zeros(n, np.int64))),
+        "rows_skip_nodes": (i32(skip), None),
+        "rows_shuffled_ragged_budget": (i32(rng.permutation(n)[: n - 5]),
+                                        i32(rng.integers(0, 9, size=n - 5))),
+        "rows_outside_fleet": (i32([n + 3, -1, 0, n - 1]), i32([5, 5, 2, 7])),
+        "no_rows": (i32(np.zeros(0, np.int64)), None),
+    }
+
+
+def _host_vs_plain(run, A, cfg, steps, rows, budget):
+    B = vms.clone(A)
+    _, *plain = pref.run_core(pref.core_of(A), pref.device_tables(None, "cpu"), steps, cfg,
+                              rows=rows, budget=budget)
+    kern = run(B, cfg, steps, rows=rows, budget=budget)
+    for name, a, b in zip(("n_exec", "bailed", "bail_op"), plain, kern):
+        assert torch.equal(a, b), name
+    assert check.max_abs_diff(A, B) == (0, [])
+    return plain
+
+
+@pytest.mark.parametrize("case", list(_rows_cases(8, 8, 0)))
+def test_host_build_rows_and_budget_match_plain_version(case, host_kernel):
+    """Row lists and per-row budgets, on the sweep (INT_MIN operands kept)
+    and on random states where some nodes are not ST_RUN; 37 and 203 nodes
+    are no multiple of any block."""
+    for A in (check.sweep_states(CFG, "cpu")[1], check.random_states(CFG, 203, 5, "cpu")):
+        N = A.pc.shape[0]
+        if A.pc.shape[0] == 203:                      # some current tasks not ST_RUN
+            A.tstatus[torch.arange(0, N, 4), A.cur[::4].long()] = 7
+        rows, budget = _rows_cases(N, STEPS, N)[case]
+        plain = _host_vs_plain(host_kernel, A, CFG, STEPS, rows, budget)
+        if case == "zero_budgets":
+            assert int(plain[0].abs().sum()) == 0 and bool((plain[2] == -1).all())
+
+
+def test_plain_rows_equal_whole_fleet_where_they_cover_it():
+    """The plain version over a row list with budgets equal to ``steps``
+    leaves the same state as over the whole fleet, row outputs in row
+    order; rows left out keep their state."""
+    A = check.random_states(CFG, 64, 9, "cpu")
+    B, C = vms.clone(A), vms.clone(A)
+    tb = pref.device_tables(None, "cpu")
+    _, *whole = pref.run_core(pref.core_of(A), tb, STEPS, CFG)
+    perm = torch.randperm(64, generator=torch.Generator().manual_seed(0)).to(torch.int32)
+    _, *part = pref.run_core(pref.core_of(B), tb, STEPS, CFG, rows=perm,
+                             budget=torch.full((64,), STEPS, dtype=torch.int32))
+    assert check.max_abs_diff(A, B) == (0, [])
+    for a, b in zip(whole, part):
+        assert torch.equal(a[perm.long()], b)
+    _, *none = pref.run_core(pref.core_of(C), tb, STEPS, CFG, rows=perm[:0])
+    assert all(x.numel() == 0 for x in none)
+    assert check.max_abs_diff(C, vms.clone(check.random_states(CFG, 64, 9, "cpu"))) == (0, [])
+
+
+@pytest.mark.parametrize("seed", range(100, 109))
+def test_host_build_random_fleets_match_plain_version(seed, host_kernel):
+    """Random bytecode and machine state (vector words over headers of any
+    length, clamped addresses, int32 extremes) on 67 nodes, no multiple of
+    any block: the whole fleet, then a shuffled row list with budgets."""
+    A = check.random_states(CFG, 67, seed, "cpu")
+    _host_vs_plain(host_kernel, A, CFG, STEPS, None, None)
+    rows, budget = _rows_cases(67, STEPS, seed)["rows_shuffled_ragged_budget"]
+    _host_vs_plain(host_kernel, check.random_states(CFG, 67, seed + 50, "cpu"), CFG, STEPS,
+                   rows, budget)
+
+
+def test_vmloop_call_checks_rows_and_budget():
+    A = check.random_states(CFG, 8, 0, "cpu")
+    core = pref.core_of(A)
+    i32 = functools.partial(torch.tensor, dtype=torch.int32)
+    with pytest.raises(ValueError, match="rows"):
+        vmloop_call(core, STEPS, CFG, rows=i32([[0, 1]]))
+    with pytest.raises(ValueError, match="rows"):
+        vmloop_call(core, STEPS, CFG, rows=torch.tensor([0, 1]))
+    with pytest.raises(ValueError, match="budget"):
+        vmloop_call(core, STEPS, CFG, rows=i32([0, 1]), budget=i32([1, 2, 3]))
+    with pytest.raises(ValueError, match="budget"):
+        vmloop_call(core, STEPS, CFG, budget=i32([1, 2]))
+    with pytest.raises(ValueError, match="budget"):
+        vmloop_call(core, STEPS, CFG, budget=torch.ones(8, dtype=torch.int32)[::1].float())
+    launches = vmloop_call.launches
+    _, n, b, o = vmloop_call(core, STEPS, CFG, rows=i32([3, 1]), budget=i32([0, 2]))
+    assert vmloop_call.launches == launches
+    assert n.shape == b.shape == o.shape == (2,) and int(n[0]) == 0
+
+
+def test_nodes_per_block_spreads_small_fleets():
+    assert kmod.nodes_per_block(64, 132) == 1
+    assert kmod.nodes_per_block(256, 132) == 1
+    assert kmod.nodes_per_block(4096, 132) == 8
+    assert kmod.nodes_per_block(10 ** 6, 132) == 32
+    assert kmod.nodes_per_block(0, 132) == 1
