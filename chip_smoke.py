@@ -17,7 +17,8 @@ each printing its results on a line of its own:
      per-opcode sweep and a batch of random node states, byte for byte on
      every field and on n_exec/bailed/bail_op, over every node and over a
      row list with per-row budgets; every claimed word must run in the
-     kernel, task/rnd/FIOS must bail;
+     kernel, task/rnd/FIOS must bail; the same for vmloop's counting
+     instance (obs=True), its per-row retirement histograms included;
   4. the fleet's main path: FleetVM(VMConfig(), n=4096, executor="cuda"),
      every node running a small fixed-point ANN (vecfold + dotprod +
      sigmoid), then sending its result round a ring; every 16th node also
@@ -28,10 +29,22 @@ each printing its results on a line of its own:
      instructions in the interpreter.  Each FleetVM.run is split into
      start, rounds and sync; (4b) three rounds split into the executor's
      own layers (schedule, each kernel launch, each hand-back, preempt)
-     and routing;
+     and routing; (4c) the same fleet with the telemetry plane on
+     (ObsConfig: traced, a 1 ms virtual-clock deadline, timed rounds)
+     under executor="cuda" (every kernel pass on vmloop's counting
+     instance) and "batched": the counters equal bin for bin, the final
+     states those of the run without obs, four spans a round in the
+     validated Chrome trace, and steps/s with obs beside those without;
+     (4d) the ANN ring at 256 nodes under executor="oracle" (the
+     plain-Python Oracle), byte for byte against "cuda", with each one's
+     wall time; a 5-replica EnsembleVM on the card with one replica's
+     stack bit-flipped mid-run, which the vote must flag;
   5. vmloop's time per launch, its plain version's time, and its bound,
      on the fleet (n = 4096) and on the serve monitor's 64 nodes, with the
-     longest node's instructions and the ns each took;
+     longest node's instructions and the ns each took; at each point the
+     counting instance is timed in turns with the default one and held
+     against its plain version (states and op_hist), and the serve monitor
+     runs three steps with obs on the counting instance;
   6. fixmatmul bitwise against its plain version at danube's decode shapes
      (M = 1, 2, 4, 8, 16 on the streaming kernel, 17 and 64 on the tiled
      one), rwkv6's lm_head, ragged shapes, operands misaligned by a byte
@@ -111,6 +124,9 @@ ALT_MEAN_TOL = 1.5              # rwkv6 prefill: mean |logit diff| against the p
 ALT_AGREE_TOL = 0.02            # reordered, and the argmax agreement (see prefill)
 SPIN_CYCLES = 100_000_000       # ~50 ms of spinning at the H100's clock
 SMOKE_TOL = 2e-2                # max |logit diff|, card vs CPU, SMOKE quantized decode
+OBS_DEADLINE_MS = 1             # phase 4c: a round of more than 100 instructions misses it
+ORACLE_NODES = 256              # phase 4d: the ANN ring under executor="oracle"
+ENSEMBLE = 5                    # phase 4d: replicas, one of them bit-flipped
 
 
 def fail(msg: str) -> None:
@@ -234,6 +250,7 @@ def main() -> int:
         print(f"check cs_size={cfg.cs_size}: sweep {len(pairs)} programs, random 1024 nodes "
               f"({int(n_k.sum())} instructions, {int(b_k.sum())} bails): byte-identical", flush=True)
         check_rows_budget(torch, kmod, check, cfg, dev)
+        check_counting(torch, kmod, check, cfg, dev)
 
     # 4. the main path: the full-size fleet
     cfg = VMConfig()
@@ -245,11 +262,11 @@ def main() -> int:
     state_mb = vms.state_nbytes(init[0]) * n_nodes / 1e6
     print(f"fleet: {n_nodes} nodes, {state_mb:.1f} MB of state, set up in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    def run(executor: str, service_every: int):
+    def run(executor: str, service_every: int, obs=None):
         for vm, st in zip(nodes, init):
             vm.state = vms.clone(st)
             vm.out_stream.clear()
-        fleet = FleetVM(nodes=nodes, executor=executor, device=dev)
+        fleet = FleetVM(nodes=nodes, executor=executor, device=dev, obs=obs)
         split = {}
         for name in ("start", "sync"):
             setattr(fleet, name, synchronized(torch, getattr(fleet, name), split, name + "_ms"))
@@ -330,23 +347,102 @@ def main() -> int:
             "round_ms": 1e3 * (marks[-1][1] - marks[0][1]),
         }), flush=True)
 
+    # 4c. the telemetry plane on the main path: the same fleet, counted,
+    # traced and timed, under cuda (the kernel's counting instance) and
+    # batched; the counters equal and the states those of phase 4.  Each
+    # executor runs without obs, with, with, without (in turns, so that the
+    # first run's warm-up falls on neither side alone).
+    from repro_torch.obs import ObsConfig, validate_chrome_trace
+
+    obs_cfg = ObsConfig(trace=True, deadline_ms=OBS_DEADLINE_MS, time_rounds=True)
+    steps_off = int(results["cuda", 1][1].steps.sum())
+    kmod.vmloop_call.launches = kmod.vmloop_call.obs_launches = 0
+    turns: dict = {}
+    metrics = {}
+    for executor in ("cuda", "batched"):
+        for obs in (None, obs_cfg, obs_cfg, None):
+            fleet_o, res_o, dt_o, S_o, split_o = run(executor, 1, obs=obs)
+            err, bad = check.max_abs_diff(S_o, results["cuda", 1][3])
+            if bad or res_o.outputs != results["cuda", 1][1].outputs:
+                fail(f"obs={obs is not None}: {executor} final states differ from phase 4's on {bad} "
+                     f"(max abs err {err})")
+            turns.setdefault((executor, obs is not None), []).append((dt_o, split_o))
+            if obs is None:
+                continue
+            m = fleet_o.metrics().as_dict()
+            spans = validate_chrome_trace(fleet_o.export_trace())
+            if spans != 4 * m["counters"]["rounds_observed"] or m["counters"]["instructions"] != steps_off:
+                fail(f"obs: {executor} traced {spans} spans over {m['counters']['rounds_observed']} "
+                     f"rounds, binned {m['counters']['instructions']} of {steps_off} instructions")
+            if executor in metrics and metrics[executor]["counters"] != m["counters"]:
+                fail(f"obs: {executor}'s two observed runs counted differently")
+            metrics[executor] = m
+            if executor == "cuda":
+                ks = fleet_o.kernel_stats()
+                if (m["counters"]["deopts"] != ks["bailed_node_rounds"]
+                        or ks["bail_hist"] != {"task": spawners, "rnd": spawners}):
+                    fail(f"obs: deopts {m['counters']['deopts']}, kernel_stats {ks}")
+            del fleet_o, S_o
+    obs_launches, all_launches = kmod.vmloop_call.obs_launches, kmod.vmloop_call.launches
+    if obs_launches <= 0 or obs_launches >= all_launches:
+        fail(f"phase 4c launched the counting instance {obs_launches} of {all_launches} times")
+    mc, mb = metrics["cuda"]["counters"], metrics["batched"]["counters"]
+    for key in ("op_retired", "instructions", "mbox_high", "mbox_drops", "io_susp",
+                "deadline_miss", "rounds_observed"):
+        if mc[key] != mb[key]:
+            fail(f"obs: cuda != batched on {key}")
+
+    def mean_rate(executor, obs):
+        return sum(steps_off / dt for dt, _ in turns[executor, obs]) / len(turns[executor, obs])
+
+    def mean_rounds_ms(executor, obs):
+        return sum(sp["rounds_ms"] for _, sp in turns[executor, obs]) / len(turns[executor, obs])
+
+    top = sorted(mc["op_retired"].items(), key=lambda kv: -kv[1])[:8]
+    print(json.dumps({
+        "phase": "obs", "nodes": n_nodes, "rounds": mc["rounds_observed"],
+        "instructions": mc["instructions"], "top_bins": dict(top),
+        "deadline_ms": OBS_DEADLINE_MS, "deadline_miss_total": mc["deadline_miss_total"],
+        "mbox_high": mc["mbox_high"], "io_susp": mc["io_susp"], "deopts": mc["deopts"],
+        "spans": spans, "counting_launches": obs_launches,
+        **{f"{ex}_steps_per_s_{'obs' if o else 'no_obs'}": mean_rate(ex, o)
+           for ex in ("cuda", "batched") for o in (True, False)},
+        **{f"{ex}_rounds_ms_{'obs' if o else 'no_obs'}": mean_rounds_ms(ex, o)
+           for ex in ("cuda", "batched") for o in (True, False)},
+        "turns_s": {f"{ex}_{'obs' if o else 'no_obs'}": [dt for dt, _ in v] for (ex, o), v in turns.items()},
+        "round_latency_ms": {k: metrics["cuda"]["latency"][k] for k in ("mean_ms", "p50_ms", "p99_ms", "max_ms")},
+        "identical_to_batched_and_obs_off": True,
+    }), flush=True)
+    del turns, metrics
+
+    # 4d. the Oracle as a fleet executor (byte-exact with cuda on a 256-node
+    # ring), and a voting ensemble on the card
+    oracle_ring(torch, dev, check, VMConfig, REXAVM, FleetVM, vms)
+    ensemble_vote(torch, dev, check, cfg, REXAVM, vms)
+
     # 5. time per launch at n=4096, beside the plain version and the bound;
-    # then at the serve monitor's 64 nodes, which launch it once a round
-    fleet_t = time_vmloop(torch, kmod, nodes, init, cfg, dev)
-    from repro_torch.serve import FleetServeMonitor
+    # then at the serve monitor's 64 nodes, which launch it once a round.
+    # Each point times the default instance and the counting one in turns.
+    fleet_t, fleet_obs = time_vmloop(torch, kmod, nodes, init, cfg, dev)
+    fleet_obs["launches"] = obs_launches
+    from repro_torch.serve import FleetServeMonitor, ServeStats
 
     mon = FleetServeMonitor(n=MONITOR_NODES, executor="cuda", device=dev)
     for node, frame in zip(mon.fleet.nodes, mon._frames):     # as one engine step does
         node.dios_write("stats", [PROMPT_LEN + 1, SERVE_BATCH * PROMPT_LEN, SERVE_BATCH])
         node.launch(frame)
-    mon_t = time_vmloop(torch, kmod, mon.fleet.nodes, [vm.state for vm in mon.fleet.nodes], cfg, dev)
+    mon_t, mon_obs = time_vmloop(torch, kmod, mon.fleet.nodes,
+                                 [vm.state for vm in mon.fleet.nodes], cfg, dev)
+    mon_obs["launches"] = monitor_obs(torch, kmod, dev, FleetServeMonitor, ServeStats, ObsConfig)
     records = [{
         "name": "vmloop", "route": "cuda",
         "source": "src/repro_torch/kernels/vmloop/csrc/vmloop.cu",
         "replaces": "src/repro/kernels/vmloop/vmloop.py:64",
         "launches": launches, "max_abs_err": max_err,
         **{k: fleet_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-        "library_ms": None, "per_shape": {f"n{n_nodes}": fleet_t, f"n{MONITOR_NODES}_monitor": mon_t},
+        "library_ms": None, "per_shape": {
+            f"n{n_nodes}": fleet_t, f"n{MONITOR_NODES}_monitor": mon_t,
+            f"n{n_nodes}_obs": fleet_obs, f"n{MONITOR_NODES}_obs": mon_obs},
     }]
     del nodes, init, results, S, fleet, mon
     torch.cuda.empty_cache()
@@ -448,15 +544,131 @@ def check_rows_budget(torch, kmod, check, cfg, dev) -> None:
           f"({int(out_k[0].sum())} instructions): byte-identical", flush=True)
 
 
-def time_vmloop(torch, kmod, nodes, states, cfg, dev) -> dict:
+def check_counting(torch, kmod, check, cfg, dev) -> None:
+    """vmloop's counting instance (obs=True) against its plain version on
+    the card: the sweep, 1024 random nodes, and a shuffled row list with
+    per-row budgets; states, n_exec/bailed/bail_op and op_hist byte for
+    byte, each row's bins totalling its n_exec."""
+    from repro_torch.core.vm import vmstate as vms
+    from repro_torch.kernels.vmloop.ref import core_of
+
+    g = torch.Generator().manual_seed(cfg.cs_size + 2)
+    rows = torch.arange(0, 1024, 3)[torch.randperm(342, generator=g)].to(torch.int32).to(dev)
+    budget = torch.randint(0, 70, (342,), generator=g).to(torch.int32).to(dev)
+    cases = [("sweep", check.sweep_states(cfg, dev)[1], None, None),
+             ("random", check.random_states(cfg, 1024, seed=cfg.cs_size + 2, device=dev), None, None),
+             ("rows/budget", check.random_states(cfg, 1024, seed=cfg.cs_size + 3, device=dev), rows,
+              budget)]
+    binned = 0
+    for name, S, r, b in cases:
+        P = vms.clone(S)
+        out_k = kmod.vmloop_call(core_of(S), cfg.steps_per_slice, cfg, rows=r, budget=b, obs=True)[1:]
+        out_p = kmod.run_core(core_of(P), kmod._tables(None, dev)[0], cfg.steps_per_slice, cfg,
+                              rows=r, budget=b, obs=True)[1:]
+        torch.cuda.synchronize()
+        err, bad = check.max_abs_diff(S, P)
+        for label, a, c in zip(("n_exec", "bailed", "bail_op", "op_hist"), out_k, out_p):
+            if not torch.equal(a, c):
+                bad.append(label)
+                err = max(err, int((a.long() - c.long()).abs().max()))
+        if bad or not torch.equal(out_k[3].sum(dim=1), out_k[0]):
+            fail(f"counting instance, {name} (cs_size={cfg.cs_size}): kernel != plain on {bad}, "
+                 f"max abs err {err}")
+        binned += int(out_k[3].sum())
+    print(f"check cs_size={cfg.cs_size}: counting instance on the sweep, 1024 random nodes and "
+          f"342 rows with budgets ({binned} instructions binned): byte-identical", flush=True)
+
+
+def oracle_ring(torch, dev, check, VMConfig, REXAVM, FleetVM, vms) -> None:
+    """Phase 4d (a): the ANN ring at ORACLE_NODES nodes under
+    executor="oracle" (each node's slice through the plain-Python Oracle on
+    the host), byte for byte against executor="cuda", with each one's wall
+    time.  The ring divides nothing by INT_MIN, where the Oracle's `/` and
+    `mod` differ from the interpreter's."""
+    cfg = VMConfig()
+    n = ORACLE_NODES
+    nodes = [REXAVM(cfg, seed=1 + i, device=dev) for i in range(n)]
+    for i, vm in enumerate(nodes):
+        vm.launch(vm.load(ann_program(i, n)))
+    init = [vms.clone(vm.state) for vm in nodes]
+    out = {}
+    for executor in ("oracle", "cuda"):
+        for vm, st in zip(nodes, init):
+            vm.state = vms.clone(st)
+        fleet = FleetVM(nodes=nodes, executor=executor, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fleet.run(max_rounds=200)
+        out[executor] = (res, time.perf_counter() - t, vms.stack_states([vm.state for vm in nodes]))
+    (ro, dto, So), (rc, dtc, Sc) = out["oracle"], out["cuda"]
+    err, bad = check.max_abs_diff(So, Sc)
+    if bad or ro.outputs != rc.outputs or ro.rounds != rc.rounds or ro.statuses != ["halt"] * n:
+        fail(f"oracle fleet != cuda fleet on {bad} (max abs err {err}), rounds {ro.rounds} / {rc.rounds}")
+    steps = int(ro.steps.sum())
+    print(json.dumps({"phase": "oracle_fleet", "nodes": n, "rounds": ro.rounds, "steps": steps,
+                      "oracle_s": dto, "oracle_steps_per_s": steps / dto, "cuda_s": dtc,
+                      "identical_to_cuda": True}), flush=True)
+
+
+def ensemble_vote(torch, dev, check, cfg, REXAVM, vms) -> None:
+    """Phase 4d (b): an EnsembleVM of ENSEMBLE replicas of one ANN node on
+    the card (executor="cuda"); after the first slice one replica's loop
+    counter gets a bit flipped.  The vote must flag exactly that replica,
+    and the healed state must agree."""
+    from repro_torch.core.vm import EnsembleVM
+
+    prog = ("array x { 10 20 30 40 } array w { 1 2 3 4 5 6 7 8 9 10 11 12 13 14 15 16 } "
+            "array y { 0 0 0 0 } var acc "
+            f"0 begin 1+ x w y 0 vecfold x y dotprod acc +! dup {ITERS} >= until drop acc @ . halt")
+    vm = REXAVM(cfg, device=dev)
+    vm.launch(vm.load(prog))
+    ens = EnsembleVM(cfg, n=ENSEMBLE, executor="cuda", device=dev)
+    S = ens.run_slice(ens.replicate(vm.state))
+    bad = ENSEMBLE // 2
+    S.ds[bad, 0, 0] ^= 1 << 12                 # the loop counter, mid-loop
+    for _ in range(8):
+        S = ens.run_slice(S)
+    vote = ens.vote(S)
+    if vote.faulty != [bad] or vote.agree:
+        fail(f"ensemble: the vote flagged {vote.faulty}, expected [{bad}]")
+    healed = ens.heal(S, vote)
+    if not ens.vote(healed).agree or check.max_abs_diff(
+            vms.take_nodes(healed, [bad]), vms.take_nodes(S, [0]))[1]:
+        fail("ensemble: the healed replica does not equal the majority")
+    print(json.dumps({"phase": "ensemble", "replicas": ENSEMBLE, "executor": "cuda",
+                      "flipped": bad, "faulty": vote.faulty, "healed_agree": True}), flush=True)
+
+
+def monitor_obs(torch, kmod, dev, FleetServeMonitor, ServeStats, ObsConfig) -> int:
+    """The serve monitor with obs (64 nodes, executor="cuda"), driven as an
+    engine drives it for three steps: returns the counting instance's
+    launches, after checking that it reported and counted."""
+    mon = FleetServeMonitor(n=MONITOR_NODES, executor="cuda", device=dev,
+                            obs=ObsConfig(time_rounds=True))
+    kmod.vmloop_call.obs_launches = 0
+    for step in range(1, 4):
+        mon(ServeStats(steps=step, prefill_tokens=SERVE_BATCH * PROMPT_LEN,
+                       decode_tokens=SERVE_BATCH * step))
+    launches = kmod.vmloop_call.obs_launches
+    c = mon.metrics().as_dict()["counters"]
+    if launches <= 0 or c["instructions"] <= 0 or mon.reports() != [[SERVE_BATCH] * 3] * MONITOR_NODES:
+        fail(f"monitor with obs: {launches} counting launches, {c['instructions']} instructions")
+    print(f"monitor obs: {launches} counting launches, {c['instructions']} instructions binned "
+          f"over {c['rounds_observed']} rounds", flush=True)
+    return launches
+
+
+def time_vmloop(torch, kmod, nodes, states, cfg, dev) -> tuple[dict, dict]:
     """One slice (cfg.steps_per_slice) of vmloop over the stacked ``states``
-    of ``nodes``, scheduled as the executor does: ms per launch (CUDA
-    events around each of 20 launches after 2 warm-ups, the state restored
-    and a spin kernel queued before each, so the events time the device),
-    the plain version's ms, held equal, and the bound: the cells the launch
-    changed (each written once) plus each node's loaded code frame (its
-    program and arrays, each read once), or its instructions at the INT32
-    rate."""
+    of ``nodes``, scheduled as the executor does, for the default instance
+    and the counting one (obs=True) in turns: ms per launch (CUDA events
+    around each of 20 launches after 2 warm-ups, the state restored and a
+    spin kernel queued before each, so the events time the device), each
+    plain version's ms, held equal (the counting instance's op_hist too),
+    and the bound: the cells the launch changed (each written once) plus
+    each node's loaded code frame (its program and arrays, each read once)
+    and, for the counting instance, its op_hist written once; or its
+    instructions at the INT32 rate."""
     from repro_torch.core.vm import vmstate as vms
     from repro_torch.core.vm.interp import interp_for
     from repro_torch.kernels.vmloop import check
@@ -468,41 +680,55 @@ def time_vmloop(torch, kmod, nodes, states, cfg, dev) -> dict:
     core = core_of(work)
     reps = 20
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    total = 0.0
+    total = {True: 0.0, False: 0.0}
     for rep in range(reps + 2):                 # two warm-up launches
-        for a, b in zip(work, S0):
-            a.copy_(b)
-        torch.cuda._sleep(SPIN_CYCLES // 100)   # the launch is queued before the events run
-        start.record()
-        n_exec = kmod.vmloop_call(core, cfg.steps_per_slice, cfg)[1]
-        end.record()
-        torch.cuda.synchronize()
-        if rep >= 2:
-            total += start.elapsed_time(end)
-    ms = total / reps
-    plain = vms.clone(S0)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    vmloop_ref(plain, cfg.steps_per_slice, cfg)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t)
-    err, bad = check.max_abs_diff(work, plain)
-    if bad:
-        fail(f"timed launch (n={len(nodes)}) != plain version on {bad}")
+        for obs in (True, False):               # the default instance last: `work` keeps its state
+            for a, b in zip(work, S0):
+                a.copy_(b)
+            torch.cuda._sleep(SPIN_CYCLES // 100)   # the launch is queued before the events run
+            start.record()
+            out = kmod.vmloop_call(core, cfg.steps_per_slice, cfg, obs=obs)
+            end.record()
+            torch.cuda.synchronize()
+            if rep >= 2:
+                total[obs] += start.elapsed_time(end)
+            if obs:
+                obs_work, obs_out = vms.clone(work), out[1:]
+            else:
+                n_exec = out[1]
+    n = len(nodes)
     changed = sum(int((a != b).sum()) for a, b in zip(work, S0))
     frame_cells = sum(sum(f.end - f.start for f in vm.frames.frames.values()) for vm in nodes)
-    nbytes = 4 * (changed + frame_cells)
     instrs = int(n_exec.sum())
     longest = int(n_exec.max())
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * instrs / INT32_OPS_PER_S
-    print(f"vmloop timing n={len(nodes)}: {ms:.4f} ms/launch, plain {plain_ms:.2f} ms, "
-          f"{instrs} instructions, longest node {longest} ({1e6 * ms / longest:.1f} ns each), "
-          f"bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B)", flush=True)
-    return {"nodes": len(nodes), "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "instructions": instrs,
-            "longest_node": longest, "ns_per_instruction": 1e6 * ms / longest,
-            "bytes": nbytes}
+    recs = []
+    for obs, final in ((False, work), (True, obs_work)):
+        plain = vms.clone(S0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain_out = vmloop_ref(plain, cfg.steps_per_slice, cfg, obs=obs)[1:]
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t)
+        err, bad = check.max_abs_diff(final, plain)
+        if obs and not all(torch.equal(a, b) for a, b in zip(obs_out, plain_out)):
+            bad.append("n_exec/bailed/bail_op/op_hist")
+        if bad:
+            fail(f"timed launch (n={n}, obs={obs}) != plain version on {bad}")
+        nbytes = 4 * (changed + frame_cells + (n * (kmod.NUM_OPS + 4) if obs else 0))
+        ms = total[obs] / reps
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * instrs / INT32_OPS_PER_S
+        print(f"vmloop timing n={n}{' counting instance' if obs else ''}: {ms:.4f} ms/launch, "
+              f"plain {plain_ms:.2f} ms, {instrs} instructions, longest node {longest} "
+              f"({1e6 * ms / longest:.1f} ns each), bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B)",
+              flush=True)
+        recs.append({"nodes": n, "instance": "counting" if obs else "default", "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "instructions": instrs, "longest_node": longest,
+                     "ns_per_instruction": 1e6 * ms / longest, "bytes": nbytes})
+    recs[1]["ms_over_default"] = recs[1]["ms"] / recs[0]["ms"]
+    return recs[0], recs[1]
 
 
 def danube_gemms():

@@ -76,7 +76,9 @@ NO_LIVE_CELLS = [("vmloop_core.h", old, new) for old, new in [
      "    for (int32_t k = 0; k < sp.MV; ++k) {\n        int32_t v = k < n ? x.ld(wadd(a0, k)) : I32_MIN;"),
 ]]
 SMEM_TABLES = [
-    ("vmloop.cu", "    const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;\n",
+    ("vmloop.cu", "int32_t* bail_op) {\n"
+     "    const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;\n",
+     "int32_t* bail_op) {\n"
      "    __shared__ int32_t meta_s[NUM_OPS + 1];\n"
      "    for (int k = threadIdx.x; k <= NUM_OPS; k += blockDim.x) meta_s[k] = meta[k];\n"
      "    __syncthreads();\n"

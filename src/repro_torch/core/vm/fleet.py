@@ -5,9 +5,10 @@
 A round is three layers, all updating that state in place:
 
   1. one micro-slice per node (``schedule -> vmloop -> preempt``) on the
-     batched interpreter (``executor="batched"``) or on the vmloop CUDA
+     batched interpreter (``executor="batched"``), on the vmloop CUDA
      kernel, which hands each word it declines to the interpreter
-     (``executor="cuda"``);
+     (``executor="cuda"``), or through the plain-Python Oracle on the host
+     (``executor="oracle"``);
   2. the virtual clock: ``now += max(1, executed * us_per_instr // 1000)``;
   3. mailbox routing (``routing.build_router``): all sends in (node, task)
      order, then all receives;
@@ -18,10 +19,17 @@ Host IO (FIOS calls, ``out``/``in``) is found by a small per-round status
 probe and serviced by :class:`~repro_torch.core.vm.ios.FleetIOService`,
 which moves only the suspended nodes' rows.  ``reference_round`` is the
 same round over independent host-looped nodes.
+
+With ``obs=`` (``repro_torch.obs``) each round runs split at its phase
+seams (schedule, execute, clock and router, warp) so that the fleet can
+count, trace and time each phase; ``metrics()`` and ``export_trace()``
+read the result.  With ``obs=None`` (the default) the round loop is the
+plain one: no extra device outputs and no synchronization.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,6 +40,7 @@ from repro_torch.core.vm import vmstate as vms
 from repro_torch.core.vm.executor import (
     BatchedSliceExecutor,
     CudaSliceExecutor,
+    OracleFleetExecutor,
     bail_hist_dict,
 )
 from repro_torch.core.vm.ios import FleetIOService
@@ -53,7 +62,7 @@ from repro_torch.core.vm.vmstate import VMState
 I32 = torch.int32
 _I32_MAX = 2 ** 31 - 1
 
-EXECUTORS = ("batched", "cuda")
+EXECUTORS = ("batched", "cuda", "oracle")
 
 
 class FleetKernels:
@@ -73,6 +82,8 @@ class FleetKernels:
             self.executor = BatchedSliceExecutor(cfg, isa)
         elif executor == "cuda":
             self.executor = CudaSliceExecutor(cfg, isa)
+        elif executor == "oracle":
+            self.executor = OracleFleetExecutor(cfg, isa)
         else:
             raise ValueError(
                 f"unknown fleet executor {executor!r}: valid executors are "
@@ -81,16 +92,53 @@ class FleetKernels:
         self.executor_kind = executor
         self.interp = self.executor.interp
         self.route = build_router(cfg, self.isa)
+        self._route_obs = None
         if executor != "cuda":
             self.round_aux = None
             self.rounds_aux = None
 
-    def post_slice(self, S, steps0) -> None:
+    def clock(self, S, steps0) -> torch.Tensor:
+        """Advance each node's virtual clock by its slice's instructions;
+        returns the increment (N,)."""
         cfg = self.cfg
         inc = torch.clamp(torch.div((S.steps - steps0) * cfg.us_per_instr, 1000, rounding_mode="floor"), min=1)
         S.now.add_(inc)
+        return inc
+
+    def post_slice(self, S, steps0) -> None:
+        self.clock(S, steps0)
         progress = self.route(S)
         self.warp(S, progress)
+
+    # -- the observed round's phases (FleetVM._round_obs) -------------------------
+
+    def clock_route(self, S, steps0):
+        """The clock and the router's obs variant: ``(inc, drops, depth,
+        progress)``.  With ``warp`` it is exactly ``post_slice``."""
+        if self._route_obs is None:
+            self._route_obs = build_router(self.cfg, self.isa, obs=True)
+        inc = self.clock(S, steps0)
+        _, progress, (drops, depth) = self._route_obs(S)
+        return inc, drops, depth, progress
+
+    @staticmethod
+    def accum(acc, aux, inc, drops, depth, deadline_ms: int):
+        """Fold one round's measurements into the device counters.  A node
+        misses the virtual-clock deadline when its round's clock increment
+        exceeds it: a function of retired instructions, so exact across
+        executors."""
+        from repro_torch.obs.metrics import ObsCounters
+
+        miss = ((inc > deadline_ms) & (deadline_ms > 0)).to(torch.int32)
+        return ObsCounters(
+            op_retired=acc.op_retired + aux.op_hist,
+            mbox_high=torch.maximum(acc.mbox_high, depth),
+            mbox_drops=acc.mbox_drops + drops,
+            io_susp=acc.io_susp + aux.io_susp,
+            deopts=acc.deopts + aux.deopts,
+            deadline_miss=acc.deadline_miss + miss,
+            rounds=acc.rounds + 1,
+        )
 
     @staticmethod
     def warp(S, progress) -> None:
@@ -153,6 +201,10 @@ class FleetVM:
     kernel's plain version).  ``send dst`` addresses node ``dst`` by fleet
     index.  ``h2d``/``d2h`` count full-state transfers, the ``*_bytes``
     counters every byte moved either way.
+
+    ``obs`` (None | bool | ``ObsConfig``) turns on the telemetry plane:
+    each round is counted (``metrics()``), and traced and timed as the
+    config says (``export_trace()``).
     """
 
     def __init__(
@@ -164,6 +216,7 @@ class FleetVM:
         nodes: list[REXAVM] | None = None,
         executor: str = "batched",
         device=None,
+        obs=None,
     ):
         if nodes is not None:
             if not nodes:
@@ -201,6 +254,24 @@ class FleetVM:
         self._bailed_acc = 0
         self._bail_hist_acc = 0
         self._total_steps_acc = 0
+        # The telemetry plane: off by default — no extra device outputs, no
+        # per-phase synchronization, nothing accumulated.
+        from repro_torch.obs.metrics import normalize_obs
+
+        self.obs = normalize_obs(obs)
+        self._counters = None              # device ObsCounters
+        self._tracer = None
+        self._deadline = None
+        if self.obs is not None:
+            from repro_torch.obs.deadline import DeadlineMonitor
+            from repro_torch.obs.metrics import zero_counters
+            from repro_torch.obs.tracing import RoundTracer
+
+            self._counters = zero_counters(self.n, isa, self.device)
+            self._tracer = RoundTracer(ring=self.obs.trace_ring, enabled=self.obs.trace,
+                                       profiler=self.obs.profiler)
+            self._deadline = DeadlineMonitor(self.obs.deadline_wall_ms)
+            self.io_service.tracer = self._tracer
 
     # -- telemetry ---------------------------------------------------------------
 
@@ -239,6 +310,43 @@ class FleetVM:
             "exec_slices": 0,
         }
 
+    def trace_stats(self) -> dict:
+        """The reference's trace-executor keys, zeroed: the trace-JIT is not
+        in the port yet (``metrics()`` keeps its schema)."""
+        return {
+            "executor": self.executor_kind,
+            "traces_recorded": 0,
+            "traces_compiled": 0,
+            "spec_steps": 0,
+            "guard_exits": 0,
+            "total_steps": 0,
+            "specialized_frac": 0.0,
+            "groups": {},
+            "exec_slices": 0,
+        }
+
+    def executive_stats(self) -> dict:
+        """The reference's Executive and syscall-plane keys, zeroed as the
+        reference's are without an Executive (not in the port yet)."""
+        return {
+            "executor": self.executor_kind,
+            "enabled": False,
+            "quantum": 0,
+            "slices_per_round": 0,
+            "exec_slices": 0,
+            "task_switches": 0,
+            "preemptions": 0,
+            "spawns_admitted": 0,
+            "spawns_rejected": 0,
+            "task_deadline_misses": 0,
+            "tasks_missed": 0,
+            "syscalls": 0,
+            "svc_batches": 0,
+            "svc_scalar_calls": 0,
+            "svc_posts": 0,
+            "svc_post_drops": 0,
+        }
+
     def transfer_stats(self) -> dict:
         """All movement counters in one dict (serve monitor / benchmarks):
         the reference's keys.  The syscall-plane fields are 0: the port has
@@ -259,6 +367,55 @@ class FleetVM:
             "io_svc_batches": 0,
             "probes": self.probes,
         }
+
+    def metrics(self):
+        """One schema-stable telemetry snapshot (``FleetMetrics``): the
+        device counters, the round-latency monitor and the stats dicts,
+        with the reference's key structure under every executor and with
+        obs on or off (zeroed where nothing was measured).  The one device
+        read is the counters', and only when obs is on."""
+        from repro_torch.obs.deadline import DeadlineMonitor
+        from repro_torch.obs.metrics import FleetMetrics, hist_to_dict, n_bins
+
+        isa = self.kernels.isa
+        if self._counters is not None:
+            c = [x.cpu().numpy() for x in self._counters]
+            op, mbox_high, mbox_drops, io_susp, deopts, miss, rounds_observed = c
+        else:
+            op = np.zeros(n_bins(isa), np.int64)
+            miss = np.zeros(self.n, np.int64)
+            mbox_high = mbox_drops = io_susp = deopts = rounds_observed = 0
+        counters = {
+            "op_retired": hist_to_dict(op, isa),
+            "instructions": int(op.sum()),
+            "mbox_high": int(mbox_high),
+            "mbox_drops": int(mbox_drops),
+            "io_susp": int(io_susp),
+            "deopts": int(deopts),
+            "deadline_ms": int(self.obs.deadline_ms) if self.obs else 0,
+            "deadline_miss": [int(x) for x in miss],
+            "deadline_miss_total": int(miss.sum()),
+            "rounds_observed": int(rounds_observed),
+        }
+        latency = (self._deadline if self._deadline is not None else DeadlineMonitor()).snapshot()
+        sections = {}
+        for name, stats in (("pallas", self.kernel_stats()), ("trace", self.trace_stats()),
+                            ("transfers", self.transfer_stats()),
+                            ("executive", self.executive_stats())):
+            stats.pop("executor", None)
+            sections[name] = stats
+        sections["transfers"].pop("rounds", None)
+        return FleetMetrics(executor=self.executor_kind, rounds=self.rounds_total,
+                            counters=counters, latency=latency, **sections)
+
+    def export_trace(self, path=None):
+        """The recorded round-phase spans as Chrome trace-event JSON (open
+        in chrome://tracing or ui.perfetto.dev), written to ``path`` when
+        given; returns the payload.  Needs ``obs=ObsConfig(trace=True)``;
+        without it the export is valid and empty."""
+        from repro_torch.obs.tracing import RoundTracer, export_chrome_trace
+
+        return export_chrome_trace(self._tracer or RoundTracer(enabled=False), path)
 
     # -- state movement ------------------------------------------------------------
 
@@ -290,6 +447,48 @@ class FleetVM:
             S.steps.cpu().numpy(),
         )
 
+    def _sync_device(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _round_obs(self, steps: int) -> None:
+        """One observed round: schedule -> execute -> clock and router ->
+        warp, the phases of ``FleetKernels.round``, with the round's
+        counters folded into the device ``ObsCounters``.  Spans (trace on)
+        close each phase with a device synchronize, and round timing
+        (``time_rounds`` or a wall deadline) one synchronize a round;
+        otherwise the round adds none."""
+        kern, ex, tr, cfg_obs = self.kernels, self.kernels.executor, self._tracer, self.obs
+        timing = cfg_obs.time_rounds or cfg_obs.deadline_wall_ms > 0
+        t0 = time.perf_counter() if timing else 0.0
+        S = self._S
+        steps0 = S.steps.clone()
+        with tr.span("schedule"):
+            found = ex.obs_schedule(S)
+            if tr.enabled:
+                self._sync_device()
+        with tr.span("execute"):
+            aux = ex.obs_execute(S, steps, found)
+            if tr.enabled:
+                self._sync_device()
+        with tr.span("router"):
+            inc, drops, depth, progress = kern.clock_route(S, steps0)
+            if tr.enabled:
+                self._sync_device()
+        with tr.span("warp"):
+            kern.warp(S, progress)
+            if tr.enabled:
+                self._sync_device()
+        self._counters = kern.accum(self._counters, aux, inc, drops, depth, cfg_obs.deadline_ms)
+        if self.executor_kind == "cuda":
+            self._kernel_steps_acc = self._kernel_steps_acc + aux.kernel_steps
+            self._bailed_acc = self._bailed_acc + aux.bailed
+            self._bail_hist_acc = self._bail_hist_acc + aux.bail_hist
+        if timing:
+            self._sync_device()
+            self._deadline.record((time.perf_counter() - t0) * 1e3)
+        tr.tick()
+
     def run(
         self,
         max_rounds: int = 10_000,
@@ -310,7 +509,12 @@ class FleetVM:
         last_steps_sum = -1
         kern = self.kernels
         while rounds < max_rounds:
-            if kern.rounds_aux is not None and service_every > 1:
+            if self.obs is not None:
+                # Observed rounds run phased and one at a time, so that each
+                # is counted, traced and timed on its own.
+                self._round_obs(steps)
+                rounds += 1
+            elif kern.rounds_aux is not None and service_every > 1:
                 chunk = min(service_every, max_rounds - rounds)
                 self._S, n_sum, b_sum, hist = kern.rounds_aux(self._S, steps, chunk)
                 self._kernel_steps_acc = self._kernel_steps_acc + n_sum
@@ -376,11 +580,17 @@ class FleetVM:
 # Host-routed reference (the operational specification of one fleet round)
 # ---------------------------------------------------------------------------
 
-def reference_round(nodes: list[REXAVM], steps: int | None = None) -> list[bool]:
+def reference_round(nodes: list[REXAVM], steps: int | None = None,
+                    obs: dict | None = None) -> list[bool]:
     """One fleet round over independent host-looped REXAVMs: slice every
     node, advance its clock, route all sends then all receives through the
     host (same order, rings, backpressure and drop rules as the router),
-    then the per-node time warp.  Returns the per-node progress flags."""
+    then the per-node time warp.  Returns the per-node progress flags.
+
+    ``obs``, when given, is a dict the round's router counters accumulate
+    into, as the reference's: ``drops`` (messages to out-of-range
+    destinations) and ``depth_peak`` (the deepest mailbox after the send
+    phase) — the definitions of ``mbox_drops`` and ``mbox_high``."""
     cfg = nodes[0].cfg
     isa = nodes[0].isa
     N, T = len(nodes), cfg.max_tasks
@@ -409,11 +619,16 @@ def reference_round(nodes: list[REXAVM], steps: int | None = None) -> list[bool]
                 m["mbox"][2 * slot] = i
                 m["mbox"][2 * slot + 1] = v
                 m["mbox_wr"][...] = int(m["mbox_wr"]) + 1
+            elif obs is not None:
+                obs["drops"] = obs.get("drops", 0) + 1
             st["dsp"][t] = dsp - 2
             st["pc"][t] = int(st["pc"][t]) + 1
             st["io_op"][t] = 0
             st["tstatus"][t] = ST_YIELD
             progress[i] = True
+    if obs is not None:
+        depth = max(int(st["mbox_wr"]) - int(st["mbox_rd"]) for st in arrays)
+        obs["depth_peak"] = max(obs.get("depth_peak", 0), depth)
     for i, st in enumerate(arrays):                       # all receives
         for t in range(T):
             if int(st["tstatus"][t]) != ST_IOWAIT or int(st["io_op"][t]) != op_recv:

@@ -89,6 +89,17 @@ def muldiv(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where(sign, -q, q)
 
 
+def bins_of(pc_ok: torch.Tensor, tag: torch.Tensor, payload: torch.Tensor,
+            num_ops: int) -> torch.Tensor:
+    """Per row, the retirement bin (``repro_torch.obs.metrics``) of the
+    instruction fetched as ``(pc_ok, tag, payload)``: the opcode for tag 0
+    (payload clipped to ``num_ops``, the fios/trap bin), ``num_ops + tag``
+    for a literal or a call or a reserved tag, ``num_ops + 3`` for an
+    invalid pc."""
+    b = torch.where(tag == 0, torch.clamp(payload, 0, num_ops), num_ops + tag)
+    return torch.where(pc_ok, b, num_ops + 3)
+
+
 def _cmp(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x, -1, 0).to(I32)
 
@@ -930,7 +941,7 @@ class Interpreter:
         c.set_pc(handler, has)
         c.set_status(ST_ERR, exc & ~has)
 
-    def vmloop(self, S, steps: int, active=None, budget=None, sup=None):
+    def vmloop(self, S, steps: int, active=None, budget=None, sup=None, hist=None):
         """Alg. 1: per node, run up to ``budget`` (default ``steps``)
         instructions of the current task while it stays ST_RUN, on the
         nodes in ``active`` (default all).
@@ -938,7 +949,12 @@ class Interpreter:
         With a claim mask ``sup`` a node stops *before* its first declined
         instruction.  Returns ``(n_exec, bailed, bail_op)``, each (N,)
         int32; ``bail_op`` is the declined opcode (``num_ops`` for FIOS and
-        traps) or -1 where the node did not bail."""
+        traps) or -1 where the node did not bail.
+
+        ``hist``, an (N, num_ops + 4) int32 tensor, counts each retired
+        instruction in its node's row, in its retirement bin (``bins_of``
+        over the fetch); a declined instruction is not
+        retired and not counted."""
         N = S.pc.shape[0]
         dev = S.pc.device
         n = torch.zeros(N, dtype=I32, device=dev)
@@ -959,6 +975,8 @@ class Interpreter:
             if keys == [_K_IDLE]:
                 break
             stepped = []
+            if hist is not None:
+                bins = bins_of(pc_ok, tag, payload, self.num_ops).long()
             for k, grp in zip(keys, torch.split(rows[order], counts)):
                 if k == _K_IDLE:
                     continue
@@ -967,6 +985,8 @@ class Interpreter:
                     continue
                 self._step_group(S, k, grp, payload)
                 stepped.append(grp)
+                if hist is not None:
+                    hist[grp, bins[grp]] += 1
             if stepped:
                 grp = torch.cat(stepped)
                 self._finish(S, grp)

@@ -42,34 +42,46 @@ class FiosEntry:
 
 
 class FiosRegistry:
-    """Name-keyed table of host callbacks, numbered from 0 upwards.
+    """Name-keyed table of host callbacks by syscall number (the
+    reference's ``SyscallTable`` behind its ``FiosRegistry`` facade).
 
-    ``add`` takes the lowest free number, so registration order fixes the
-    opcodes exactly as the reference's syscall table does; re-adding a name
-    replaces its callback and keeps its number.
+    ``register`` without ``num`` takes the lowest free number, so
+    registration order fixes the opcodes as in the reference; ``num`` pins a
+    number (a fleet service shares one across nodes), which must be free.
+    Re-registering a name replaces its callback and keeps its number.
     """
 
     def __init__(self):
         self.entries: list[Optional[FiosEntry]] = []
         self.by_name: dict[str, int] = {}
 
-    def add(self, name: str, fn: Callable, args: int = 0, ret: int = 0) -> int:
-        """fiosAdd (paper Def. 2). Returns the assigned opcode."""
+    def register(self, name: str, fn: Callable, args: int = 0, ret: int = 0,
+                 num: int | None = None) -> int:
+        """svcAdd: bind ``name`` to syscall ``num``.  Returns the opcode."""
         if name in self.by_name:
-            num = self.by_name[name]
-            self.entries[num] = FiosEntry(name, fn, args, ret, num)
-            return FIOS_BASE + num
-        num = next(
-            (i for i, e in enumerate(self.entries) if e is None),
-            len(self.entries),
-        )
-        if num >= MAX_FIOS:
-            raise RuntimeError("FIOS table full")
-        if num == len(self.entries):
+            cur = self.by_name[name]
+            if num is not None and num != cur:
+                raise ValueError(f"syscall {name!r} already bound to number {cur}, not {num}")
+            self.entries[cur] = FiosEntry(name, fn, args, ret, cur)
+            return FIOS_BASE + cur
+        if num is None:
+            num = next((i for i, e in enumerate(self.entries) if e is None), len(self.entries))
+            if num >= MAX_FIOS:
+                raise RuntimeError("FIOS table full")
+        if not 0 <= num < MAX_FIOS:
+            raise ValueError(f"syscall number {num} outside 0..{MAX_FIOS - 1}")
+        while len(self.entries) <= num:
             self.entries.append(None)
+        if self.entries[num] is not None:
+            raise ValueError(f"syscall number {num} already bound to {self.entries[num].name!r}")
         self.entries[num] = FiosEntry(name, fn, args, ret, num)
         self.by_name[name] = num
         return FIOS_BASE + num
+
+    def add(self, name: str, fn: Callable, args: int = 0, ret: int = 0) -> int:
+        """fiosAdd (paper Def. 2): ``register`` at the lowest free number.
+        Returns the assigned opcode."""
+        return self.register(name, fn, args, ret)
 
     def opcode(self, name: str) -> Optional[int]:
         num = self.by_name.get(name)
@@ -140,11 +152,19 @@ class FleetIOService:
         self.nodes_serviced = 0      # node rows moved (both directions)
         self.d2h_bytes = 0
         self.h2d_bytes = 0
+        self.tracer = None           # optional repro_torch.obs.RoundTracer
 
     def service(self, S, node_idx) -> tuple[object, bool]:
         """Service host-IO suspensions of ``node_idx`` against the stacked
         device state ``S``.  Returns ``(S, progress)``; ``S`` is updated in
-        place."""
+        place.  With a tracer, the service is an ``io_service`` span."""
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            with tr.span("io_service"):
+                return self._service(S, node_idx)
+        return self._service(S, node_idx)
+
+    def _service(self, S, node_idx) -> tuple[object, bool]:
         from repro_torch.core.vm import vmstate as vms
 
         node_idx = [int(i) for i in node_idx]

@@ -5,7 +5,13 @@ registries behind one object.  The host application compiles code frames,
 runs micro-slices on the device, services FIOS calls and host streams
 between slices (the nested IO service loop of Fig. 10), and reads the
 output ring.  The host-canonical state is a single ``VMState`` of CPU
-tensors; the executor copies it to ``device`` for each slice.
+tensors.  Slices run on one of two backends (``executor.make_executor``):
+
+  * ``torch``  — the batched interpreter on ``device`` (the state is copied
+                 there and back for each slice);
+  * ``oracle`` — the plain-Python reference, in place on the host state.
+
+Both give byte-identical states.
 """
 
 from __future__ import annotations
@@ -34,19 +40,7 @@ from repro_torch.core.vm.spec import (
     ST_YIELD,
     get_isa,
 )
-from repro_torch.core.vm.vmstate import VMState
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    another.  Without CUDA the default raises rather than run elsewhere."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass device=\"cpu\" to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+from repro_torch.core.vm.vmstate import VMState, resolve_device  # noqa: F401  (re-exported)
 
 
 @dataclass
@@ -81,7 +75,9 @@ class REXAVM:
         self.compiler = Compiler(self.isa, self.fios, self.dios, lookup=lookup)
         self.frames = FrameManager(self.cfg.cs_size)
         self.executor = make_executor(backend, self.cfg, isa, self.device)
-        self.interp = self.executor.interp
+        # Backend internals, kept addressable for tests and tools.
+        self.interp = getattr(self.executor, "interp", None)
+        self.oracle = getattr(self.executor, "oracle", None)
         self.state: VMState = vms.init_state(self.cfg, seed)
         # Cell 0 = canonical `end` (task return-to-zero convention).
         self.state.cs[0] = self.isa.enc_op("end")
@@ -100,6 +96,12 @@ class REXAVM:
 
     def fios_add(self, name: str, fn: Callable, args: int = 0, ret: int = 0) -> int:
         return self.fios.add(name, fn, args, ret)
+
+    def svc_add(self, name: str, fn: Callable, args: int = 0, ret: int = 0,
+                num: int | None = None) -> int:
+        """Register a numbered syscall.  ``num`` pins a syscall number
+        (fleet services share one across nodes).  Returns the opcode."""
+        return self.fios.register(name, fn, args=args, ret=ret, num=num)
 
     def dios_add(self, name: str, data) -> int:
         """Register a host array; returns its VM address."""
@@ -280,3 +282,16 @@ class REXAVM:
         s = vms.decode_output(self.state)
         vms.clear_output(self.state)
         return s
+
+    # -- checkpointing (paper resilience feature 5: stop-and-go) ----------------
+
+    def checkpoint(self) -> dict:
+        """Snapshot the full machine state (host side): ``state`` a
+        ``VMState`` of numpy arrays with the reference's dtypes (``rng``
+        uint32), ``now`` the virtual clock."""
+        return {"state": vms.to_reference(self.state), "now": int(self.state.now)}
+
+    def restore(self, ckpt: dict) -> None:
+        """Load a snapshot from ``checkpoint`` (or the reference's, whose
+        ``state`` is numpy arrays of the same fields)."""
+        self.state = vms.from_reference(ckpt["state"], "cpu")

@@ -25,9 +25,15 @@ from repro_torch.core.vm.spec import ISA, ST_IOWAIT, ST_YIELD, get_isa
 I32 = torch.int32
 
 
-def build_router(cfg: VMConfig, isa: ISA | None = None):
+def build_router(cfg: VMConfig, isa: ISA | None = None, obs: bool = False):
     """Returns ``route(S) -> progress``: ``progress[i]`` is True when any of
-    node ``i``'s tasks was resumed this round."""
+    node ``i``'s tasks was resumed this round.
+
+    With ``obs=True`` it returns ``route_obs(S) -> (S, progress, (drops,
+    depth))``, as the reference's: ``drops`` the messages dropped this round
+    (sends to an out-of-range destination), ``depth`` the mailbox
+    high-watermark, the deepest ring on any node right after the send phase
+    (before receives pop); both () int32 on the state's device."""
     isa = isa or get_isa()
     T = cfg.max_tasks
     DS = cfg.ds_size
@@ -74,7 +80,7 @@ def build_router(cfg: VMConfig, isa: ISA | None = None):
         S.pc.copy_(torch.where(resume, S.pc + 1, S.pc))
         S.io_op.copy_(torch.where(resume, 0, S.io_op))
         S.tstatus.copy_(torch.where(resume, ST_YIELD, S.tstatus))
-        return resume.any(dim=1)
+        return resume.any(dim=1), is_send, dst_ok
 
     def recv_phase(S):
         N = S.pc.shape[0]
@@ -102,8 +108,15 @@ def build_router(cfg: VMConfig, isa: ISA | None = None):
         return progress
 
     def route(S):
-        sent = send_phase(S)
+        sent, _, _ = send_phase(S)
         received = recv_phase(S)
         return sent | received
 
-    return route
+    def route_obs(S):
+        sent, is_send, dst_ok = send_phase(S)
+        drops = (is_send & ~dst_ok).sum(dtype=I32)
+        depth = (S.mbox_wr - S.mbox_rd).max().to(I32)
+        received = recv_phase(S)
+        return S, sent | received, (drops, depth)
+
+    return route_obs if obs else route

@@ -66,6 +66,18 @@ class VMState(NamedTuple):
     mbox_wr: torch.Tensor     # () int32 messages delivered (monotonic)
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another.  Without CUDA the default raises rather than run elsewhere."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device=\"cpu\" to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
 def init_state(cfg: VMConfig, seed: int = 1, device="cpu") -> VMState:
     """A fresh single-node state on ``device``."""
     T = cfg.max_tasks

@@ -152,6 +152,9 @@ constexpr int32_t EXC_TRAP = 1, EXC_STACK = 2, EXC_DIVBYZERO = 6, EXC_BOUNDS = 7
 constexpr int32_t ST_RUN = 0, ST_DONE = 1, ST_HALT = 2, ST_ERR = 3, ST_IOWAIT = 4,
                   ST_SLEEP = 5, ST_EVENT = 6, ST_YIELD = 7, ST_FREE = 8;
 constexpr int32_t I32_MIN = (int32_t)0x80000000u;
+// Retirement bins of the counting instance (repro_torch/obs/metrics.py):
+// the opcodes, then fios/trap (= NUM_OPS), literal, call, invalid.
+constexpr int32_t NUM_BINS = NUM_OPS + 4;
 
 // Sizes of one VMConfig.
 struct Dims {
@@ -888,8 +891,15 @@ RX_HD int64_t row_task(const Fields& f, const Dims& d, Row r) {
 // instructions of its task (row_task); stops on the budget, on a status
 // change, or before the first declined instruction (ref.run_core).  `meta`
 // is the packed opcode table (NUM_OPS + 1 words).
+// The counting instance (OBS) also adds each retired instruction to its bin
+// in `hist` (NUM_BINS cells, zeroed by the caller): the opcode for tag 0
+// (clipped to NUM_OPS), NUM_OPS + tag for a literal, a call or a reserved
+// tag, NUM_OPS + 3 for an invalid pc.  The declined instruction it stops
+// before is not retired, and not binned.
+template <bool OBS = false>
 RX_HD void run_core(const Fields& f, const Dims& d, const Tabs& tb, const int32_t* meta,
-                    int64_t j, Row r, int32_t* n_exec, int32_t* bailed, int32_t* bail_op) {
+                    int64_t j, Row r, int32_t* n_exec, int32_t* bailed, int32_t* bail_op,
+                    int32_t* hist = nullptr) {
     const int64_t it = row_task(f, d, r);
     int32_t n = 0, op = -1;
     if (it >= 0) {
@@ -904,6 +914,8 @@ RX_HD void run_core(const Fields& f, const Dims& d, const Tabs& tb, const int32_
                 op = code;
                 break;
             }
+            if constexpr (OBS)
+                ++hist[!pc_ok ? NUM_OPS + 3 : (instr & 3) == 0 ? code : NUM_OPS + (instr & 3)];
             vm.step(p, pc_ok, instr, m);
             ++n;
         }

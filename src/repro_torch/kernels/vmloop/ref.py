@@ -176,7 +176,8 @@ def merge_core(S, core: CoreState):
 # --- the plain loop ------------------------------------------------------------
 
 def run_core(core: CoreState, tb: Tables, steps: int, cfg: VMConfig, isa: ISA | None = None,
-             rows: torch.Tensor | None = None, budget: torch.Tensor | None = None):
+             rows: torch.Tensor | None = None, budget: torch.Tensor | None = None,
+             obs: bool = False):
     """Per row, up to its budget of instructions of the node's current
     task, stopping on the budget, a status change, or *before* the first
     declined opcode.  Updates ``core`` in place and returns ``(core, n_exec,
@@ -186,13 +187,20 @@ def run_core(core: CoreState, tb: Tables, steps: int, cfg: VMConfig, isa: ISA | 
 
     Without ``rows`` row j is node j (R = N); with it, row j is node
     ``rows[j]`` (distinct; a row outside [0, N) runs nothing).  Row j runs
-    up to ``budget[j]`` instructions, or ``steps`` without a budget."""
+    up to ``budget[j]`` instructions, or ``steps`` without a budget.
+
+    ``obs=True`` is the counting instance's plain version, the reference's
+    ``make_run_core(obs=True)``: a fifth output ``op_hist`` (R, num_ops + 4)
+    int32 counts each row's retired instructions by bin
+    (``repro_torch.obs.metrics``); the declined instruction a row stops
+    before is not retired and not counted."""
     it = interp_for(cfg, isa)
-    if rows is None and budget is None:
-        n_exec, bailed, bail_op = it.vmloop(core, steps, sup=tb.sup)
-        return core, n_exec, bailed, bail_op
     N = core.pc.shape[0]
     dev = core.pc.device
+    hist = torch.zeros(N, it.num_ops + 4, dtype=torch.int32, device=dev) if obs else None
+    if rows is None and budget is None:
+        n_exec, bailed, bail_op = it.vmloop(core, steps, sup=tb.sup, hist=hist)
+        return (core, n_exec, bailed, bail_op) + ((hist,) if obs else ())
     if rows is None:
         rows = torch.arange(N, dtype=torch.int32, device=dev)
     ok = (rows >= 0) & (rows < N)
@@ -202,17 +210,19 @@ def run_core(core: CoreState, tb: Tables, steps: int, cfg: VMConfig, isa: ISA | 
     per_node = torch.zeros(N, dtype=torch.int32, device=dev)
     per_node[node[ok]] = (budget if budget is not None
                           else torch.full_like(rows, int(steps)))[ok]
-    n_exec, bailed, bail_op = it.vmloop(core, steps, active=active, budget=per_node, sup=tb.sup)
-    return (core, torch.where(ok, n_exec[node], 0), torch.where(ok, bailed[node], 0),
-            torch.where(ok, bail_op[node], -1))
+    n_exec, bailed, bail_op = it.vmloop(core, steps, active=active, budget=per_node, sup=tb.sup,
+                                        hist=hist)
+    out = (core, torch.where(ok, n_exec[node], 0), torch.where(ok, bailed[node], 0),
+           torch.where(ok, bail_op[node], -1))
+    if obs:
+        out += (torch.where(ok[:, None], hist[node], 0),)
+    return out
 
 
-def vmloop_ref(S, steps: int, cfg: VMConfig, isa: ISA | None = None):
+def vmloop_ref(S, steps: int, cfg: VMConfig, isa: ISA | None = None, obs: bool = False):
     """The plain version over a stacked state: ``run_core`` on its
-    CoreState.  Returns ``(S, n_exec, bailed, bail_op)``; ``S`` is updated
-    in place."""
+    CoreState.  Returns ``(S, n_exec, bailed, bail_op)``, and ``op_hist``
+    with ``obs=True``; ``S`` is updated in place."""
     core = core_of(S)
-    core, n_exec, bailed, bail_op = run_core(
-        core, device_tables(isa, S.pc.device), steps, cfg, isa
-    )
-    return merge_core(S, core), n_exec, bailed, bail_op
+    core, *out = run_core(core, device_tables(isa, S.pc.device), steps, cfg, isa, obs=obs)
+    return (merge_core(S, core), *out)

@@ -8,11 +8,15 @@ in registers (see the note at the top of ``vmloop.cu`` for the design,
 what was tried and dropped, and what bounds it).
 
 Build: ``LIBRARY`` (``kernels/nvcc.py``) compiles ``csrc/vmloop.cu`` with
-nvcc for sm_90a at first use and loads it with ``ctypes``.
+nvcc for sm_90a at first use and loads it with ``ctypes``.  It holds two
+instances of the kernel: the default one and the counting one
+(``obs=True``, the reference's ``vmloop_call(obs=True)``), which also
+returns each row's retirement histogram.
 
 No fallback hides the device: a CUDA tensor goes to the kernel, and a
 failed build or launch raises.  Only CPU tensors take the plain version
-(``ref.run_core``).  ``vmloop_call.launches`` counts kernel launches.
+(``ref.run_core``).  ``vmloop_call.launches`` counts kernel launches of
+either instance, ``vmloop_call.obs_launches`` those of the counting one.
 """
 
 from __future__ import annotations
@@ -45,16 +49,17 @@ _TABLES: dict = {}
 
 
 def _bind(lib) -> None:
-    fn = lib.vmloop_launch
-    fn.argtypes = [
+    head = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int32),
         ctypes.c_int32, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int32,
     ]
-    fn.restype = ctypes.c_int
+    lib.vmloop_launch.argtypes = head + [ctypes.c_void_p, ctypes.c_int32]
+    lib.vmloop_obs_launch.argtypes = head + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32]
+    for fn in (lib.vmloop_launch, lib.vmloop_obs_launch):
+        fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("vmloop", CSRC, "vmloop.cu", ("vmloop_core.h",), _bind)
@@ -133,7 +138,8 @@ def _dims(cfg: VMConfig):
 
 
 def vmloop_call(core: CoreState, steps: int, cfg: VMConfig, isa: ISA | None = None,
-                rows: torch.Tensor | None = None, budget: torch.Tensor | None = None):
+                rows: torch.Tensor | None = None, budget: torch.Tensor | None = None,
+                obs: bool = False):
     """Run claimed instructions over a stacked ``CoreState``, in place, and
     return ``(core, n_exec, bailed, bail_op)``, the last three (R,) int32
     (see ``ref.run_core``).
@@ -141,6 +147,10 @@ def vmloop_call(core: CoreState, steps: int, cfg: VMConfig, isa: ISA | None = No
     Without ``rows`` every node runs (R = N, row j is node j); with it, only
     nodes ``rows`` (distinct), in that order.  Row j runs up to
     ``budget[j]`` instructions, or ``steps`` without a budget.
+
+    ``obs=True`` launches the counting instance, which also returns
+    ``op_hist`` (R, num_ops + 4) int32: row j's retired instructions by bin
+    (``ref.run_core(obs=True)``).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
@@ -150,7 +160,8 @@ def vmloop_call(core: CoreState, steps: int, cfg: VMConfig, isa: ISA | None = No
     R = N if R < 0 else R
     _check_rows(budget, "budget", R, dev)
     if dev.type == "cpu":
-        return run_core(core, _tables(isa, dev)[0], steps, cfg, isa, rows=rows, budget=budget)
+        return run_core(core, _tables(isa, dev)[0], steps, cfg, isa, rows=rows, budget=budget,
+                        obs=obs)
     if dev.type != "cuda":
         raise ValueError(f"vmloop: unsupported device {dev}")
     lib = LIBRARY.load()
@@ -159,20 +170,27 @@ def vmloop_call(core: CoreState, steps: int, cfg: VMConfig, isa: ISA | None = No
     n_exec = torch.empty(R, dtype=torch.int32, device=dev)
     bailed = torch.empty(R, dtype=torch.int32, device=dev)
     bail_op = torch.empty(R, dtype=torch.int32, device=dev)
+    op_hist = torch.empty((R, NUM_OPS + 4), dtype=torch.int32, device=dev) if obs else None
+    out = (core, n_exec, bailed, bail_op) + ((op_hist,) if obs else ())
     if R == 0:
-        return core, n_exec, bailed, bail_op
+        return out
     fields = (ctypes.c_void_p * 24)(*[getattr(core, f).data_ptr() for f in CORE_FIELDS])
     tables = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in tb])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vmloop_launch(
-        fields, tables, meta.data_ptr(), _dims(cfg), N, int(steps),
-        None if rows is None else rows.data_ptr(),
-        None if budget is None else budget.data_ptr(), R,
-        n_exec.data_ptr(), bailed.data_ptr(), bail_op.data_ptr(), stream, block,
-    )
-    check_launch(err, "vmloop")
+    args = (fields, tables, meta.data_ptr(), _dims(cfg), N, int(steps),
+            None if rows is None else rows.data_ptr(),
+            None if budget is None else budget.data_ptr(), R,
+            n_exec.data_ptr(), bailed.data_ptr(), bail_op.data_ptr())
+    if obs:
+        err = lib.vmloop_obs_launch(*args, op_hist.data_ptr(), stream, block)
+        check_launch(err, "vmloop (counting instance)")
+        vmloop_call.obs_launches += 1
+    else:
+        err = lib.vmloop_launch(*args, stream, block)
+        check_launch(err, "vmloop")
     vmloop_call.launches += 1
-    return core, n_exec, bailed, bail_op
+    return out
 
 
 vmloop_call.launches = 0
+vmloop_call.obs_launches = 0

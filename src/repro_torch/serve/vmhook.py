@@ -39,9 +39,11 @@ class FleetServeMonitor:
         engine.generate(prompts)
         monitor.reports()      # -> per-node list of reported values
 
-    ``executor`` is ``"batched"`` or ``"cuda"`` (the vmloop kernel);
-    ``device=None`` runs on CUDA and raises when there is none.  ``mesh``
-    and ``obs`` are not in the port yet and raise when given.
+    ``executor`` is ``"batched"``, ``"cuda"`` (the vmloop kernel) or
+    ``"oracle"``; ``device=None`` runs on CUDA and raises when there is
+    none.  ``obs`` turns on the monitor fleet's telemetry (an
+    ``ObsConfig``, or ``True``), read by :meth:`metrics`.  ``mesh`` is not
+    in the port yet and raises when given.
     """
 
     STATS_CELLS = 3
@@ -59,13 +61,10 @@ class FleetServeMonitor:
     ):
         if mesh is not None:
             raise NotImplementedError("FleetServeMonitor(mesh=...): node sharding is not in "
-                                      "the PyTorch port yet (ROADMAP.md queue 1, item 12)")
-        if obs is not None:
-            raise NotImplementedError("FleetServeMonitor(obs=...): telemetry is not in the "
-                                      "PyTorch port yet (ROADMAP.md queue 1, item 8)")
+                                      "the PyTorch port yet (ROADMAP.md queue 1, item 10)")
         self.cfg = cfg or VMConfig()
         self.rounds_per_step = rounds_per_step
-        self.fleet = FleetVM(self.cfg, n=n, executor=executor, device=device)
+        self.fleet = FleetVM(self.cfg, n=n, executor=executor, device=device, obs=obs)
         self._frames = []
         for node in self.fleet.nodes:
             node.dios_add("stats", np.zeros(self.STATS_CELLS, np.int32))
@@ -92,8 +91,11 @@ class FleetServeMonitor:
 
     def trace_stats(self) -> dict:
         raise NotImplementedError("trace_stats: the trace executor is not in the PyTorch "
-                                  "port yet (ROADMAP.md queue 1, item 11)")
+                                  "port yet (ROADMAP.md queue 1, item 5)")
 
     def metrics(self):
-        raise NotImplementedError("metrics: fleet telemetry is not in the PyTorch port yet "
-                                  "(ROADMAP.md queue 1, item 8)")
+        """The monitor fleet's ``FleetMetrics``: the measuring jobs' own
+        retirement counters, mailbox pressure and round latency, so the
+        observer's cost is itself observable.  The same schema whether or
+        not ``obs`` was given."""
+        return self.fleet.metrics()

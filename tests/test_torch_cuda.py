@@ -11,7 +11,10 @@ the one-block kernel at one, and the two held against each other), with
 its state written in place or not, lut_sigmoid bitwise equal; vmloop
 also over row lists and per-row budgets and at any block, and the
 fleet's hand-back of declined words
-byte-identical to ``executor="batched"``; a CUDA tensor never takes the
+byte-identical to ``executor="batched"``; vmloop's counting instance
+(``obs=True``) against its plain version, states and histograms, over the
+same inputs, and the fleet's ``executor="cuda"`` with obs against
+``executor="batched"`` with obs, bin for bin; a CUDA tensor never takes the
 plain version (each launch counter grows), and no kernel runs on inputs
 that require grad.  Needs an
 NVIDIA GPU with nvcc; every test here skips without one.
@@ -191,6 +194,89 @@ def test_fleet_handback_equals_batched(case, cuda):
     stats = fc.kernel_stats()
     assert stats["fallback_steps"] == declined * (n if text is not None else n - 1)
     assert stats["kernel_steps"] + stats["fallback_steps"] == stats["total_steps"]
+
+
+def _counting_vs_plain(S, cfg, steps, rows=None, budget=None):
+    """The counting instance against its plain version: states, n_exec /
+    bailed / bail_op and op_hist equal, one launch of the counting
+    instance."""
+    P = vms.clone(S)
+    launches, obs = kmod.vmloop_call.launches, kmod.vmloop_call.obs_launches
+    _, *k = kmod.vmloop_call(core_of(S), steps, cfg, rows=rows, budget=budget, obs=True)
+    _, *p = kmod.run_core(core_of(P), kmod._tables(None, S.pc.device)[0], steps, cfg,
+                          rows=rows, budget=budget, obs=True)
+    torch.cuda.synchronize()
+    assert kmod.vmloop_call.launches == launches + 1 and kmod.vmloop_call.obs_launches == obs + 1
+    for name, a, b in zip(("n_exec", "bailed", "bail_op", "op_hist"), k, p):
+        assert torch.equal(a, b), name
+    assert torch.equal(k[3].sum(dim=1), k[0])
+    assert check.max_abs_diff(S, P) == (0, [])
+    return k
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=["small", "default"])
+def test_counting_instance_matches_plain_version(cfg, cuda):
+    """The sweep (every word, FIOS, INT_MIN operands) and 512 random
+    nodes (invalid pcs and reserved tags included)."""
+    _counting_vs_plain(check.sweep_states(cfg, cuda)[1], cfg, cfg.steps_per_slice)
+    _counting_vs_plain(check.random_states(cfg, 512, 8, cuda), cfg, 64)
+
+
+@pytest.mark.parametrize("case", ["budget_only", "zero_budgets", "rows_skip_nodes",
+                                  "rows_ragged_budget", "rows_outside_fleet"])
+def test_counting_instance_rows_and_budget(case, cuda):
+    """Row lists with per-row budgets: each row's histogram comes back in
+    row order (rows outside the fleet read 0)."""
+    cfg = CFGS[0]
+    S = check.random_states(cfg, 203, 9, cuda)
+    rows, budget = _rows_cases(203, cfg.steps_per_slice, cuda)[case]
+    _counting_vs_plain(S, cfg, cfg.steps_per_slice, rows=rows, budget=budget)
+
+
+@pytest.mark.parametrize("block", [1, 3, 7, 32])
+def test_counting_instance_any_block(block, cuda, monkeypatch):
+    """Blocks of 1 to 32 nodes over 101 nodes: the last block is ragged, so
+    its copy-out covers fewer rows than threads."""
+    cfg = CFGS[1]
+    monkeypatch.setattr(kmod, "nodes_per_block", lambda rows, sms: block)
+    _counting_vs_plain(check.random_states(cfg, 101, 10, cuda), cfg, 64)
+
+
+@pytest.mark.parametrize("case", ["task_then_rnd", "ring"])
+def test_fleet_cuda_obs_equals_batched_obs(case, cuda):
+    """executor="cuda" with obs (the counting instance on every pass, the
+    hand-backs binned by the interpreter) against executor="batched" with
+    obs: every bin, the mailbox and deadline counters, and the states; the
+    counting instance ran."""
+    from repro_torch.obs import ObsConfig
+
+    cfg = CFGS[0]
+    n = 48
+    text, _ = HANDBACK[case]
+
+    def prog(i):
+        if text is not None:
+            return text
+        return (f"1 {1 % n} send receive swap . . halt" if i == 0
+                else f"receive swap . 1+ {(i + 1) % n} send 7 rnd drop halt")
+
+    out = {}
+    obs_launches = kmod.vmloop_call.obs_launches
+    for executor in ("cuda", "batched"):
+        fleet = FleetVM(cfg, n=n, executor=executor, device=cuda,
+                        obs=ObsConfig(trace=True, deadline_ms=1))
+        for i, node in enumerate(fleet.nodes):
+            node.launch(node.load(prog(i)))
+        res = fleet.run(max_rounds=300)
+        assert res.statuses == ["halt"] * n
+        out[executor] = (fleet.metrics().as_dict(), vms.stack_states([vm.state for vm in fleet.nodes]))
+    assert kmod.vmloop_call.obs_launches > obs_launches
+    (mc, Sc), (mb, Sb) = out["cuda"], out["batched"]
+    for key in ("op_retired", "instructions", "mbox_high", "mbox_drops", "io_susp",
+                "deadline_miss", "rounds_observed"):
+        assert mc["counters"][key] == mb["counters"][key], key
+    assert mc["counters"]["deopts"] == mc["pallas"]["bailed_node_rounds"] > 0
+    assert check.max_abs_diff(Sc, Sb) == (0, [])
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 2560, 640), (1, 6912, 2560), (64, 2560, 6912),

@@ -187,7 +187,8 @@ def test_vmloop_call_on_cpu_takes_the_plain_version(ref_states):
 
 def _build_host():
     """The header's CPU build (vmloop_host.cpp), bound: ``run(S, cfg,
-    steps, rows=None, budget=None) -> [n_exec, bailed, bail_op]``."""
+    steps, rows=None, budget=None, obs=False) -> [n_exec, bailed, bail_op]``
+    (and ``op_hist`` with ``obs=True``, the counting instance)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernel's op bodies for the CPU")
@@ -201,21 +202,26 @@ def _build_host():
         subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror",
                         "-o", str(tmp), str(src)], check=True, capture_output=True, text=True)
         tmp.replace(out)
-    fn = ctypes.CDLL(str(out)).vmloop_host
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p,
+    lib = ctypes.CDLL(str(out))
+    head = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32] + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    lib.vmloop_host.argtypes = head
+    lib.vmloop_host_obs.argtypes = head + [ctypes.c_void_p]
+    lib.vmloop_host.restype = lib.vmloop_host_obs.restype = ctypes.c_int
 
-    def run(S, cfg, steps, rows=None, budget=None):
+    def run(S, cfg, steps, rows=None, budget=None, obs=False):
         core = pref.core_of(S)
         tb, meta = kmod._tables(None, "cpu")
         n = S.pc.shape[0] if rows is None else rows.shape[0]
         outs = [torch.full((n,), 12345, dtype=torch.int32) for _ in range(3)]
+        if obs:
+            outs.append(torch.full((n, get_isa().num_ops + 4), 12345, dtype=torch.int32))
         fields = (ctypes.c_void_p * 24)(*[getattr(core, f).data_ptr() for f in pref.CORE_FIELDS])
         tabs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in tb])
         dims = kmod._dims(cfg)
         ptr = [None if x is None else x.data_ptr() for x in (rows, budget)]
+        fn = lib.vmloop_host_obs if obs else lib.vmloop_host
         assert fn(fields, tabs, meta.data_ptr(), dims, S.pc.shape[0], steps, *ptr, n,
                   *[o.data_ptr() for o in outs]) == 0
         return outs
@@ -255,12 +261,13 @@ def _rows_cases(n: int, steps: int, seed: int) -> dict:
     }
 
 
-def _host_vs_plain(run, A, cfg, steps, rows, budget):
+def _host_vs_plain(run, A, cfg, steps, rows, budget, obs=False):
     B = vms.clone(A)
     _, *plain = pref.run_core(pref.core_of(A), pref.device_tables(None, "cpu"), steps, cfg,
-                              rows=rows, budget=budget)
-    kern = run(B, cfg, steps, rows=rows, budget=budget)
-    for name, a, b in zip(("n_exec", "bailed", "bail_op"), plain, kern):
+                              rows=rows, budget=budget, obs=obs)
+    kern = run(B, cfg, steps, rows=rows, budget=budget, obs=obs)
+    assert len(plain) == len(kern) == (4 if obs else 3)
+    for name, a, b in zip(("n_exec", "bailed", "bail_op", "op_hist"), plain, kern):
         assert torch.equal(a, b), name
     assert check.max_abs_diff(A, B) == (0, [])
     return plain
@@ -310,6 +317,43 @@ def test_host_build_random_fleets_match_plain_version(seed, host_kernel):
     rows, budget = _rows_cases(67, STEPS, seed)["rows_shuffled_ragged_budget"]
     _host_vs_plain(host_kernel, check.random_states(CFG, 67, seed + 50, "cpu"), CFG, STEPS,
                    rows, budget)
+
+
+# ---------------------------------------------------------------------------
+# The counting instance's op bodies (run_core<true>), built with g++
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cfg", [CFG, VMConfig()], ids=["small", "default"])
+def test_host_build_of_counting_instance_matches_plain_version(cfg, host_kernel):
+    """The sweep (every word, FIOS, INT_MIN operands) and 256 random nodes:
+    states, n_exec/bailed/bail_op and each row's 103 bins equal the plain
+    version's; each row's bins total its n_exec."""
+    _, S = check.sweep_states(cfg, "cpu")
+    for A in (S, check.random_states(cfg, 256, cfg.cs_size + 7, "cpu")):
+        n, _, _, h = _host_vs_plain(host_kernel, A, cfg, cfg.steps_per_slice, None, None, obs=True)
+        assert torch.equal(h.sum(dim=1), n)
+
+
+@pytest.mark.parametrize("case", list(_rows_cases(8, 8, 0)))
+def test_host_build_counting_rows_and_budget_match_plain_version(case, host_kernel):
+    """The counting instance over row lists and per-row budgets: the
+    histograms come back in row order (a row outside the fleet reads 0)."""
+    for A in (check.sweep_states(CFG, "cpu")[1], check.random_states(CFG, 203, 6, "cpu")):
+        N = A.pc.shape[0]
+        rows, budget = _rows_cases(N, STEPS, N + 1)[case]
+        _host_vs_plain(host_kernel, A, CFG, STEPS, rows, budget, obs=True)
+
+
+def test_default_and_counting_instances_run_alike(host_kernel):
+    """The two instances leave the same state and the same n_exec, bailed
+    and bail_op on random fleets."""
+    for seed in (21, 22):
+        A = check.random_states(CFG, 67, seed, "cpu")
+        B = vms.clone(A)
+        a = host_kernel(A, CFG, STEPS)
+        b = host_kernel(B, CFG, STEPS, obs=True)
+        assert all(torch.equal(x, y) for x, y in zip(a, b[:3]))
+        assert check.max_abs_diff(A, B) == (0, [])
 
 
 def test_vmloop_call_checks_rows_and_budget():
