@@ -18,7 +18,10 @@ each printing its results on a line of its own:
      every field and on n_exec/bailed/bail_op, over every node and over a
      row list with per-row budgets; every claimed word must run in the
      kernel, task/rnd/FIOS must bail; the same for vmloop's counting
-     instance (obs=True), its per-row retirement histograms included;
+     instance (obs=True), its per-row retirement histograms included, and
+     for its checks-elided instance (elide_checks=True) over the sweep
+     programs the port's verifier admits (where it also equals the default
+     instance) and over random states, which mostly do not verify;
   4. the fleet's main path: FleetVM(VMConfig(), n=4096, executor="cuda"),
      every node running a small fixed-point ANN (vecfold + dotprod +
      sigmoid), then sending its result round a ring; every 16th node also
@@ -38,13 +41,21 @@ each printing its results on a line of its own:
      (4d) the ANN ring at 256 nodes under executor="oracle" (the
      plain-Python Oracle), byte for byte against "cuda", with each one's
      wall time; a 5-replica EnsembleVM on the card with one replica's
-     stack bit-flipped mid-run, which the vote must flag;
+     stack bit-flipped mid-run, which the vote must flag; (4e) the Auditor
+     on the main path: (a) the same ring without the spawners under
+     executor="auto" must plan ("cuda", elided), verify every node, predict
+     no declined word, launch only vmloop's checks-elided instance and end
+     byte for byte as executor="cuda" with the checks on, timed in turns
+     (cuda, auto, auto, cuda); (b) phase 4's own ring under "auto" must plan
+     ("batched", elided), end as phase 4's batched run, and predict the
+     declined words phase 4's cuda bail_hist met;
   5. vmloop's time per launch, its plain version's time, and its bound,
      on the fleet (n = 4096) and on the serve monitor's 64 nodes, with the
      longest node's instructions and the ns each took; at each point the
      counting instance is timed in turns with the default one and held
-     against its plain version (states and op_hist), and the serve monitor
-     runs three steps with obs on the counting instance;
+     against its plain version (states and op_hist), at n = 4096 the
+     checks-elided instance too, and the serve monitor runs three steps
+     with obs on the counting instance;
   6. fixmatmul bitwise against its plain version at danube's decode shapes
      (M = 1, 2, 4, 8, 16 on the streaming kernel, 17 and 64 on the tiled
      one), rwkv6's lm_head, ragged shapes, operands misaligned by a byte
@@ -134,9 +145,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def ann_program(i: int, n: int) -> str:
+def ann_program(i: int, n: int, spawners: bool = True) -> str:
+    """Node i of the n-node ANN ring; with ``spawners`` every 16th node also
+    spawns a task and draws ``rnd`` (words the kernel declines)."""
     extra = ""
-    if i % 16 == 0:
+    if spawners and i % 16 == 0:
         extra = ": worker 5 0 do i acc +! loop ; 0 0 $ worker task drop 100 rnd acc +! "
     return (
         "array x { 10 20 30 40 } "
@@ -251,6 +264,7 @@ def main() -> int:
               f"({int(n_k.sum())} instructions, {int(b_k.sum())} bails): byte-identical", flush=True)
         check_rows_budget(torch, kmod, check, cfg, dev)
         check_counting(torch, kmod, check, cfg, dev)
+        check_elided(torch, kmod, check, cfg, dev)
 
     # 4. the main path: the full-size fleet
     cfg = VMConfig()
@@ -262,20 +276,25 @@ def main() -> int:
     state_mb = vms.state_nbytes(init[0]) * n_nodes / 1e6
     print(f"fleet: {n_nodes} nodes, {state_mb:.1f} MB of state, set up in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    def run(executor: str, service_every: int, obs=None):
-        for vm, st in zip(nodes, init):
+    def run(executor: str, service_every: int, obs=None, ring=None):
+        """One FleetVM.run of phase 4's ring (or ``ring``, (nodes, initial
+        states)) from its initial states, split into start / rounds / sync
+        (and, under "auto", the Auditor's share of start)."""
+        ring_nodes, ring_init = ring or (nodes, init)
+        for vm, st in zip(ring_nodes, ring_init):
             vm.state = vms.clone(st)
             vm.out_stream.clear()
-        fleet = FleetVM(nodes=nodes, executor=executor, device=dev, obs=obs)
+        fleet = FleetVM(nodes=ring_nodes, executor=executor, device=dev, obs=obs)
         split = {}
-        for name in ("start", "sync"):
-            setattr(fleet, name, synchronized(torch, getattr(fleet, name), split, name + "_ms"))
+        for name in ("start", "sync") + (("_resolve_auto",) if executor == "auto" else ()):
+            setattr(fleet, name, synchronized(torch, getattr(fleet, name), split,
+                                              name.strip("_") + "_ms"))
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = fleet.run(max_rounds=200, service_every=service_every)
         dt = time.perf_counter() - t
         split["rounds_ms"] = 1e3 * dt - split["start_ms"] - split["sync_ms"]
-        final = vms.stack_states([vm.state for vm in nodes])
+        final = vms.stack_states([vm.state for vm in ring_nodes])
         return fleet, res, dt, final, split
 
     kmod.vmloop_call.launches = 0
@@ -420,11 +439,18 @@ def main() -> int:
     oracle_ring(torch, dev, check, VMConfig, REXAVM, FleetVM, vms)
     ensemble_vote(torch, dev, check, cfg, REXAVM, vms)
 
+    # 4e. the Auditor on the main path: (a) the ring without the spawners
+    # under executor="auto" on vmloop's checks-elided instance, against the
+    # checked cuda run, in turns; (b) phase 4's ring under "auto"
+    elided_launches = auditor_ring(kmod, check, cfg, dev, n_nodes, run, REXAVM, vms)
+    auditor_spawners(check, n_nodes, run, results)
+
     # 5. time per launch at n=4096, beside the plain version and the bound;
     # then at the serve monitor's 64 nodes, which launch it once a round.
     # Each point times the default instance and the counting one in turns.
-    fleet_t, fleet_obs = time_vmloop(torch, kmod, nodes, init, cfg, dev)
+    fleet_t, fleet_obs, fleet_elided = time_vmloop(torch, kmod, nodes, init, cfg, dev, elided=True)
     fleet_obs["launches"] = obs_launches
+    fleet_elided["launches"] = elided_launches
     from repro_torch.serve import FleetServeMonitor, ServeStats
 
     mon = FleetServeMonitor(n=MONITOR_NODES, executor="cuda", device=dev)
@@ -438,11 +464,12 @@ def main() -> int:
         "name": "vmloop", "route": "cuda",
         "source": "src/repro_torch/kernels/vmloop/csrc/vmloop.cu",
         "replaces": "src/repro/kernels/vmloop/vmloop.py:64",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + elided_launches, "max_abs_err": max_err,
         **{k: fleet_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "per_shape": {
             f"n{n_nodes}": fleet_t, f"n{MONITOR_NODES}_monitor": mon_t,
-            f"n{n_nodes}_obs": fleet_obs, f"n{MONITOR_NODES}_obs": mon_obs},
+            f"n{n_nodes}_obs": fleet_obs, f"n{MONITOR_NODES}_obs": mon_obs,
+            f"n{n_nodes}_elided": fleet_elided},
     }]
     del nodes, init, results, S, fleet, mon
     torch.cuda.empty_cache()
@@ -579,6 +606,147 @@ def check_counting(torch, kmod, check, cfg, dev) -> None:
           f"342 rows with budgets ({binned} instructions binned): byte-identical", flush=True)
 
 
+def verified(prog: str, cfg) -> bool:
+    """Whether the port's static verifier admits ``prog`` from its launch
+    entry.  The verifier raises IndexError on a constant ``exec`` target
+    outside the code segment (the sweep's "99999 exec halt"), as the
+    reference's does: such a program is not admitted."""
+    from repro_torch.analysis import VERIFIED, analyze_source
+
+    try:
+        return analyze_source(prog, cfg).verdict == VERIFIED
+    except IndexError:
+        return False
+
+
+def check_elided(torch, kmod, check, cfg, dev) -> None:
+    """vmloop's checks-elided instance (elide_checks=True) against its plain
+    version on the card: the sweep programs the port's verifier admits
+    (where it must also equal the default instance), 1024 random nodes
+    (which mostly do not verify: stack pointers leave their stacks, every
+    index clamped) and a shuffled row list with per-row budgets; states and
+    n_exec/bailed/bail_op byte for byte."""
+    from repro_torch.core.vm import vmstate as vms
+    from repro_torch.kernels.vmloop.ref import core_of
+
+    pairs, S = check.sweep_states(cfg, dev)
+    keep = [i for i, (w, p) in enumerate(pairs) if w != "fios/trap" and verified(p, cfg)]
+    g = torch.Generator().manual_seed(cfg.cs_size + 4)
+    rows = torch.arange(0, 1024, 3)[torch.randperm(342, generator=g)].to(torch.int32).to(dev)
+    budget = torch.randint(0, 70, (342,), generator=g).to(torch.int32).to(dev)
+    R = check.random_states(cfg, 1024, seed=cfg.cs_size + 5, device=dev)
+    cases = [("verified sweep", vms.take_nodes(S, keep), None, None), ("random", R, None, None),
+             ("rows/budget", check.random_states(cfg, 1024, seed=cfg.cs_size + 6, device=dev), rows,
+              budget)]
+    steps = cfg.steps_per_slice
+    for name, A, r, b in cases:
+        P, D = vms.clone(A), vms.clone(A)
+        out_k = kmod.vmloop_call(core_of(A), steps, cfg, rows=r, budget=b, elide_checks=True)[1:]
+        out_p = kmod.run_core(core_of(P), kmod._tables(None, dev)[0], steps, cfg, rows=r,
+                              budget=b, elide_checks=True)[1:]
+        out_d = kmod.vmloop_call(core_of(D), steps, cfg, rows=r, budget=b)[1:]
+        torch.cuda.synchronize()
+        err, bad = check.max_abs_diff(A, P)
+        for label, a, c in zip(("n_exec", "bailed", "bail_op"), out_k, out_p):
+            if not torch.equal(a, c):
+                bad.append(label)
+                err = max(err, int((a.long() - c.long()).abs().max()))
+        if bad:
+            fail(f"checks-elided instance, {name} (cs_size={cfg.cs_size}): kernel != plain on "
+                 f"{bad}, max abs err {err}")
+        if name == "verified sweep" and (check.max_abs_diff(A, D)[1] or not all(
+                torch.equal(a, c) for a, c in zip(out_k, out_d))):
+            fail(f"checks-elided instance != default instance on the verified sweep "
+                 f"(cs_size={cfg.cs_size})")
+    left = int(((R.dsp < 0) | (R.dsp > cfg.ds_size)).any(dim=1).sum())
+    print(f"check cs_size={cfg.cs_size}: checks-elided instance on {len(keep)} verified sweep "
+          f"programs (equal to the default instance), 1024 random nodes ({left} of them left "
+          f"their data stack) and 342 rows with budgets: byte-identical", flush=True)
+
+
+def auditor_ring(kmod, check, cfg, dev, n_nodes, run, REXAVM, vms) -> int:
+    """Phase 4e (a): the ANN ring without the every-16th spawner under
+    executor="auto", in turns with executor="cuda" (checks on): cuda, auto,
+    auto, cuda.  The Auditor must verify every node, predict no declined
+    word and plan ("cuda", elided); each auto run must launch only the
+    checks-elided instance (its counter and the total move together, from
+    0 before the run) and end byte for byte as the first cuda run.
+    Returns the checks-elided launches of the two auto runs."""
+    nodes = [REXAVM(cfg, seed=1 + i, device=dev) for i in range(n_nodes)]
+    for i, vm in enumerate(nodes):
+        vm.launch(vm.load(ann_program(i, n_nodes, spawners=False)))
+    init = [vms.clone(vm.state) for vm in nodes]
+    turns: dict = {"cuda": [], "auto": []}
+    ref = None
+    elided_total = 0
+    for executor in ("cuda", "auto", "auto", "cuda"):
+        kmod.vmloop_call.launches = kmod.vmloop_call.elide_launches = 0
+        fleet, res, dt, final, split = run(executor, 1, ring=(nodes, init))
+        launches, elided = kmod.vmloop_call.launches, kmod.vmloop_call.elide_launches
+        if res.statuses != ["halt"] * n_nodes:
+            fail(f"4e {executor}: not every node halted: {sorted(set(res.statuses))}")
+        if ref is None:
+            ref = (res, final)
+        err, bad = check.max_abs_diff(final, ref[1])
+        if bad or res.outputs != ref[0].outputs or res.rounds != ref[0].rounds:
+            fail(f"4e {executor}: final states differ from the checked cuda run on {bad} "
+                 f"(max abs err {err})")
+        steps = int(res.steps.sum())
+        if executor == "cuda":
+            if elided or launches <= 0:
+                fail(f"4e cuda: {launches} launches, {elided} of the checks-elided instance")
+        else:
+            a = fleet.analysis_stats()
+            plan = (a["executor"], a["elide_checks"])
+            if (plan != ("cuda", True) or a["verdicts"]["verified"] != n_nodes
+                    or a["predicted_bail_words"] != []):
+                fail(f"4e auto: plan {plan}, verdicts {a['verdicts']}, predicted "
+                     f"{a['predicted_bail_words']}: expected ('cuda', True), all verified, none")
+            if fleet.kernel_stats()["bail_hist"] != {} or not 0 < elided == launches:
+                fail(f"4e auto: {launches} launches, {elided} of the checks-elided instance, "
+                     f"bail_hist {fleet.kernel_stats()['bail_hist']}")
+            elided_total += elided
+        turns[executor].append({"s": dt, "steps_per_s": steps / dt, "launches": launches,
+                                "elide_launches": elided, **split})
+    mean = {ex: {k: sum(t[k] for t in v) / len(v) for k in v[0]} for ex, v in turns.items()}
+    print(json.dumps({
+        "phase": "auditor", "ring": "no spawners", "nodes": n_nodes, "rounds": ref[0].rounds,
+        "steps": int(ref[0].steps.sum()), "plan": ["cuda", True], "verified": n_nodes,
+        "predicted_bail_words": [], "bail_hist": {},
+        **{f"{ex}_{k}": mean[ex][k] for ex in ("cuda", "auto")
+           for k in ("steps_per_s", "rounds_ms", "start_ms", "sync_ms")},
+        "auto_resolve_auto_ms": mean["auto"]["resolve_auto_ms"],
+        "elide_launches": elided_total, "turns": turns, "identical_to_checked_cuda": True,
+    }), flush=True)
+    return elided_total
+
+
+def auditor_spawners(check, n_nodes, run, results) -> None:
+    """Phase 4e (b): phase 4's ring (spawners included) under
+    executor="auto": the Auditor plans ("batched", elided) (declined words,
+    not single-path, every entry verified), the run ends as phase 4's
+    batched run, and the predicted declined words are the keys of phase
+    4's cuda bail_hist."""
+    fleet, res, dt, final, split = run("auto", 1)
+    a = fleet.analysis_stats()
+    plan = (a["executor"], a["elide_checks"])
+    _, rb, _, Sb, _ = results["batched", 1]
+    observed = sorted(results["cuda", 1][0].kernel_stats()["bail_hist"])
+    if plan != ("batched", True) or a["verdicts"]["verified"] != n_nodes:
+        fail(f"4e (b): plan {plan}, verdicts {a['verdicts']}: expected ('batched', True), all verified")
+    if a["predicted_bail_words"] != observed or observed != ["rnd", "task"]:
+        fail(f"4e (b): predicted {a['predicted_bail_words']}, phase 4's cuda met {observed}")
+    err, bad = check.max_abs_diff(final, Sb)
+    if bad or res.outputs != rb.outputs or res.rounds != rb.rounds:
+        fail(f"4e (b): auto != phase 4's batched run on {bad} (max abs err {err})")
+    steps = int(res.steps.sum())
+    print(json.dumps({
+        "phase": "auditor", "ring": "phase 4 (spawners)", "nodes": n_nodes, "plan": list(plan),
+        "predicted_bail_words": a["predicted_bail_words"], "observed_bail_words": observed,
+        "steps_per_s": steps / dt, **split, "identical_to_batched": True,
+    }), flush=True)
+
+
 def oracle_ring(torch, dev, check, VMConfig, REXAVM, FleetVM, vms) -> None:
     """Phase 4d (a): the ANN ring at ORACLE_NODES nodes under
     executor="oracle" (each node's slice through the plain-Python Oracle on
@@ -658,77 +826,88 @@ def monitor_obs(torch, kmod, dev, FleetServeMonitor, ServeStats, ObsConfig) -> i
     return launches
 
 
-def time_vmloop(torch, kmod, nodes, states, cfg, dev) -> tuple[dict, dict]:
+def time_vmloop(torch, kmod, nodes, states, cfg, dev, elided: bool = False) -> tuple:
     """One slice (cfg.steps_per_slice) of vmloop over the stacked ``states``
-    of ``nodes``, scheduled as the executor does, for the default instance
-    and the counting one (obs=True) in turns: ms per launch (CUDA events
-    around each of 20 launches after 2 warm-ups, the state restored and a
-    spin kernel queued before each, so the events time the device), each
-    plain version's ms, held equal (the counting instance's op_hist too),
+    of ``nodes``, scheduled as the executor does, for the default instance,
+    the counting one (obs=True) and, with ``elided``, the checks-elided one
+    (elide_checks=True), in turns: ms per launch (CUDA events around each of
+    20 launches after 2 warm-ups, the state restored and a spin kernel
+    queued before each, so the events time the device), each plain
+    version's ms, held equal (the counting instance's op_hist too; the
+    checks-elided instance on verified programs also equal to the default),
     and the bound: the cells the launch changed (each written once) plus
     each node's loaded code frame (its program and arrays, each read once)
     and, for the counting instance, its op_hist written once; or its
-    instructions at the INT32 rate."""
+    instructions at the INT32 rate.  Returns the records in the order
+    default, counting[, checks-elided]."""
     from repro_torch.core.vm import vmstate as vms
     from repro_torch.core.vm.interp import interp_for
     from repro_torch.kernels.vmloop import check
     from repro_torch.kernels.vmloop.ref import core_of, vmloop_ref
 
+    kwargs = {"default": {}, "counting": {"obs": True}, "checks-elided": {"elide_checks": True}}
+    # the default instance last in each turn: `work` keeps its state
+    order = ("counting",) + (("checks-elided",) if elided else ()) + ("default",)
     S0 = vms.to_device(vms.stack_states(states), dev)
     interp_for(cfg).schedule(S0)
     work = vms.clone(S0)
     core = core_of(work)
     reps = 20
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    total = {True: 0.0, False: 0.0}
+    total = dict.fromkeys(order, 0.0)
+    finals = {}
     for rep in range(reps + 2):                 # two warm-up launches
-        for obs in (True, False):               # the default instance last: `work` keeps its state
+        for inst in order:
             for a, b in zip(work, S0):
                 a.copy_(b)
             torch.cuda._sleep(SPIN_CYCLES // 100)   # the launch is queued before the events run
             start.record()
-            out = kmod.vmloop_call(core, cfg.steps_per_slice, cfg, obs=obs)
+            out = kmod.vmloop_call(core, cfg.steps_per_slice, cfg, **kwargs[inst])
             end.record()
             torch.cuda.synchronize()
             if rep >= 2:
-                total[obs] += start.elapsed_time(end)
-            if obs:
-                obs_work, obs_out = vms.clone(work), out[1:]
-            else:
-                n_exec = out[1]
+                total[inst] += start.elapsed_time(end)
+            finals[inst] = (work if inst == "default" else vms.clone(work), out[1:])
     n = len(nodes)
     changed = sum(int((a != b).sum()) for a, b in zip(work, S0))
     frame_cells = sum(sum(f.end - f.start for f in vm.frames.frames.values()) for vm in nodes)
+    n_exec = finals["default"][1][0]
     instrs = int(n_exec.sum())
     longest = int(n_exec.max())
     recs = []
-    for obs, final in ((False, work), (True, obs_work)):
+    for inst in ("default", "counting", "checks-elided")[:len(order)]:
+        final, outs = finals[inst]
         plain = vms.clone(S0)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        plain_out = vmloop_ref(plain, cfg.steps_per_slice, cfg, obs=obs)[1:]
+        plain_out = vmloop_ref(plain, cfg.steps_per_slice, cfg, **kwargs[inst])[1:]
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t)
         err, bad = check.max_abs_diff(final, plain)
-        if obs and not all(torch.equal(a, b) for a, b in zip(obs_out, plain_out)):
-            bad.append("n_exec/bailed/bail_op/op_hist")
+        if not all(torch.equal(a, b) for a, b in zip(outs, plain_out)):
+            bad.append("n_exec/bailed/bail_op" + ("/op_hist" if inst == "counting" else ""))
         if bad:
-            fail(f"timed launch (n={n}, obs={obs}) != plain version on {bad}")
-        nbytes = 4 * (changed + frame_cells + (n * (kmod.NUM_OPS + 4) if obs else 0))
-        ms = total[obs] / reps
+            fail(f"timed launch (n={n}, {inst} instance) != plain version on {bad}")
+        if inst == "checks-elided" and (check.max_abs_diff(final, work)[1] or not all(
+                torch.equal(a, b) for a, b in zip(outs, finals["default"][1]))):
+            fail(f"timed launch (n={n}): the checks-elided instance != the default one")
+        nbytes = 4 * (changed + frame_cells + (n * (kmod.NUM_OPS + 4) if inst == "counting" else 0))
+        ms = total[inst] / reps
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         t_ops = 1e3 * instrs / INT32_OPS_PER_S
-        print(f"vmloop timing n={n}{' counting instance' if obs else ''}: {ms:.4f} ms/launch, "
+        label = "" if inst == "default" else f" {inst} instance"
+        print(f"vmloop timing n={n}{label}: {ms:.4f} ms/launch, "
               f"plain {plain_ms:.2f} ms, {instrs} instructions, longest node {longest} "
               f"({1e6 * ms / longest:.1f} ns each), bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B)",
               flush=True)
-        recs.append({"nodes": n, "instance": "counting" if obs else "default", "ms": ms,
+        recs.append({"nodes": n, "instance": inst, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "instructions": instrs, "longest_node": longest,
                      "ns_per_instruction": 1e6 * ms / longest, "bytes": nbytes})
-    recs[1]["ms_over_default"] = recs[1]["ms"] / recs[0]["ms"]
-    return recs[0], recs[1]
+    for rec in recs[1:]:
+        rec["ms_over_default"] = rec["ms"] / recs[0]["ms"]
+    return tuple(recs)
 
 
 def danube_gemms():

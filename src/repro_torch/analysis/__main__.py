@@ -1,0 +1,8 @@
+"""``python -m repro_torch.analysis`` — alias for :mod:`repro_torch.analysis.cli`."""
+
+import sys
+
+from repro_torch.analysis.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,6 +28,13 @@ fleet engine also offers ``obs_schedule(S) -> found`` and
 ``obs_execute(S, steps, found) -> ExecAux``: the same slice split at the
 schedule/execute seam, counting every retired instruction in its bin
 (``repro_torch.obs.metrics``).
+
+The batched and cuda engines take ``elide_checks``: the checks-elided
+interpreter (``Interpreter(elide_checks=True)``) and vmloop instance, for
+fleets whose programs the static verifier admitted
+(``FleetVM(executor="auto")``).  Their counting engines stay checked, as
+the reference's: an elided fleet with obs counts through the checked
+interpreter and the kernel's counting instance.
 """
 
 from __future__ import annotations
@@ -54,9 +61,10 @@ class BatchedSliceExecutor:
 
     backend = "batched"
 
-    def __init__(self, cfg: VMConfig, isa: ISA | None = None):
+    def __init__(self, cfg: VMConfig, isa: ISA | None = None, elide_checks: bool = False):
         self.cfg = cfg
-        self.interp = interp_for(cfg, isa)
+        self.interp = interp_for(cfg, isa, elide_checks)
+        self._checked = interp_for(cfg, isa)
 
     def run_slice_batched(self, S, steps: int) -> torch.Tensor:
         return self.interp.run_slice(S, steps)
@@ -71,7 +79,7 @@ class BatchedSliceExecutor:
         from repro_torch.obs.metrics import make_counting_finish, zero_exec_aux
 
         iow0 = _iowait(S)
-        hist = make_counting_finish(self.interp)(S, steps, active=found)
+        hist = make_counting_finish(self._checked)(S, steps, active=found)
         return zero_exec_aux(self.interp.isa, S.pc.device)._replace(
             op_hist=hist.sum(0, dtype=I32), io_susp=(_iowait(S) - iow0).to(I32))
 
@@ -107,14 +115,20 @@ class CudaSliceExecutor:
 
     ``mark(layer)``, when given, is called after each layer: "schedule",
     "kernel" (each launch), "tail" (each interpreter step), "preempt".
+
+    ``elide_checks=True`` launches the kernel's checks-elided instance and
+    hands declined words to the checks-elided interpreter; the counting
+    path (``obs_execute``) stays checked.
     """
 
     backend = "cuda"
 
-    def __init__(self, cfg: VMConfig, isa: ISA | None = None):
+    def __init__(self, cfg: VMConfig, isa: ISA | None = None, elide_checks: bool = False):
         self.cfg = cfg
         self.isa = isa
-        self.interp = interp_for(cfg, isa)
+        self.elide_checks = elide_checks
+        self.interp = interp_for(cfg, isa, elide_checks)
+        self._checked = interp_for(cfg, isa)
 
     def _execute(self, S, steps: int, mark, node_hist=None):
         """Kernel passes and hand-backs, then preempt, on a scheduled state;
@@ -123,11 +137,13 @@ class CudaSliceExecutor:
         met)`` as ``run_slice_batched_aux``'s last three."""
         from repro_torch.kernels.vmloop.ops import fleet_vmloop
 
-        it = self.interp
         obs = node_hist is not None
+        elide = self.elide_checks and not obs
+        it = self._checked if obs else self.interp
         N, nops = S.pc.shape[0], it.num_ops
         dev = S.pc.device
-        S, n_exec, bailed, bail_op, *h = fleet_vmloop(S, steps, self.cfg, self.isa, obs=obs)
+        S, n_exec, bailed, bail_op, *h = fleet_vmloop(S, steps, self.cfg, self.isa, obs=obs,
+                                                      elide_checks=elide)
         if obs:
             node_hist += h[0]
         mark("kernel")
@@ -148,7 +164,7 @@ class CudaSliceExecutor:
             mark("tail")
             S, n_r, bailed, bail_op, *h = fleet_vmloop(
                 S, steps, self.cfg, self.isa,
-                rows=rows.to(I32), budget=steps - retired[rows], obs=obs,
+                rows=rows.to(I32), budget=steps - retired[rows], obs=obs, elide_checks=elide,
             )
             if obs:
                 node_hist.index_add_(0, rows, h[0])

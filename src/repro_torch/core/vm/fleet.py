@@ -8,7 +8,9 @@ A round is three layers, all updating that state in place:
      batched interpreter (``executor="batched"``), on the vmloop CUDA
      kernel, which hands each word it declines to the interpreter
      (``executor="cuda"``), or through the plain-Python Oracle on the host
-     (``executor="oracle"``);
+     (``executor="oracle"``); ``executor="auto"`` lets the Auditor
+     (``repro_torch.analysis``) pick batched or cuda at ``start()``, with
+     the stack checks elided where every program verified;
   2. the virtual clock: ``now += max(1, executed * us_per_instr // 1000)``;
   3. mailbox routing (``routing.build_router``): all sends in (node, task)
      order, then all receives;
@@ -68,6 +70,10 @@ EXECUTORS = ("batched", "cuda", "oracle")
 class FleetKernels:
     """Slice + routing + clock for one (VMConfig, ISA, executor).
 
+    ``elide_checks=True`` (batched and cuda only) runs the slice on the
+    checks-elided interpreter and vmloop instance: for fleets whose every
+    program the static verifier admitted (``FleetVM(executor="auto")``).
+
     ``round(S, steps)`` is one fleet round; ``round_aux`` also returns the
     kernel's per-node step counts (over all its launches of the slice),
     whether each node bailed, and per opcode the nodes that met it as a
@@ -75,13 +81,16 @@ class FleetKernels:
     ``CudaSliceExecutor.run_slice_batched_aux``'s); ``rounds_aux(S, steps,
     n)`` runs ``n`` whole rounds and sums those."""
 
-    def __init__(self, cfg: VMConfig, isa: ISA | None = None, executor: str = "batched"):
+    def __init__(self, cfg: VMConfig, isa: ISA | None = None, executor: str = "batched",
+                 elide_checks: bool = False):
         self.cfg = cfg
         self.isa = isa or get_isa()
+        if elide_checks and executor not in ("batched", "cuda"):
+            raise ValueError(f"executor {executor!r} has no checks-elided engine")
         if executor == "batched":
-            self.executor = BatchedSliceExecutor(cfg, isa)
+            self.executor = BatchedSliceExecutor(cfg, isa, elide_checks)
         elif executor == "cuda":
-            self.executor = CudaSliceExecutor(cfg, isa)
+            self.executor = CudaSliceExecutor(cfg, isa, elide_checks)
         elif executor == "oracle":
             self.executor = OracleFleetExecutor(cfg, isa)
         else:
@@ -205,6 +214,16 @@ class FleetVM:
     ``obs`` (None | bool | ``ObsConfig``) turns on the telemetry plane:
     each round is counted (``metrics()``), and traced and timed as the
     config says (``export_trace()``).
+
+    ``executor="auto"``: at every ``start()``/``push()`` the Auditor
+    verifies each node's loaded programs and plans the engine
+    (``analysis.plan_backend``, the reference's policy): ``"cuda"`` when the
+    kernel claims every reachable word, ``"batched"`` otherwise, each with
+    the stack checks elided when every entry verified, and the checked
+    batched engine when any program has a verifier error.  Until the first
+    ``start()`` it runs checked ``batched``.  A ``"trace"`` plan (single-path
+    programs with declined words) raises ``NotImplementedError``: the port
+    has no trace-JIT yet.  ``analysis_stats()`` reports the plan.
     """
 
     def __init__(
@@ -237,7 +256,14 @@ class FleetVM:
         if any(vm.isa is not isa for vm in self.nodes):
             raise ValueError("fleet nodes must share one ISA")
         self.n = len(self.nodes)
-        self.kernels = FleetKernels(self.cfg, isa if isa is not get_isa() else None, executor)
+        self.executor_requested = executor
+        self._auto = executor == "auto"
+        self._elide = False
+        self._analysis = None              # BackendPlan of the last start() (auto)
+        self._node_reports = None          # per-node ProgramReport
+        if self._auto:
+            executor = "batched"           # the safe start: checks on
+        self.kernels = self._make_kernels(executor, False)
         self.executor_kind = executor
         self._op_send = isa.opcode["send"]
         self._op_recv = isa.opcode["receive"]
@@ -417,10 +443,89 @@ class FleetVM:
 
         return export_chrome_trace(self._tracer or RoundTracer(enabled=False), path)
 
+    # -- static analysis (the Auditor) ---------------------------------------------
+
+    def _make_kernels(self, executor: str, elide_checks: bool) -> FleetKernels:
+        isa = self.nodes[0].isa
+        return FleetKernels(self.cfg, isa if isa is not get_isa() else None, executor,
+                            elide_checks)
+
+    def _analyze_nodes(self) -> list:
+        """The static verifier over every node's live task entries (on the
+        host, against the states about to be stacked)."""
+        from repro_torch.analysis.verifier import analyze_vm
+
+        return [analyze_vm(vm) for vm in self.nodes]
+
+    def _resolve_auto(self) -> None:
+        """executor="auto": verify, plan the engine, and swap the kernels
+        when the plan changes.
+
+        Runs at every start()/push(), exactly when compiles or incremental
+        code loads land, so the plan reflects the programs about to run.
+        Programs with verifier errors are not rejected here (the CLI is the
+        reject path): they run on the checked batched engine.  A plan the
+        port has no engine for raises."""
+        from repro_torch.analysis.feasibility import plan_backend, predict_branch_sets
+
+        reports = self._analyze_nodes()
+        branch_sets = []
+        for vm, rep in zip(self.nodes, reports):
+            sets = (predict_branch_sets(vm.state.cs.cpu().numpy(), rep.entries[0].pc, vm.isa)
+                    if rep.entries else ())
+            branch_sets.append(sets[0] if sets else None)
+        plan = plan_backend(reports, branch_sets)
+        self._node_reports = reports
+        self._analysis = plan
+        if plan.executor == "trace":
+            raise NotImplementedError(
+                "executor='auto' planned the trace-JIT engine (single-path programs with "
+                f"declined words {sorted(plan.bail_words)}); the trace-JIT is not in the "
+                "port yet: run these programs with executor='batched' or 'cuda'")
+        if (plan.executor, plan.elide_checks) != (self.executor_kind, self._elide):
+            self.kernels = self._make_kernels(plan.executor, plan.elide_checks)
+            self.executor_kind = plan.executor
+            self._elide = plan.elide_checks
+
+    def analysis_stats(self) -> dict:
+        """Auditor telemetry with the reference's keys.  Under
+        ``executor="auto"`` it reflects the plan of the last start()/push();
+        other executors analyze on the first call (on the host: it never
+        touches the device state).  ``executor`` is the port's engine name
+        (``"cuda"`` where the reference says ``"pallas"``)."""
+        from repro_torch.analysis.feasibility import bail_words
+
+        if self._node_reports is None:
+            self._node_reports = self._analyze_nodes()
+        reports = self._node_reports
+        plan = self._analysis
+        verdicts = {"verified": 0, "flagged": 0, "error": 0}
+        for r in reports:
+            verdicts[r.verdict] += 1
+        predicted = sorted(frozenset().union(*(bail_words(r) for r in reports))
+                           if reports else frozenset())
+        return {
+            "executor": self.executor_kind,
+            "requested": self.executor_requested,
+            "auto": self._auto,
+            "elide_checks": self._elide,
+            "verdicts": verdicts,
+            "predicted_bail_words": predicted,
+            "wcet": [r.wcet for r in reports],
+            "aot_branch_sets": (sum(1 for bs in plan.branch_sets if bs is not None)
+                                if plan else 0),
+            "reasons": list(plan.reasons) if plan else [],
+            "diagnostics": [str(d) for r in reports for d in r.diagnostics][:64],
+        }
+
     # -- state movement ------------------------------------------------------------
 
     def start(self) -> None:
-        """Stack the nodes' host states into the device-resident state."""
+        """Stack the nodes' host states into the device-resident state.
+        Under ``executor="auto"`` the Auditor runs first: verify the loaded
+        programs and resolve the engine."""
+        if self._auto:
+            self._resolve_auto()
         stacked = vms.stack_states([vm.state for vm in self.nodes])
         self._S = vms.to_device(stacked, self.device)
         self.h2d += 1
@@ -434,6 +539,10 @@ class FleetVM:
             vm.state = vms.unstack(host, i)
         self.d2h += 1
         self.d2h_bytes += vms.state_nbytes(host)
+
+    def push(self) -> None:
+        """Re-stack (possibly host-mutated) node states onto the device."""
+        self.start()
 
     # -- execution -------------------------------------------------------------------
 

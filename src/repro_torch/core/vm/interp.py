@@ -811,11 +811,24 @@ _K_LIT, _K_CALL, _K_TAGBAD, _K_PCBAD, _K_STACK, _K_BAIL, _K_IDLE = range(-7, 0)
 class Interpreter:
     """Batched schedule/vmloop/run_slice for one (VMConfig, ISA) pair over
     stacked states on any device.  Every entry point updates ``S`` in
-    place."""
+    place.
 
-    def __init__(self, cfg: VMConfig, isa: ISA | None = None):
+    ``elide_checks=True`` drops the per-step stack pre-check (the stack
+    effect tested before dispatch) and the literal push's overflow test, as
+    the reference's ``Interpreter(elide_checks=True)``.  It is sound only
+    for programs the static verifier (``repro_torch.analysis``) proved
+    EXC_STACK-free: every check inside a word's body (``pick`` bounds, the
+    call/ret return-stack checks, division by zero, address bounds) stays,
+    so a verified program runs byte for byte as with the checks.  On a
+    program that did not verify the stack pointers may leave their stacks;
+    every stack index is clamped into its row, so nothing raises or
+    touches another node, and the vmloop kernel's checks-elided instance
+    gives the same bytes (the reference's result there is undefined)."""
+
+    def __init__(self, cfg: VMConfig, isa: ISA | None = None, elide_checks: bool = False):
         self.cfg = cfg
         self.isa = isa or get_isa()
+        self.elide_checks = bool(elide_checks)
         self.num_ops = self.isa.num_ops
         B = _bodies(cfg, self.isa)
         self.bodies: list[Callable[[_Rows], None]] = []
@@ -876,13 +889,16 @@ class Interpreter:
         cfg = self.cfg
         pc_ok, tag, payload = self._fetch(S)
         code = torch.clamp(payload, 0, self.num_ops)
-        nd = self.needs(S.pc.device)[:, code.long()]
-        cur = S.cur.long()[:, None]
-        dsp = S.dsp.gather(1, cur)[:, 0]
-        fsp = S.fsp.gather(1, cur)[:, 0]
-        under = (dsp < nd[0]) | (fsp < nd[2])
-        over = (dsp - nd[0] + nd[1] > cfg.ds_size) | (fsp - nd[2] + nd[3] > cfg.fs_size)
-        key = torch.where(under | over, _K_STACK, code)
+        if self.elide_checks:
+            key = code
+        else:
+            nd = self.needs(S.pc.device)[:, code.long()]
+            cur = S.cur.long()[:, None]
+            dsp = S.dsp.gather(1, cur)[:, 0]
+            fsp = S.fsp.gather(1, cur)[:, 0]
+            under = (dsp < nd[0]) | (fsp < nd[2])
+            over = (dsp - nd[0] + nd[1] > cfg.ds_size) | (fsp - nd[2] + nd[3] > cfg.fs_size)
+            key = torch.where(under | over, _K_STACK, code)
         key = torch.where(tag == 1, _K_LIT, torch.where(tag == 2, _K_CALL,
                           torch.where(tag == 3, _K_TAGBAD, key)))
         key = torch.where(pc_ok, key, _K_PCBAD)
@@ -911,9 +927,12 @@ class Interpreter:
             return
         c.set_pc(c.pc() + 1)
         if key == _K_LIT:
-            over = c.get("dsp") >= self.cfg.ds_size
-            c.raise_exc(EXC_STACK, over)
-            c.dpush(payload[r], ~over)
+            if self.elide_checks:
+                c.dpush(payload[r])
+            else:
+                over = c.get("dsp") >= self.cfg.ds_size
+                c.raise_exc(EXC_STACK, over)
+                c.dpush(payload[r], ~over)
         elif key == _K_TAGBAD:
             c.raise_exc(EXC_TRAP)
         elif key == _K_STACK:
@@ -1049,13 +1068,15 @@ class Interpreter:
 
 
 @functools.lru_cache(maxsize=8)
-def _cached(cfg: VMConfig) -> Interpreter:
-    return Interpreter(cfg)
+def get_interpreter(cfg: VMConfig, elide_checks: bool = False) -> Interpreter:
+    """The shared interpreter of one VMConfig (default ISA), with or
+    without the stack checks."""
+    return Interpreter(cfg, elide_checks=elide_checks)
 
 
-def interp_for(cfg: VMConfig, isa: ISA | None = None) -> Interpreter:
+def interp_for(cfg: VMConfig, isa: ISA | None = None, elide_checks: bool = False) -> Interpreter:
     """Shared per-config interpreter for the default ISA, a fresh one for a
-    custom ISA."""
+    custom ISA; ``elide_checks`` as ``Interpreter``'s."""
     if isa is None or isa is get_isa():
-        return _cached(cfg)
-    return Interpreter(cfg, isa)
+        return get_interpreter(cfg, elide_checks)
+    return Interpreter(cfg, isa, elide_checks=elide_checks)

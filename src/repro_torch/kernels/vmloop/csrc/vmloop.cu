@@ -39,7 +39,7 @@
 // on the budget, a status change, or before the first declined opcode;
 // write n_exec / bailed / bail_op per row.
 //
-// Two instances of one loop (vmloop_core.h run_core<OBS>): the default one,
+// Instances of one loop (vmloop_core.h run_core<OBS, ELIDE>): the default one,
 // and the counting one (ref.run_core(obs=True), the reference's
 // make_run_core(obs=True)), which also writes each row's retirement
 // histogram, op_hist (n_rows, NUM_BINS) int32 in row order.  A row's 103
@@ -50,6 +50,16 @@
 // (scripts/vmloop_obs_sweep.py, PERF.md): the row counted in device memory
 // is 2-4% slower at 4096 nodes, a block-wide copy-out after a barrier 18%
 // slower at 64 (one node a block).
+//
+// A third instance, the checks-elided one (run_core<false, true>;
+// ref.run_core(elide_checks=True), the reference's
+// vmloop_call(elide_checks=True) at src/repro/kernels/vmloop/vmloop.py:72),
+// runs the programs the static verifier (repro_torch/analysis) proved
+// EXC_STACK-free: the literal push's overflow test and the stack-effect
+// pre-check before dispatch are compiled out, everything else is the
+// default loop.  It moves the same bytes as the default instance, so its
+// bound is the default's; what it saves is two compares and a branch on
+// each instruction's chain.
 #include <cuda_runtime.h>
 
 #include "vmloop_core.h"
@@ -87,13 +97,26 @@ vmloop_obs_kernel(Fields f, Dims d, Tabs tb, const int32_t* meta, int32_t n_node
     for (int32_t k = 0; k < NUM_BINS; ++k) out[k] = mine[k];
 }
 
-// The launch behind both C entries: unpacks the pointers, launches
+// The checks-elided instance: as vmloop_kernel, without the two stack
+// checks (see the note at the top).
+__global__ void __launch_bounds__(MAX_BLOCK)
+vmloop_elide_kernel(Fields f, Dims d, Tabs tb, const int32_t* meta, int32_t n_nodes,
+                    int32_t steps, const int32_t* rows, const int32_t* budget, int32_t n_rows,
+                    int32_t* n_exec, int32_t* bailed, int32_t* bail_op) {
+    const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (j >= n_rows) return;
+    run_core<false, true>(f, d, tb, meta, j, launch_row(rows, budget, n_nodes, steps, j, n_rows),
+                          n_exec, bailed, bail_op);
+}
+
+// The launch behind the C entries: unpacks the pointers, launches
 // grid(n_rows / block) x block threads on `stream` (the counting instance
-// when op_hist is not null) and returns cudaGetLastError().
+// when op_hist is not null, the checks-elided one when `elide`) and
+// returns cudaGetLastError().
 static int launch(void* const* fields, void* const* tables, const void* meta,
                   const int32_t* dims, int32_t n_nodes, int32_t steps, const void* rows,
                   const void* budget, int32_t n_rows, void* n_exec, void* bailed, void* bail_op,
-                  void* op_hist, void* stream, int32_t block) {
+                  void* op_hist, bool elide, void* stream, int32_t block) {
     if (block < 1 || block > MAX_BLOCK || n_rows < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     Fields f;
@@ -111,7 +134,10 @@ static int launch(void* const* fields, void* const* tables, const void* meta,
     int32_t* ne = static_cast<int32_t*>(n_exec);
     int32_t* bl = static_cast<int32_t*>(bailed);
     int32_t* bo = static_cast<int32_t*>(bail_op);
-    if (grid > 0 && op_hist == nullptr) {
+    if (grid > 0 && elide) {
+        vmloop_elide_kernel<<<grid, block, 0, s>>>(f, d, tb, m, n_nodes, steps, rw, bg, n_rows,
+                                                   ne, bl, bo);
+    } else if (grid > 0 && op_hist == nullptr) {
         vmloop_kernel<<<grid, block, 0, s>>>(f, d, tb, m, n_nodes, steps, rw, bg, n_rows, ne, bl,
                                              bo);
     } else if (grid > 0) {
@@ -134,7 +160,7 @@ extern "C" int vmloop_launch(void* const* fields, void* const* tables, const voi
                              const void* rows, const void* budget, int32_t n_rows, void* n_exec,
                              void* bailed, void* bail_op, void* stream, int32_t block) {
     return launch(fields, tables, meta, dims, n_nodes, steps, rows, budget, n_rows, n_exec,
-                  bailed, bail_op, nullptr, stream, block);
+                  bailed, bail_op, nullptr, false, stream, block);
 }
 
 // The counting instance: as vmloop_launch, and `op_hist` (n_rows, NUM_BINS)
@@ -146,5 +172,15 @@ extern "C" int vmloop_obs_launch(void* const* fields, void* const* tables, const
                                  void* stream, int32_t block) {
     if (op_hist == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return launch(fields, tables, meta, dims, n_nodes, steps, rows, budget, n_rows, n_exec,
-                  bailed, bail_op, op_hist, stream, block);
+                  bailed, bail_op, op_hist, false, stream, block);
+}
+
+// The checks-elided instance: arguments as vmloop_launch's.
+extern "C" int vmloop_elide_launch(void* const* fields, void* const* tables, const void* meta,
+                                   const int32_t* dims, int32_t n_nodes, int32_t steps,
+                                   const void* rows, const void* budget, int32_t n_rows,
+                                   void* n_exec, void* bailed, void* bail_op, void* stream,
+                                   int32_t block) {
+    return launch(fields, tables, meta, dims, n_nodes, steps, rows, budget, n_rows, n_exec,
+                  bailed, bail_op, nullptr, true, stream, block);
 }

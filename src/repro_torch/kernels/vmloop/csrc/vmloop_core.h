@@ -560,6 +560,7 @@ struct Vm {
     }
 
     RX_HD void exec_op(int32_t code);
+    template <bool ELIDE>
     RX_HD void step(int32_t p, bool pc_ok, int32_t instr, int32_t meta);
 };
 
@@ -809,6 +810,14 @@ RX_HD void Vm::exec_op(int32_t code) {
 
 // One instruction of the current task (interp.py _step_group + _finish),
 // the cell `instr` fetched at p = pc, with its opcode's packed `meta`.
+// ELIDE drops the two stack checks the static verifier proves dead
+// (interp.py Interpreter(elide_checks=True)): the literal push's overflow
+// test and the stack effect's pre-check before dispatch.  The call's
+// return-stack test and every check inside a word's body stay.  On a
+// program that did not verify, dsp/fsp may leave their stacks: every stack
+// index is clamped (push, pop1, popn, fpeek, ...), so the row stays in its
+// own cells.
+template <bool ELIDE>
 RX_HD void Vm::step(int32_t p, bool pc_ok, int32_t instr, int32_t meta) {
     int32_t tag = instr & 3;
     int32_t payload = instr >> 2;
@@ -825,10 +834,12 @@ RX_HD void Vm::step(int32_t p, bool pc_ok, int32_t instr, int32_t meta) {
     } else {
         pc = p + 1;
         if (tag == 1) {
-            if (dsp >= DS) raise(EXC_STACK);
+            if (!ELIDE && dsp >= DS) raise(EXC_STACK);
             else push(payload);
         } else if (tag == 3) {
             raise(EXC_TRAP);
+        } else if constexpr (ELIDE) {
+            exec_op(clampi(payload, 0, NUM_OPS));
         } else {
             int32_t din = meta_din(meta), dout = meta_dout(meta);
             int32_t fin = meta_fin(meta), fout = meta_fout(meta);
@@ -896,7 +907,10 @@ RX_HD int64_t row_task(const Fields& f, const Dims& d, Row r) {
 // (clipped to NUM_OPS), NUM_OPS + tag for a literal, a call or a reserved
 // tag, NUM_OPS + 3 for an invalid pc.  The declined instruction it stops
 // before is not retired, and not binned.
-template <bool OBS = false>
+// The checks-elided instance (ELIDE; ref.run_core(elide_checks=True), the
+// reference's make_run_core(elide_checks=True)) runs Vm::step<true>.  It is
+// built without OBS only, as in the reference.
+template <bool OBS = false, bool ELIDE = false>
 RX_HD void run_core(const Fields& f, const Dims& d, const Tabs& tb, const int32_t* meta,
                     int64_t j, Row r, int32_t* n_exec, int32_t* bailed, int32_t* bail_op,
                     int32_t* hist = nullptr) {
@@ -916,7 +930,7 @@ RX_HD void run_core(const Fields& f, const Dims& d, const Tabs& tb, const int32_
             }
             if constexpr (OBS)
                 ++hist[!pc_ok ? NUM_OPS + 3 : (instr & 3) == 0 ? code : NUM_OPS + (instr & 3)];
-            vm.step(p, pc_ok, instr, m);
+            vm.step<ELIDE>(p, pc_ok, instr, m);
             ++n;
         }
         vm.store(f, r.node, it);

@@ -175,9 +175,17 @@ def merge_core(S, core: CoreState):
 
 # --- the plain loop ------------------------------------------------------------
 
+def check_instance(obs: bool, elide_checks: bool) -> None:
+    """Raise for ``obs`` with ``elide_checks``: the counting instance runs
+    with the checks on, and the reference never builds that pair."""
+    if obs and elide_checks:
+        raise ValueError("vmloop: the counting instance runs with the checks on "
+                         "(obs=True with elide_checks=True is not an instance)")
+
+
 def run_core(core: CoreState, tb: Tables, steps: int, cfg: VMConfig, isa: ISA | None = None,
              rows: torch.Tensor | None = None, budget: torch.Tensor | None = None,
-             obs: bool = False):
+             obs: bool = False, elide_checks: bool = False):
     """Per row, up to its budget of instructions of the node's current
     task, stopping on the budget, a status change, or *before* the first
     declined opcode.  Updates ``core`` in place and returns ``(core, n_exec,
@@ -193,8 +201,15 @@ def run_core(core: CoreState, tb: Tables, steps: int, cfg: VMConfig, isa: ISA | 
     ``make_run_core(obs=True)``: a fifth output ``op_hist`` (R, num_ops + 4)
     int32 counts each row's retired instructions by bin
     (``repro_torch.obs.metrics``); the declined instruction a row stops
-    before is not retired and not counted."""
-    it = interp_for(cfg, isa)
+    before is not retired and not counted.
+
+    ``elide_checks=True`` is the checks-elided instance's plain version,
+    the reference's ``make_run_core(elide_checks=True)``: the interpreter's
+    ``vmloop`` with the stack pre-check and the literal push's overflow
+    test dropped (``Interpreter(elide_checks=True)``).  The reference never
+    builds it with ``obs``, and neither does the port."""
+    check_instance(obs, elide_checks)
+    it = interp_for(cfg, isa, elide_checks)
     N = core.pc.shape[0]
     dev = core.pc.device
     hist = torch.zeros(N, it.num_ops + 4, dtype=torch.int32, device=dev) if obs else None
@@ -219,10 +234,12 @@ def run_core(core: CoreState, tb: Tables, steps: int, cfg: VMConfig, isa: ISA | 
     return out
 
 
-def vmloop_ref(S, steps: int, cfg: VMConfig, isa: ISA | None = None, obs: bool = False):
+def vmloop_ref(S, steps: int, cfg: VMConfig, isa: ISA | None = None, obs: bool = False,
+               elide_checks: bool = False):
     """The plain version over a stacked state: ``run_core`` on its
     CoreState.  Returns ``(S, n_exec, bailed, bail_op)``, and ``op_hist``
     with ``obs=True``; ``S`` is updated in place."""
     core = core_of(S)
-    core, *out = run_core(core, device_tables(isa, S.pc.device), steps, cfg, isa, obs=obs)
+    core, *out = run_core(core, device_tables(isa, S.pc.device), steps, cfg, isa, obs=obs,
+                          elide_checks=elide_checks)
     return (merge_core(S, core), *out)

@@ -8,15 +8,18 @@ in registers (see the note at the top of ``vmloop.cu`` for the design,
 what was tried and dropped, and what bounds it).
 
 Build: ``LIBRARY`` (``kernels/nvcc.py``) compiles ``csrc/vmloop.cu`` with
-nvcc for sm_90a at first use and loads it with ``ctypes``.  It holds two
-instances of the kernel: the default one and the counting one
-(``obs=True``, the reference's ``vmloop_call(obs=True)``), which also
-returns each row's retirement histogram.
+nvcc for sm_90a at first use and loads it with ``ctypes``.  It holds three
+instances of the kernel: the default one, the counting one (``obs=True``,
+the reference's ``vmloop_call(obs=True)``), which also returns each row's
+retirement histogram, and the checks-elided one (``elide_checks=True``,
+the reference's ``vmloop_call(elide_checks=True)``), for programs the
+static verifier (``repro_torch.analysis``) admitted.
 
 No fallback hides the device: a CUDA tensor goes to the kernel, and a
 failed build or launch raises.  Only CPU tensors take the plain version
 (``ref.run_core``).  ``vmloop_call.launches`` counts kernel launches of
-either instance, ``vmloop_call.obs_launches`` those of the counting one.
+any instance, ``vmloop_call.obs_launches`` those of the counting one and
+``vmloop_call.elide_launches`` those of the checks-elided one.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from repro_torch.kernels.vmloop.ref import (
     CORE_FIELDS,
     CoreState,
     Tables,
+    check_instance,
     device_tables,
     make_tables,
     run_core,
@@ -58,7 +62,8 @@ def _bind(lib) -> None:
     ]
     lib.vmloop_launch.argtypes = head + [ctypes.c_void_p, ctypes.c_int32]
     lib.vmloop_obs_launch.argtypes = head + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32]
-    for fn in (lib.vmloop_launch, lib.vmloop_obs_launch):
+    lib.vmloop_elide_launch.argtypes = head + [ctypes.c_void_p, ctypes.c_int32]
+    for fn in (lib.vmloop_launch, lib.vmloop_obs_launch, lib.vmloop_elide_launch):
         fn.restype = ctypes.c_int
 
 
@@ -139,7 +144,7 @@ def _dims(cfg: VMConfig):
 
 def vmloop_call(core: CoreState, steps: int, cfg: VMConfig, isa: ISA | None = None,
                 rows: torch.Tensor | None = None, budget: torch.Tensor | None = None,
-                obs: bool = False):
+                obs: bool = False, elide_checks: bool = False):
     """Run claimed instructions over a stacked ``CoreState``, in place, and
     return ``(core, n_exec, bailed, bail_op)``, the last three (R,) int32
     (see ``ref.run_core``).
@@ -152,8 +157,14 @@ def vmloop_call(core: CoreState, steps: int, cfg: VMConfig, isa: ISA | None = No
     ``op_hist`` (R, num_ops + 4) int32: row j's retired instructions by bin
     (``ref.run_core(obs=True)``).
 
+    ``elide_checks=True`` launches the checks-elided instance
+    (``ref.run_core(elide_checks=True)``): only for programs the static
+    verifier admitted.  ``obs=True`` with it raises: the reference never
+    builds that pair.
+
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version."""
+    check_instance(obs, elide_checks)
     N = _check(core, cfg)
     dev = core.pc.device
     R = _check_rows(rows, "rows", None, dev)
@@ -161,7 +172,7 @@ def vmloop_call(core: CoreState, steps: int, cfg: VMConfig, isa: ISA | None = No
     _check_rows(budget, "budget", R, dev)
     if dev.type == "cpu":
         return run_core(core, _tables(isa, dev)[0], steps, cfg, isa, rows=rows, budget=budget,
-                        obs=obs)
+                        obs=obs, elide_checks=elide_checks)
     if dev.type != "cuda":
         raise ValueError(f"vmloop: unsupported device {dev}")
     lib = LIBRARY.load()
@@ -185,6 +196,10 @@ def vmloop_call(core: CoreState, steps: int, cfg: VMConfig, isa: ISA | None = No
         err = lib.vmloop_obs_launch(*args, op_hist.data_ptr(), stream, block)
         check_launch(err, "vmloop (counting instance)")
         vmloop_call.obs_launches += 1
+    elif elide_checks:
+        err = lib.vmloop_elide_launch(*args, stream, block)
+        check_launch(err, "vmloop (checks-elided instance)")
+        vmloop_call.elide_launches += 1
     else:
         err = lib.vmloop_launch(*args, stream, block)
         check_launch(err, "vmloop")
@@ -194,3 +209,4 @@ def vmloop_call(core: CoreState, steps: int, cfg: VMConfig, isa: ISA | None = No
 
 vmloop_call.launches = 0
 vmloop_call.obs_launches = 0
+vmloop_call.elide_launches = 0

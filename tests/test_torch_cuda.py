@@ -14,7 +14,10 @@ fleet's hand-back of declined words
 byte-identical to ``executor="batched"``; vmloop's counting instance
 (``obs=True``) against its plain version, states and histograms, over the
 same inputs, and the fleet's ``executor="cuda"`` with obs against
-``executor="batched"`` with obs, bin for bin; a CUDA tensor never takes the
+``executor="batched"`` with obs, bin for bin; vmloop's checks-elided
+instance (``elide_checks=True``) against its plain version, and a
+verified ``FleetVM(executor="auto")`` on it, byte-identical to the checked
+``executor="cuda"`` fleet; a CUDA tensor never takes the
 plain version (each launch counter grows), and no kernel runs on inputs
 that require grad.  Needs an
 NVIDIA GPU with nvcc; every test here skips without one.
@@ -277,6 +280,73 @@ def test_fleet_cuda_obs_equals_batched_obs(case, cuda):
         assert mc["counters"][key] == mb["counters"][key], key
     assert mc["counters"]["deopts"] == mc["pallas"]["bailed_node_rounds"] > 0
     assert check.max_abs_diff(Sc, Sb) == (0, [])
+
+
+def _elided_vs_plain(S, cfg, steps, rows=None, budget=None):
+    """The checks-elided instance against its plain version: states and
+    n_exec / bailed / bail_op equal, one launch of the elided instance."""
+    P = vms.clone(S)
+    launches, elided = kmod.vmloop_call.launches, kmod.vmloop_call.elide_launches
+    _, *k = kmod.vmloop_call(core_of(S), steps, cfg, rows=rows, budget=budget, elide_checks=True)
+    _, *p = kmod.run_core(core_of(P), kmod._tables(None, S.pc.device)[0], steps, cfg,
+                          rows=rows, budget=budget, elide_checks=True)
+    torch.cuda.synchronize()
+    assert kmod.vmloop_call.launches == launches + 1
+    assert kmod.vmloop_call.elide_launches == elided + 1
+    for name, a, b in zip(("n_exec", "bailed", "bail_op"), k, p):
+        assert torch.equal(a, b), name
+    assert check.max_abs_diff(S, P) == (0, [])
+
+
+@pytest.mark.parametrize("cfg", CFGS, ids=["small", "default"])
+def test_elided_instance_matches_plain_version(cfg, cuda):
+    """The sweep, 512 random nodes (mostly unverifiable: stack pointers
+    leave their stacks, every index clamped) and a row list with budgets."""
+    _elided_vs_plain(check.sweep_states(cfg, cuda)[1], cfg, cfg.steps_per_slice)
+    R = check.random_states(cfg, 512, 14, cuda)
+    _elided_vs_plain(R, cfg, 64)
+    assert bool(((R.dsp < 0) | (R.dsp > cfg.ds_size)).any())
+    rows, budget = _rows_cases(203, cfg.steps_per_slice, cuda)["rows_ragged_budget"]
+    _elided_vs_plain(check.random_states(cfg, 203, 15, cuda), cfg, cfg.steps_per_slice, rows, budget)
+
+
+def test_vmloop_call_refuses_obs_with_elided_checks(cuda):
+    core = core_of(check.random_states(CFGS[0], 4, 0, cuda))
+    launches = kmod.vmloop_call.launches
+    with pytest.raises(ValueError, match="elide_checks"):
+        kmod.vmloop_call(core, 64, CFGS[0], obs=True, elide_checks=True)
+    assert kmod.vmloop_call.launches == launches
+
+
+def test_auto_fleet_runs_the_elided_instance(cuda):
+    """A verified 64-node ring (no declined word) under executor="auto"
+    plans ("cuda", elided), launches only the elided instance, and ends
+    byte-identical to the checked executor="cuda" fleet."""
+    cfg = CFGS[0]
+    n = 64
+
+    def ring(i):
+        return (f"1 {1 % n} send receive swap . . halt" if i == 0
+                else f"receive swap . 1+ {(i + 1) % n} send halt")
+
+    out = {}
+    for executor in ("cuda", "auto"):
+        fleet = FleetVM(cfg, n=n, executor=executor, device=cuda)
+        for i, node in enumerate(fleet.nodes):
+            node.launch(node.load(ring(i)))
+        launches, elided = kmod.vmloop_call.launches, kmod.vmloop_call.elide_launches
+        res = fleet.run(max_rounds=300, service_every=4)
+        assert res.statuses == ["halt"] * n
+        ran = (kmod.vmloop_call.launches - launches, kmod.vmloop_call.elide_launches - elided)
+        out[executor] = (res, vms.stack_states([vm.state for vm in fleet.nodes]), fleet, ran)
+    (rc, Sc, _, ran_c), (ra, Sa, fa, ran_a) = out["cuda"], out["auto"]
+    a = fa.analysis_stats()
+    assert (a["executor"], a["elide_checks"], a["predicted_bail_words"]) == ("cuda", True, [])
+    assert ran_c[0] > 0 and ran_c[1] == 0
+    assert ran_a[0] == ran_a[1] > 0
+    assert ra.outputs == rc.outputs and ra.rounds == rc.rounds
+    assert check.max_abs_diff(Sa, Sc) == (0, [])
+    assert fa.kernel_stats()["bail_hist"] == {}
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 2560, 640), (1, 6912, 2560), (64, 2560, 6912),

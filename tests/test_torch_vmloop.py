@@ -187,8 +187,9 @@ def test_vmloop_call_on_cpu_takes_the_plain_version(ref_states):
 
 def _build_host():
     """The header's CPU build (vmloop_host.cpp), bound: ``run(S, cfg,
-    steps, rows=None, budget=None, obs=False) -> [n_exec, bailed, bail_op]``
-    (and ``op_hist`` with ``obs=True``, the counting instance)."""
+    steps, rows=None, budget=None, obs=False, elide=False) -> [n_exec,
+    bailed, bail_op]`` (and ``op_hist`` with ``obs=True``, the counting
+    instance; ``elide=True`` runs the checks-elided instance)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the kernel's op bodies for the CPU")
@@ -206,11 +207,12 @@ def _build_host():
     head = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p,
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32] + [ctypes.c_void_p] * 3
-    lib.vmloop_host.argtypes = head
+    lib.vmloop_host.argtypes = lib.vmloop_host_elide.argtypes = head
     lib.vmloop_host_obs.argtypes = head + [ctypes.c_void_p]
-    lib.vmloop_host.restype = lib.vmloop_host_obs.restype = ctypes.c_int
+    for fn in (lib.vmloop_host, lib.vmloop_host_obs, lib.vmloop_host_elide):
+        fn.restype = ctypes.c_int
 
-    def run(S, cfg, steps, rows=None, budget=None, obs=False):
+    def run(S, cfg, steps, rows=None, budget=None, obs=False, elide=False):
         core = pref.core_of(S)
         tb, meta = kmod._tables(None, "cpu")
         n = S.pc.shape[0] if rows is None else rows.shape[0]
@@ -221,7 +223,7 @@ def _build_host():
         tabs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in tb])
         dims = kmod._dims(cfg)
         ptr = [None if x is None else x.data_ptr() for x in (rows, budget)]
-        fn = lib.vmloop_host_obs if obs else lib.vmloop_host
+        fn = lib.vmloop_host_obs if obs else lib.vmloop_host_elide if elide else lib.vmloop_host
         assert fn(fields, tabs, meta.data_ptr(), dims, S.pc.shape[0], steps, *ptr, n,
                   *[o.data_ptr() for o in outs]) == 0
         return outs
