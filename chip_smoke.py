@@ -12,7 +12,8 @@ each printing its results on a line of its own:
      rwkv6_scan, lut_sigmoid) from the sources in the checkout, one nvcc
      per source (flash attention has two: bf16 on the tensor cores, f32 on
      the FP32 pipes), all started together, and print each one's ptxas
-     register and spill lines;
+     register and spill lines (rwkv6_scan's decode kernel on a line of its
+     own);
   3. hold vmloop against its plain PyTorch version on the card: the
      per-opcode sweep and a batch of random node states, byte for byte on
      every field and on n_exec/bailed/bail_op, over every node and over a
@@ -67,8 +68,12 @@ each printing its results on a line of its own:
      rwkv6_scan against its plain version in bf16 and f32 (chunks of 64,
      32, 16 and 1, S < 64, many chunks, a non-zero and an aliased state,
      head size 64, 36 and 16, a decay steep enough to clip, chained
-     halves), every call of two or more chunks on the two passes (state
-     pass, output pass) and of one chunk on the one-block kernel;
+     halves, one step at the decode shape, at H 3 and K 36), every call of
+     two or more chunks on the two passes (state pass, output pass), of
+     one step on the decode kernel (also held against its closed form and
+     the one-block kernel) and of one chunk of 1 < S <= 64 on the
+     one-block kernel; four decode steps in place on one B 8 x H 64 state,
+     back to back, against four plain steps;
      lut_sigmoid byte for byte (INT_MIN, INT_MAX, the saturation edge,
      every LUT knot and its neighbours, 2**24 random values, 1-D and 3-D);
   7. the serve path at full width: h2o-danube-1.8b (24 layers, bf16,
@@ -86,7 +91,7 @@ each printing its results on a line of its own:
      freed: prefill B 1, S 8192 (32 rwkv6_scan launches, all on the two
      passes) against the same forward through the plain chunked_wkv; the
      quantized engine with the 64-node monitor (32 rwkv6_scan and 1
-     fixmatmul launches per decode step, on the one-block kernel); the
+     fixmatmul launches per decode step, all 6,144 on the decode kernel); the
      SMOKE config's quantized engine on the card gives the CPU's tokens; a
      decode step's profile; (f) the lutact path:
      fixed_sigmoid over int32 activations of 1024 x 1024 and 8192 x 8192;
@@ -94,7 +99,8 @@ each printing its results on a line of its own:
      version's, one PyTorch library call's where there is one, and its
      bound; fixmatmul per decode shape, beside its tiled kernel's time;
      rwkv6_scan's two passes at the prefill shape in turns with its
-     one-block kernel, and each pass's device time.
+     one-block kernel, and each pass's device time; its decode kernel at
+     the decode shape in turns with the one-block kernel.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -225,6 +231,8 @@ def main() -> int:
         lib.load()
         print(f"build: {lib.name} {lib.seconds:.2f} s nvcc", flush=True)
         print(f"ptxas {lib.name}: " + " | ".join(lib.ptxas_lines()), flush=True)
+    print("ptxas rwkv6_decode_kernel: " + " | ".join(
+        ptxas_of(rwkv_mod.LIBRARY, "rwkv6_decode_kernel") or ["not in the report"]), flush=True)
     print(f"build: all {len(libs)} sources {time.perf_counter() - t0:.2f} s with loading",
           flush=True)
     # 3. kernel vs plain version on the card
@@ -506,6 +514,18 @@ def main() -> int:
 # ---------------------------------------------------------------------------
 # Phases 6-8: fixmatmul, flash attention and the danube serve path
 # ---------------------------------------------------------------------------
+
+def ptxas_of(lib, kernel: str) -> list:
+    """The ptxas report of each instance of ``kernel`` in ``lib``'s last
+    compile: its instance (f32 or bf16), frame and spill line, and
+    register line."""
+    lines, out = lib.ptxas_lines(), []
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln and kernel in ln:
+            out += ["bf16" if "bfloat16" in ln else "f32"] + [
+                x for x in lines[i + 1:i + 3] if "registers" in x or "stack frame" in x]
+    return out
+
 
 def cuda_ms(torch, fn, reps: int = 20, warmup: int = 2) -> float:
     """Mean ms per call of ``fn(i)`` over ``reps`` calls after ``warmup``,
@@ -1046,10 +1066,16 @@ def rwkv6_inputs(torch, B, H, S, K, dt, dev, g, decay="slow"):
     return r, k, v, logw, u, s0
 
 
+def rwkv6_rel(out, s1, ref, ref_s1) -> tuple:
+    """(out, state) max abs errors, each relative to max(1, max |ref|)."""
+    return (float((out.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max())),
+            float((s1 - ref_s1).abs().max()) / max(1.0, float(ref_s1.abs().max())))
+
+
 def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
     """Returns the largest absolute error of ``out`` in bf16, the main
     path's type.  Errors are held relative to max(1, max |plain|)."""
-    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    from repro_torch.kernels.rwkv6_scan.ref import decode_ref, rwkv6_scan_ref
 
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     cases = [  # (B, H, S, K, chunk, decay)
@@ -1057,7 +1083,9 @@ def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
         (2, 3, 192, 36, 64, "slow"),       # K 36: rows of no 16-byte multiple, plain loads
         (2, 8, 256, 64, 32, "slow"),       # L 32
         (2, 4, 128, 16, 16, "slow"),       # L 16, the SMOKE head size
-        (8, 64, 1, 64, 64, "slow"),        # L 1: the decode step's shape
+        (8, 64, 1, 64, 64, "slow"),        # S 1: the decode step's shape
+        (8, 64, 1, 64, 64, "fast"),
+        (1, 3, 1, 36, 64, "slow"),         # S 1 at a ragged head count and K 36
         (2, 4, 16, 16, 1, "slow"),         # L 1 over sixteen chunks
         (1, 4, 40, 64, 64, "slow"),        # S < 64: L = S
         (4, 4, 48, 16, 64, "slow"),
@@ -1066,15 +1094,26 @@ def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
     worst = {}
     for dt in (torch.bfloat16, torch.float32):
         tol = RWKV_TOL[str(dt).split(".")[1]]
-        errs, rels, two_pass = [], [], 0
+        errs, rels, two_pass, one_step = [], [], 0, 0
         for B, H, S, K, chunk, decay in cases:
             r, k, v, logw, u, s0 = rwkv6_inputs(torch, B, H, S, K, dt, dev, g, decay)
-            before = rwkv_mod.rwkv6_scan.chunked_launches
-            chunked = rwkv_mod.route(S, chunk) == "chunked"
+            before = (rwkv_mod.rwkv6_scan.chunked_launches, rwkv_mod.rwkv6_scan.decode_launches)
+            kernel = rwkv_mod.route(S, chunk)
+            chunked, decode = kernel == "chunked", kernel == "decode"
             out, s1 = rwkv_mod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk)
             ref, ref_s1 = rwkv6_scan_ref(r, k, v, logw, u, s0, chunk=chunk)
             s_in = s0.clone()
             out2, s2 = rwkv_mod.rwkv6_scan(r, k, v, logw, u, s_in, chunk=chunk, state_out=s_in)
+            after = (rwkv_mod.rwkv6_scan.chunked_launches, rwkv_mod.rwkv6_scan.decode_launches)
+            if decode:      # against its closed form and the one-block kernel
+                for name, (want, want_s1) in (
+                        ("decode_ref", decode_ref(r, k, v, logw, u, s0)),
+                        ("the one-block kernel", rwkv_mod.rwkv6_scan(r, k, v, logw, u, s0,
+                                                                     kernel="one_block"))):
+                    o_rel, st_rel = rwkv6_rel(out, s1, want, want_s1)
+                    if o_rel > tol or st_rel > RWKV_STATE_TOL:
+                        fail(f"rwkv6_scan {dt} {(B, H, S, K, decay)}: the decode kernel against "
+                             f"{name}: out {o_rel}, state {st_rel}")
             torch.cuda.synchronize()
             err = float((out.float() - ref).abs().max())
             s_err = float((s1 - ref_s1).abs().max())
@@ -1087,10 +1126,11 @@ def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
                      f"{RWKV_STATE_TOL})")
             if not (s2 is s_in and torch.equal(out2, out) and torch.equal(s_in, s1)):
                 fail(f"rwkv6_scan {dt} {(B, H, S, K, chunk)}: the state written in place differs")
-            if rwkv_mod.rwkv6_scan.chunked_launches != before + 2 * chunked:
-                fail(f"rwkv6_scan {dt} {(B, H, S, K, chunk)}: took the wrong route "
-                     f"(chunked_launches {before} -> {rwkv_mod.rwkv6_scan.chunked_launches})")
+            if after != (before[0] + 2 * chunked, before[1] + 2 * decode):
+                fail(f"rwkv6_scan {dt} {(B, H, S, K, chunk)}: took the wrong route (chunked, "
+                     f"decode launches {before} -> {after}, route {kernel})")
             two_pass += chunked
+            one_step += decode
             errs.append(err)
             rels.append((rel, s_rel))
         # chained halves: the state carried across two calls == one call
@@ -1106,14 +1146,43 @@ def check_rwkv6_scan(torch, rwkv_mod, dev) -> float:
         if c_err > tol * max(1.0, float(full.float().abs().max())) or \
                 c_s > RWKV_STATE_TOL * max(1.0, float(s_full.abs().max())):
             fail(f"rwkv6_scan {dt}: chained halves differ from the whole: out {c_err}, state {c_s}")
+        chain = decode_chain(torch, rwkv_mod, dt, dev, g)
+        if chain[0] > tol or chain[1] > RWKV_STATE_TOL:
+            fail(f"rwkv6_scan {dt}: four decode steps in place against four plain steps: out "
+                 f"{chain[0]}, state {chain[1]}")
         worst[dt] = max(errs)
-        print(f"check rwkv6_scan {dt}: {len(cases)} shapes ({two_pass} on the two passes) + "
-              f"chained halves, out max abs err "
+        print(f"check rwkv6_scan {dt}: {len(cases)} shapes ({two_pass} on the two passes, "
+              f"{one_step} on the decode kernel) + chained halves, out max abs err "
               f"{max(errs):.3g} (largest relative {max(x for x, _ in rels):.3g}, tolerance {tol}), "
               f"state relative {max(y for _, y in rels):.3g} (tolerance {RWKV_STATE_TOL}); "
-              f"chained: out {c_err:.3g}, state {c_s:.3g}; state written in place: equal",
-              flush=True)
+              f"chained: out {c_err:.3g}, state {c_s:.3g}; state written in place: equal; "
+              f"4 decode steps in place at B 8 H 64: out {chain[0]:.3g}, state {chain[1]:.3g} "
+              f"relative", flush=True)
     return worst[torch.bfloat16]
+
+
+def decode_chain(torch, rwkv_mod, dt, dev, g, steps: int = 4) -> tuple:
+    """``steps`` decode steps in place on one B 8 x H 64 x K 64 state, back
+    to back on the stream (each launch reads the state the one before it
+    writes), against as many plain steps: the largest relative errors of
+    any step's out and of the last state."""
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    ins = [rwkv6_inputs(torch, SERVE_BATCH, 64, 1, 64, dt, dev, g) for _ in range(steps)]
+    u, state = ins[0][4], ins[0][5]
+    ref_state = state.clone()
+    before = rwkv_mod.rwkv6_scan.decode_launches
+    outs = [rwkv_mod.rwkv6_scan(r, k, v, logw, u, state, state_out=state)[0]
+            for r, k, v, logw, _, _ in ins]
+    torch.cuda.synchronize()
+    if rwkv_mod.rwkv6_scan.decode_launches != before + steps:
+        fail(f"rwkv6_scan: {steps} decode steps in place launched the decode kernel "
+             f"{rwkv_mod.rwkv6_scan.decode_launches - before} times")
+    worst = 0.0
+    for out, (r, k, v, logw, _, _) in zip(outs, ins):
+        ref, ref_state = rwkv6_scan_ref(r, k, v, logw, u, ref_state)
+        worst = max(worst, rwkv6_rel(out, ref_state, ref, ref_state)[0])
+    return worst, rwkv6_rel(outs[-1], state, ref, ref_state)[1]
 
 
 def check_lut_sigmoid(torch, lut_mod, dev) -> None:
@@ -1390,19 +1459,29 @@ def serve_rwkv6(torch, dev, fix_mod, rwkv_mod, kmod):
     # plain version against itself with chunks of 32 calibrates how far
     # the logits may move; check_wkv_layers holds the kernel itself to one
     # bf16 step on every layer's real inputs.
+    scan = rwkv_mod.rwkv6_scan
+    scan.decode_launches = 0
     launches = {"prefill": prefill(torch, model, params, cfg, dev, rwkv_mod.rwkv6_scan,
                                    {"wkv": chunked_wkv}, {"chunk": 64},
                                    {"wkv": functools.partial(chunked_wkv, chunk=32)},
                                    counters=("launches", "chunked_launches"))}
+    if scan.decode_launches:
+        fail(f"{cfg.name} prefill: {scan.decode_launches} rwkv6_scan launches on the decode kernel")
     torch.cuda.empty_cache()
     check_wkv_layers(torch, model, params, cfg, dev)
     torch.cuda.empty_cache()
     qparams = quantize_params(params)
     del params
     torch.cuda.empty_cache()
+    scan.decode_launches = 0
     served = serve_engine(torch, model, qparams, cfg, dev, kmod,
                           {rwkv_mod.rwkv6_scan: cfg.num_layers, fix_mod.fixmatmul: 1})
     launches["serve"] = served["rwkv6_scan"]
+    if scan.decode_launches != launches["serve"]:
+        fail(f"{cfg.name} serve: {scan.decode_launches} of {launches['serve']} rwkv6_scan launches "
+             f"on the decode kernel")
+    print(f"serve: {cfg.name} rwkv6_scan {scan.decode_launches} of {launches['serve']} decode-step "
+          f"launches on the decode kernel, 0 of {launches['prefill']} prefill launches", flush=True)
     profile_decode(torch, model, qparams, cfg, dev)
     del qparams
     torch.cuda.empty_cache()
@@ -1659,11 +1738,11 @@ def time_flash(torch, flash_mod, dev) -> dict:
 def time_rwkv6_scan(torch, rwkv_mod, dev, launches: dict) -> dict:
     """ms per launch at the prefill's shape (B 1, S 8192) and the decode
     step's (B 8, S 1), bf16, H 64, K 64, each on the route the main path
-    takes there (the two passes, the one-block kernel); the kernels line
-    takes their mean weighted by the main path's launches of each.  At the
-    prefill shape the one-block kernel is timed in turns with the two
-    passes (two passes, one block, one block, two passes) and held to the
-    same outputs, and torch.profiler splits the two passes' device time.
+    takes there (the two passes, the decode kernel); the kernels line
+    takes their mean weighted by the main path's launches of each.  At
+    either shape the one-block kernel is timed in turns with the route
+    (route, one block, one block, route) and held to the same outputs; at
+    the prefill shape torch.profiler splits the two passes' device time.
     The decode shape's states rotate through copies past the L2 cache, as
     32 layers' states find it cold."""
     from repro_torch.config import get_arch
@@ -1685,25 +1764,20 @@ def time_rwkv6_scan(torch, rwkv_mod, dev, launches: dict) -> dict:
         def call(i, kern=kernel):
             return rwkv_mod.rwkv6_scan(r, k, v, logw, u, states[i % copies], kernel=kern)
 
-        extra = {"route": kernel}
+        runs = {kernel: [], "one_block": []}
+        for kern in (kernel, "one_block", "one_block", kernel):
+            runs[kern].append(cuda_ms(torch, functools.partial(call, kern=kern)))
+        ms, one_ms = (sum(runs[x]) / 2 for x in (kernel, "one_block"))
+        (out, s1), (one, one_s1) = call(0), call(0, "one_block")
+        torch.cuda.synchronize()
+        rel, s_rel = rwkv6_rel(out, s1, one, one_s1)
+        if rel > RWKV_TOL["bfloat16"] or s_rel > RWKV_STATE_TOL:
+            fail(f"rwkv6_scan at the {path} shape: {kernel} vs one block: out {rel}, state {s_rel}")
+        extra = {"route": kernel, "one_block_ms": one_ms, "runs_ms": runs, "speedup": one_ms / ms,
+                 f"{kernel}_vs_one_block": {"out": rel, "state": s_rel}}
         if kernel == "chunked":
-            runs = {"chunked": [], "one_block": []}
-            for kern in ("chunked", "one_block", "one_block", "chunked"):
-                runs[kern].append(cuda_ms(torch, functools.partial(call, kern=kern)))
-            ms, one_ms = (sum(runs[x]) / 2 for x in ("chunked", "one_block"))
-            (out, s1), (one, one_s1) = call(0), call(0, "one_block")
-            torch.cuda.synchronize()
-            rel = float((out.float() - one.float()).abs().max()) / max(1.0, float(one.float().abs().max()))
-            s_rel = float((s1 - one_s1).abs().max()) / max(1.0, float(one_s1.abs().max()))
-            if rel > RWKV_TOL["bfloat16"] or s_rel > RWKV_STATE_TOL:
-                fail(f"rwkv6_scan at the prefill shape: two passes vs one block: out {rel}, "
-                     f"state {s_rel}")
-            extra |= {"one_block_ms": one_ms, "runs_ms": runs, "speedup": one_ms / ms,
-                      "two_pass_vs_one_block": {"out": rel, "state": s_rel},
-                      **profile_passes(torch, call)}
-            del out, s1, one, one_s1
-        else:
-            ms = cuda_ms(torch, call)
+            extra |= profile_passes(torch, call)
+        del out, s1, one, one_s1
         plain = cuda_ms(torch, lambda i: rwkv6_scan_ref(r, k, v, logw, u, states[i % copies]),
                         reps=3, warmup=1)
         n = B * H * S * K
@@ -1719,9 +1793,11 @@ def time_rwkv6_scan(torch, rwkv_mod, dev, launches: dict) -> dict:
         per[path] = {"B": B, "S": S, "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "bytes": nbytes, "exps": exps, "flops": flops, **extra}
-        turns = (f", one-block kernel in turns {extra['one_block_ms']:.5f} ms "
-                 f"({extra['speedup']:.2f}x), state pass {extra['state_pass_ms']} ms, output "
-                 f"pass {extra['output_pass_ms']} ms" if kernel == "chunked" else "")
+        turns = (f", one-block kernel in turns {one_ms:.5f} ms ({extra['speedup']:.2f}x; "
+                 f"{ms / one_ms:.3f} of it)" + (
+                     f", state pass {extra['state_pass_ms']} ms, output pass "
+                     f"{extra['output_pass_ms']} ms" if kernel == "chunked" else "") +
+                 f", {max(t_bytes, t_ops) / ms:.3f} of the bound's rate")
         print(f"rwkv6_scan timing B={B} H={H} S={S} K={K} L={L} bf16 ({kernel}): {ms:.5f} "
               f"ms/launch{turns}, plain {plain:.4f} ms, bound {max(t_bytes, t_ops):.6f} ms "
               f"({per[path]['bound_by']}: {nbytes / 1e6:.2f} MB = {t_bytes:.6f} ms, "

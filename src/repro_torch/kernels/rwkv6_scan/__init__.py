@@ -6,8 +6,10 @@ data-dependent decay).
                   -> plain version);
   ops.py        — ``wkv`` in the model's (B, S, D) layout;
   ref.py        — the plain version ``rwkv6_scan_ref``
-                  (``models.rwkv6.chunked_wkv``);
-  csrc/         — ``rwkv6_scan.cu``, the kernel.
+                  (``models.rwkv6.chunked_wkv``), and what each CUDA route
+                  computes in plain PyTorch (``decode_ref``, the two
+                  passes);
+  csrc/         — ``rwkv6_scan.cu``, the kernels.
 """
 
 from repro_torch.kernels.rwkv6_scan.ops import wkv

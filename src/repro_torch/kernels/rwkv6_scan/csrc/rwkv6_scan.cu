@@ -15,10 +15,43 @@
 //   S1     = S0 exp(total)[:, None] + (k exp(clip(total - cum_in, -60, 0)))^T @ v
 //
 // clipping exactly where the reference clips; `out` is rounded to r's type
-// once, at the end; every sum runs in f32.  Three kernels, two routes
+// once, at the end; every sum runs in f32.  Four kernels, three routes
 // (the wrapper's `route` picks):
 //
-// * One chunk (decode, S = 1, or S <= chunk): `rwkv6_scan_kernel`, one
+// * The decode step (S = 1): `rwkv6_decode_kernel`.  At L = 1 the formulas
+//   above reduce exactly (cum_ex = 0, total = cum_in = logw, clip(0) = 0):
+//
+//     out[j]  = sum_q r[q] S0[q,j] + (sum_q r[q] u[q] k[q]) v[j]
+//     S1[q,j] = S0[q,j] exp(logw[q]) + k[q] v[j]
+//
+//   Its bound is bytes: the two (K, K) f32 states of every (batch, head),
+//   16.8 of the 17.2 MB at B 8, H 64, K 64 (5.1 us at 3.35 TB/s).  Column
+//   j of S1 and out[j] need only column j of the state and the 64-long
+//   vectors, so the state's columns are split into tiles of DKC = 16, one
+//   tile a block of DWARPS = 2 warps (2,048 blocks of 64 threads at that
+//   shape, 63 registers a thread: one wave, ~16 blocks an SM).  A lane
+//   holds 4 columns of DRPT = 4 consecutive rows in registers, loaded as
+//   16-byte vectors; every load of its state cells and of its slice of r,
+//   k, logw, u and v is issued before the first use and there is no
+//   shared-memory copy of the state and no barrier before the stores, so
+//   each SM keeps its ~64 KB of state in flight at once.  exp(logw[q]) is
+//   taken once per row a lane holds; the new state is stored as soon as
+//   it is computed; out[j] and the bonus are summed over the lane's rows,
+//   then over the tile's rows by shuffles and one small shared-memory
+//   step across its two warps.  It is launched as a programmatic
+//   dependent: `griddepcontrol.wait` comes before the first load of any
+//   operand, because the previous launch on the stream may be the writer
+//   of this launch's state (the model's decode step updates each layer's
+//   cache in place, and the timing loops chain launches); only index
+//   arithmetic precedes it.  It does not trigger its own dependents early
+//   (`griddepcontrol.launch_dependents`): their blocks, placed while it
+//   runs, cost more than they saved.  DKC, DWARPS and both choices were
+//   timed against the other tiles and designs by
+//   `scripts/rwkv6_scan_sweep.py --part decode`.  Each lane reads exactly
+//   the state cells it writes, and no other lane reads them, so s1 may be
+//   s0.
+//
+// * One chunk of 1 < S <= chunk: `rwkv6_scan_kernel`, one
 //   block of 256 threads per (batch, head).  A loop over the chunks inside
 //   the block takes the place of the TPU's sequential grid axis; the state
 //   stays in shared memory, read once before the first chunk and written
@@ -778,6 +811,160 @@ int launch_chunked(const void* r, const void* k, const void* v, const void* logw
     return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The decode step: S = 1
+// ---------------------------------------------------------------------------
+
+constexpr int DKC = 16;                  // state columns a tile (a block)
+constexpr int DWARPS = 2;                // warps a tile
+constexpr int DCG = DKC / 4;             // lanes across a tile's columns, 4 columns each
+constexpr int DRW = 32 / DCG;            // row groups a warp
+constexpr int DRPT = MAXD / (DRW * DWARPS);   // consecutive state rows a lane holds
+static_assert(DKC % 4 == 0 && 32 % DCG == 0 && MAXD % (DRW * DWARPS) == 0 && DRPT >= 1,
+              "a decode tile must split into whole lanes and rows");
+
+// Block (column tile, h, b): columns [j0, j0 + 4) of rows [q0, q0 + DRPT)
+// in each lane, lane = column group + DCG * row group, so a warp's load of
+// one of its rows reads DRW runs of 4 * DCG contiguous floats.  `vec`: K is
+// a multiple of 4 and s0, s1 are 16-byte aligned (state rows as float4).
+template <typename T>
+__global__ void __launch_bounds__(32 * DWARPS)
+rwkv6_decode_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ logw, const float* __restrict__ u, const float* s0,
+                    T* __restrict__ out, float* s1, Strides sr, Strides sk, Strides sv,
+                    Strides sw, Strides so, int H, int K, bool vec) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int cg = lane % DCG, rg = warp * DRW + lane / DCG;
+    const int j0 = blockIdx.x * DKC + 4 * cg, q0 = rg * DRPT;
+    const int h = blockIdx.y, b = blockIdx.z;
+    const long long bh = static_cast<long long>(b) * H + h;
+    const float* sp = s0 + bh * K * K;
+    float* dp = s1 + bh * K * K;
+    const T* rp = r + b * sr.b + h * sr.h;
+    const T* kp = k + b * sk.b + h * sk.h;
+    const T* vp = v + b * sv.b + h * sv.h;
+    const float* wp = logw + b * sw.b + h * sw.h;
+    const float* up = u + h * K;
+
+    // The previous launch on the stream may have written s0: nothing is
+    // read before it is done.
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+    // every load first: the lane's state cells, then its slice of the vectors
+    float4 st[DRPT];
+#pragma unroll
+    for (int i = 0; i < DRPT; ++i) {
+        const int q = q0 + i;
+        if (vec) {
+            st[i] = (q < K && j0 < K) ? *reinterpret_cast<const float4*>(sp + q * K + j0)
+                                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else {
+            const float* row = sp + q * K + j0;
+            const bool in = q < K;
+            st[i] = make_float4(in && j0 < K ? row[0] : 0.0f, in && j0 + 1 < K ? row[1] : 0.0f,
+                                in && j0 + 2 < K ? row[2] : 0.0f, in && j0 + 3 < K ? row[3] : 0.0f);
+        }
+    }
+    float rr[DRPT], kk[DRPT], ww[DRPT], uu[DRPT], vv[4];
+#pragma unroll
+    for (int i = 0; i < DRPT; ++i) {
+        const int q = q0 + i;
+        const bool in = q < K;
+        rr[i] = in ? to_f(rp[q]) : 0.0f;
+        kk[i] = in ? to_f(kp[q]) : 0.0f;
+        ww[i] = in ? wp[q] : 0.0f;
+        uu[i] = in ? up[q] : 0.0f;
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) vv[x] = j0 + x < K ? to_f(vp[j0 + x]) : 0.0f;
+
+    // out and the bonus over the lane's rows; the new state, stored at once
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f}, bonus = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DRPT; ++i) {
+        const int q = q0 + i;
+        const float4 s = st[i];
+        acc[0] = fmaf(rr[i], s.x, acc[0]);
+        acc[1] = fmaf(rr[i], s.y, acc[1]);
+        acc[2] = fmaf(rr[i], s.z, acc[2]);
+        acc[3] = fmaf(rr[i], s.w, acc[3]);
+        bonus = fmaf(rr[i] * uu[i], kk[i], bonus);
+        const float d = expf(ww[i]);
+        const float4 n = make_float4(s.x * d + kk[i] * vv[0], s.y * d + kk[i] * vv[1],
+                                     s.z * d + kk[i] * vv[2], s.w * d + kk[i] * vv[3]);
+        if (q < K) {
+            float* row = dp + q * K + j0;
+            if (vec) {
+                if (j0 < K) *reinterpret_cast<float4*>(row) = n;
+            } else {
+                if (j0 < K) row[0] = n.x;
+                if (j0 + 1 < K) row[1] = n.y;
+                if (j0 + 2 < K) row[2] = n.z;
+                if (j0 + 3 < K) row[3] = n.w;
+            }
+        }
+    }
+    // over the warp's row groups (lanes cg, cg + DCG, ...), then its warps
+#pragma unroll
+    for (int o = DCG; o < 32; o <<= 1) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[x] += __shfl_xor_sync(0xffffffffu, acc[x], o);
+        bonus += __shfl_xor_sync(0xffffffffu, bonus, o);
+    }
+    if constexpr (DWARPS > 1) {
+        __shared__ float part[DWARPS][DKC + 1];
+        if (lane < DCG) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) part[warp][4 * cg + x] = acc[x];
+            if (cg == 0) part[warp][DKC] = bonus;
+        }
+        __syncthreads();
+        if (warp == 0 && lane < DCG) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) acc[x] = 0.0f;
+            bonus = 0.0f;
+            for (int w = 0; w < DWARPS; ++w) {
+#pragma unroll
+                for (int x = 0; x < 4; ++x) acc[x] += part[w][4 * cg + x];
+                bonus += part[w][DKC];
+            }
+        }
+    }
+    if (warp == 0 && lane < DCG) {
+        T* op = out + b * so.b + h * so.h;
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+            if (j0 + x < K) op[j0 + x] = from_f<T>(acc[x] + bonus * vv[x]);
+    }
+}
+
+template <typename T>
+int launch_decode(const void* r, const void* k, const void* v, const void* logw, const void* u,
+                  const void* s0, void* out, void* s1, const long long* strides, int B, int H,
+                  int K, cudaStream_t stream) {
+    const Strides sr{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]},
+        sv{strides[6], strides[7], strides[8]}, sw{strides[9], strides[10], strides[11]},
+        so{strides[12], strides[13], strides[14]};
+    const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(s0) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(s1) % 16 == 0;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>((K + DKC - 1) / DKC), static_cast<unsigned>(H),
+                       static_cast<unsigned>(B));
+    cfg.blockDim = dim3(32 * DWARPS);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return static_cast<int>(cudaLaunchKernelEx(
+        &cfg, rwkv6_decode_kernel<T>, static_cast<const T*>(r), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(logw), static_cast<const float*>(u),
+        static_cast<const float*>(s0), static_cast<T*>(out), static_cast<float*>(s1), sr, sk, sv,
+        sw, so, H, K, vec));
+}
+
 }  // namespace
 
 // Plain C interface for ctypes.  r, k, v (dtype 0 = f32, 1 = bf16) and
@@ -819,5 +1006,20 @@ extern "C" int rwkv6_scan_chunked_launch(const void* r, const void* k, const voi
     if (dtype == 1)
         return launch_chunked<__nv_bfloat16>(r, k, v, logw, u, s0, out, s1, scratch, strides, B,
                                              H, S, K, L, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The decode step.  Arguments as rwkv6_scan_launch's, with S = L = 1; the
+// kernel is launched as a programmatic dependent.  s1 may be s0.
+extern "C" int rwkv6_scan_decode_launch(const void* r, const void* k, const void* v,
+                                        const void* logw, const void* u, const void* s0,
+                                        void* out, void* s1, const long long* strides, int B,
+                                        int H, int S, int K, int L, int dtype, void* stream) {
+    if (K < 1 || K > 64 || S != 1 || L != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (B == 0 || H == 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (dtype == 0) return launch_decode<float>(r, k, v, logw, u, s0, out, s1, strides, B, H, K, st);
+    if (dtype == 1)
+        return launch_decode<__nv_bfloat16>(r, k, v, logw, u, s0, out, s1, strides, B, H, K, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

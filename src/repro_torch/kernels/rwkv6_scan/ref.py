@@ -2,11 +2,11 @@
 ``kernels/rwkv6_scan/ref.py``): ``models.rwkv6.chunked_wkv`` adapted to the
 kernel's (B, H, S, K) layout.  Its ``out`` is f32, as the reference's.
 
-Beside it, the two-pass decomposition that the CUDA prefill route
-computes, in plain PyTorch: ``chunk_states_ref`` (the state pass's
-recurrence: the state each chunk starts from) and ``chunk_outputs_ref``
-(the output pass: every chunk's output from its start state, all chunks
-at once)."""
+Beside it, what the CUDA routes compute, in plain PyTorch: the decode
+step's closed form, ``decode_ref``; the two-pass decomposition of the
+prefill, ``chunk_states_ref`` (the state pass's recurrence: the state
+each chunk starts from) and ``chunk_outputs_ref`` (the output pass: every
+chunk's output from its start state, all chunks at once)."""
 
 from __future__ import annotations
 
@@ -26,6 +26,24 @@ def rwkv6_scan_ref(r, k, v, logw, u, state0, *, chunk: int = CHUNK):
     out, s1 = chunked_wkv(flat(r), flat(k), flat(v), flat(logw), u.reshape(H * K), state0, K,
                           chunk=chunk)
     return out.reshape(B, S, H, K).movedim(2, 1), s1
+
+
+def decode_ref(r, k, v, logw, u, state0):
+    """One step (S = 1), where the chunk formulas reduce exactly (cum_ex =
+    0, total = cum_in = logw, clip(0) = 0):
+
+        out[j]  = sum_q r[q] S0[q, j] + (sum_q r[q] u[q] k[q]) v[j]
+        S1[q, j] = S0[q, j] exp(logw[q]) + k[q] v[j]
+
+    Inputs as ``rwkv6_scan_ref``'s with S = 1; returns (out (B, H, 1, K)
+    f32, S1)."""
+    if r.shape[2] != 1:
+        raise ValueError(f"decode_ref: one step, got {r.shape[2]}")
+    rf, kf, vf, w = (x[:, :, 0].to(torch.float32) for x in (r, k, v, logw))   # (B, H, K)
+    bonus = (rf * u.to(torch.float32)[None] * kf).sum(-1, keepdim=True)
+    out = torch.einsum("bhq,bhqj->bhj", rf, state0) + bonus * vf
+    s1 = state0 * torch.exp(w)[..., None] + kf[..., :, None] * vf[..., None, :]
+    return out[:, :, None], s1
 
 
 def _chunks(x, L):

@@ -5,17 +5,20 @@ Replace the TPU kernel ``rwkv6_scan`` of the JAX package
 source is ``csrc/rwkv6_scan.cu`` (see the note at its top for what bounds
 each kernel), built by ``LIBRARY`` (``kernels/nvcc.py``) with nvcc for
 sm_90a at first use and loaded with ``ctypes``.  ``route`` picks by the
-number of chunks:
+number of steps and chunks:
 
-  "one_block" — one chunk (the decode step): one block per (batch, head);
+  "decode"    — one step (S = 1, the decode step): tiles of the state's
+                columns, launched as a programmatic dependent;
+  "one_block" — one chunk of 1 < S <= chunk: one block per (batch, head);
   "chunked"   — two or more (the prefill): a state pass over tiles of the
                 state's rows that stores each chunk's start state in an
                 f32 scratch, then an output pass with one block per chunk.
 
 A CUDA tensor launches a kernel, and a failed build or launch raises;
 only CPU tensors take the plain version (``ref.rwkv6_scan_ref``).
-``rwkv6_scan.launches`` counts calls that launched (one a call, either
-route), ``rwkv6_scan.chunked_launches`` those that took the two passes.
+``rwkv6_scan.launches`` counts calls that launched (one a call, any
+route), ``rwkv6_scan.chunked_launches`` those that took the two passes
+and ``rwkv6_scan.decode_launches`` those that took the decode kernel.
 """
 
 from __future__ import annotations
@@ -32,11 +35,12 @@ from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 CSRC = Path(__file__).resolve().parent / "csrc"
 MAX_K = 64                       # head size and chunk length the kernel's shared memory holds
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("one_block", "chunked")
+ROUTES = ("decode", "one_block", "chunked")
 
 
 def _bind(lib) -> None:
-    for name, n_ptrs in (("rwkv6_scan_launch", 8), ("rwkv6_scan_chunked_launch", 9)):
+    for name, n_ptrs in (("rwkv6_scan_launch", 8), ("rwkv6_scan_chunked_launch", 9),
+                         ("rwkv6_scan_decode_launch", 8)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_longlong)] + [
             ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -47,8 +51,11 @@ LIBRARY = CudaLibrary("rwkv6_scan", CSRC, "rwkv6_scan.cu", (), _bind)
 
 
 def route(S: int, chunk: int = 64) -> str:
-    """The kernel a call of ``S`` steps takes: "chunked" when it holds two
-    or more chunks of L = min(chunk, S), else "one_block"."""
+    """The kernel a call of ``S`` steps takes: "decode" for one step,
+    "chunked" when it holds two or more chunks of L = min(chunk, S), else
+    "one_block"."""
+    if S == 1:
+        return "decode"
     return "chunked" if S >= 2 * min(chunk, S) else "one_block"
 
 
@@ -63,9 +70,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
     contiguous.  Returns (out (B, H, S, K) in r's dtype, the new state).
     The new state goes into ``state_out`` when it is given, which may be
     ``state0`` itself (in place).  CUDA tensors launch the kernel that
-    ``route`` picks, or ``kernel`` (one of ``ROUTES``) when it is given, so
-    that a test or a timing can hold the two against each other; they
-    raise on failure.  CPU tensors take the plain version."""
+    ``route`` picks, or ``kernel`` (one of ``ROUTES``; "decode" only at
+    S = 1) when it is given, so that a test or a timing can hold them
+    against each other; they raise on failure.  CPU tensors take the plain
+    version whatever ``kernel`` says."""
     B, H, S, K = r.shape
     if any(tuple(t.shape) != (B, H, S, K) for t in (k, v, logw)) or tuple(u.shape) != (H, K) \
             or tuple(state0.shape) != (B, H, K, K):
@@ -103,6 +111,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
                          f"got {K} and {L}")
     if state_out is not None and not state_out.is_contiguous():
         raise ValueError("rwkv6_scan: state_out must be contiguous")
+    kern = kernel or route(S, chunk)
+    if kern == "decode" and S != 1:
+        raise ValueError(f"rwkv6_scan: the decode kernel takes one step, got {S}")
     r, k, v, logw = (t if t.stride(-1) == 1 else t.contiguous() for t in (r, k, v, logw))
     u, state0 = u.contiguous(), state0.contiguous()
     lib = LIBRARY.load()
@@ -112,19 +123,22 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Te
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
             state0.data_ptr(), out.data_ptr(), s1.data_ptr())
     tail = (B, H, S, K, L, _DTYPE_CODE[r.dtype], torch.cuda.current_stream(dev).cuda_stream)
-    chunked = (kernel or route(S, chunk)) == "chunked"
-    if chunked:
+    if kern == "chunked":
         kp = -(-K // 4) * 4
         # the state each chunk starts from (134 MB at B 1, H 64, S 8192, K 64)
         scratch = torch.empty((B, H, S // L, kp, kp), dtype=torch.float32, device=dev)
         err = lib.rwkv6_scan_chunked_launch(*ptrs, scratch.data_ptr(), strides, *tail)
+    elif kern == "decode":
+        err = lib.rwkv6_scan_decode_launch(*ptrs, strides, *tail)
     else:
         err = lib.rwkv6_scan_launch(*ptrs, strides, *tail)
     check_launch(err, "rwkv6_scan")
     rwkv6_scan.launches += 1
-    rwkv6_scan.chunked_launches += chunked
+    rwkv6_scan.chunked_launches += kern == "chunked"
+    rwkv6_scan.decode_launches += kern == "decode"
     return out, s1
 
 
 rwkv6_scan.launches = 0
 rwkv6_scan.chunked_launches = 0
+rwkv6_scan.decode_launches = 0

@@ -6,9 +6,11 @@ M = 1..16 and shape, ragged, misaligned and at extreme codes, one launch
 a call; the tiled kernel above), flash attention within 1e-4 in f32 (the
 FP32 kernel) and 2e-2 in bf16 (the tensor-core kernel, one bf16 step of
 the output and of p), rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``)
-of the largest value on both routes (the two passes at two or more chunks,
-the one-block kernel at one, and the two held against each other), with
-its state written in place or not, lut_sigmoid bitwise equal; vmloop
+of the largest value on all three routes (the decode kernel at one step,
+also against its closed form and in an in-place chain, the one-block
+kernel at one chunk, the two passes at two or more, and the kernels held
+against each other), with its state written in place or not, lut_sigmoid
+bitwise equal; vmloop
 also over row lists and per-row budgets and at any block, and the
 fleet's hand-back of declined words
 byte-identical to ``executor="batched"``; vmloop's counting instance
@@ -37,7 +39,7 @@ from repro_torch.kernels.fixmatmul.ref import fixmatmul_ref
 from repro_torch.kernels.flashattn import flash_attention
 from repro_torch.kernels.flashattn.ref import flash_attention_ref
 from repro_torch.kernels.lutact.ref import lut_sigmoid_ref
-from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+from repro_torch.kernels.rwkv6_scan.ref import decode_ref, rwkv6_scan_ref
 from repro_torch.kernels.vmloop.ref import core_of, vmloop_ref
 
 fmod = importlib.import_module("repro_torch.kernels.fixmatmul.fixmatmul")
@@ -596,16 +598,19 @@ def _rwkv_close(out, s1, ref, ref_s1, out_tol):
 ])
 def test_rwkv6_scan_matches_plain_version(B, H, S, K, chunk, decay, dtype, out_tol, cuda):
     """Each call takes the kernel ``route`` picks (the two passes when it
-    holds two or more chunks, ``chunked_launches`` counting them), and
+    holds two or more chunks, ``chunked_launches`` counting them; the
+    decode kernel at one step, ``decode_launches`` counting it), and
     ``state_out=state0`` in place gives the fresh result bit for bit."""
     r, k, v, logw, u, s0 = _rwkv_inputs(B, H, S, K, dtype, cuda, B * S + K, decay)
     launches, chunked = rmod.rwkv6_scan.launches, rmod.rwkv6_scan.chunked_launches
+    decode = rmod.rwkv6_scan.decode_launches
     out, s1 = rmod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk)
     torch.cuda.synchronize()
     assert rmod.rwkv6_scan.launches == launches + 1 and out.dtype == dtype
     two_pass = S >= 2 * min(chunk, S)
-    assert rmod.route(S, chunk) == ("chunked" if two_pass else "one_block")
+    assert rmod.route(S, chunk) == ("chunked" if two_pass else "decode" if S == 1 else "one_block")
     assert rmod.rwkv6_scan.chunked_launches == chunked + two_pass
+    assert rmod.rwkv6_scan.decode_launches == decode + (S == 1)
     ref, ref_s1 = rwkv6_scan_ref(r, k, v, logw, u, s0, chunk=chunk)
     _rwkv_close(out, s1, ref, ref_s1, out_tol)
     s_in = s0.clone()
@@ -630,12 +635,7 @@ def test_rwkv6_scan_two_passes_match_one_block(B, H, S, K, chunk, decay, view, d
     if view == "bshk":
         r, k, v, logw = (t.movedim(1, 2).contiguous().movedim(2, 1) for t in (r, k, v, logw))
     elif view == "shifted":
-        def shifted(t):
-            buf = t.new_empty(t.numel() + 1)
-            out = buf[1:].view(t.shape)
-            out.copy_(t)
-            return out
-        r, k, v, logw = (shifted(t) for t in (r, k, v, logw))
+        r, k, v, logw = (_shifted(t) for t in (r, k, v, logw))
     chunked = rmod.rwkv6_scan.chunked_launches
     out, s1 = rmod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk, kernel="chunked")
     one, one_s1 = rmod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk, kernel="one_block")
@@ -645,17 +645,89 @@ def test_rwkv6_scan_two_passes_match_one_block(B, H, S, K, chunk, decay, view, d
 
 
 def test_rwkv6_scan_route_sends_one_chunk_to_one_block(cuda):
-    """S / L = 1 (the decode step, a prompt shorter than a chunk) takes the
-    one-block kernel; two chunks or more take the two passes."""
-    for S, chunk in ((1, 64), (40, 64), (64, 64), (16, 16)):
-        assert rmod.route(S, chunk) == "one_block"
+    """S / L = 1 takes the decode kernel at one step (the decode step) and
+    the one-block kernel at 1 < S <= chunk (a prompt shorter than a
+    chunk); two chunks or more take the two passes."""
+    for S, chunk in ((1, 64), (40, 64), (64, 64), (16, 16), (1, 1)):
+        assert rmod.route(S, chunk) == ("decode" if S == 1 else "one_block")
         r, k, v, logw, u, s0 = _rwkv_inputs(2, 4, S, 16, torch.float32, cuda, S)
-        chunked = rmod.rwkv6_scan.chunked_launches
+        chunked, decode = rmod.rwkv6_scan.chunked_launches, rmod.rwkv6_scan.decode_launches
         rmod.rwkv6_scan(r, k, v, logw, u, s0, chunk=chunk)
         assert rmod.rwkv6_scan.chunked_launches == chunked
+        assert rmod.rwkv6_scan.decode_launches == decode + (S == 1)
     for S, chunk in ((128, 64), (32, 16), (2, 1)):
         assert rmod.route(S, chunk) == "chunked"
+    r, k, v, logw, u, s0 = _rwkv_inputs(2, 4, 16, 16, torch.float32, cuda, 3)
+    with pytest.raises(ValueError, match="one step"):
+        rmod.rwkv6_scan(r, k, v, logw, u, s0, kernel="decode")
     torch.cuda.synchronize()
+
+
+def _shifted(t):
+    """``t`` copied into a buffer one element past its start: contiguous,
+    no longer 16-byte aligned."""
+    buf = t.new_empty(t.numel() + 1)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype,out_tol", RWKV_TOL)
+@pytest.mark.parametrize("B,H,K,decay,view", [
+    (8, 64, 64, "slow", "dense"),       # the rwkv6-7b decode step
+    (1, 64, 64, "slow", "dense"),
+    (8, 3, 64, "slow", "dense"),        # a ragged head count
+    (1, 3, 36, "slow", "dense"),        # K 36: a ragged last tile
+    (8, 64, 16, "slow", "dense"),       # the SMOKE head size
+    (8, 64, 64, "fast", "dense"),       # decays down to -7.4
+    (2, 3, 36, "fast", "dense"),
+    (8, 64, 64, "slow", "bshk"),        # the model's (B, S, D) layout, viewed
+    (1, 3, 16, "slow", "bshk"),
+    (8, 3, 64, "slow", "shifted"),      # operands and state one element off 16 bytes
+    (1, 64, 36, "slow", "shifted"),
+    (2, 3, 30, "slow", "dense"),        # K no multiple of 4: scalar state rows
+])
+def test_rwkv6_scan_decode_matches_plain_version(B, H, K, decay, view, dtype, out_tol, cuda):
+    """One step takes the decode kernel; it agrees with the plain version,
+    with its closed form ``decode_ref`` and with the one-block kernel on
+    the same operands, and in place gives the fresh result bit for bit."""
+    r, k, v, logw, u, s0 = _rwkv_inputs(B, H, 1, K, dtype, cuda, 7 * B + H + K, decay)
+    if view == "bshk":
+        r, k, v, logw = (t.movedim(1, 2).contiguous().movedim(2, 1) for t in (r, k, v, logw))
+    elif view == "shifted":
+        r, k, v, logw, u, s0 = (_shifted(t) for t in (r, k, v, logw, u, s0))
+    launches, decode = rmod.rwkv6_scan.launches, rmod.rwkv6_scan.decode_launches
+    out, s1 = rmod.rwkv6_scan(r, k, v, logw, u, s0)
+    one, one_s1 = rmod.rwkv6_scan(r, k, v, logw, u, s0, kernel="one_block")
+    torch.cuda.synchronize()
+    assert (rmod.rwkv6_scan.launches, rmod.rwkv6_scan.decode_launches) == (launches + 2, decode + 1)
+    assert out.dtype == dtype and out.shape == (B, H, 1, K)
+    for want, want_s1 in (rwkv6_scan_ref(r, k, v, logw, u, s0), decode_ref(r, k, v, logw, u, s0),
+                          (one, one_s1)):
+        _rwkv_close(out, s1, want, want_s1, out_tol)
+    s_in = s0.clone()
+    out2, s2 = rmod.rwkv6_scan(r, k, v, logw, u, s_in, state_out=s_in)
+    torch.cuda.synchronize()
+    assert s2 is s_in and torch.equal(out2, out) and torch.equal(s_in, s1)
+
+
+@pytest.mark.parametrize("dtype,out_tol", RWKV_TOL)
+def test_rwkv6_scan_decode_in_place_chain(dtype, out_tol, cuda):
+    """Four decode steps in place on one state, back to back on one stream
+    (each launch reads the state the one before it writes), against four
+    plain steps."""
+    steps = [_rwkv_inputs(8, 64, 1, 64, dtype, cuda, 40 + i) for i in range(4)]
+    u, state = steps[0][4], steps[0][5]
+    ref_state = state.clone()
+    decode = rmod.rwkv6_scan.decode_launches
+    outs = [rmod.rwkv6_scan(r, k, v, logw, u, state, state_out=state)[0]
+            for r, k, v, logw, _, _ in steps]
+    torch.cuda.synchronize()
+    assert rmod.rwkv6_scan.decode_launches == decode + 4
+    for out, (r, k, v, logw, _, _) in zip(outs, steps):
+        ref, ref_state = rwkv6_scan_ref(r, k, v, logw, u, ref_state)
+        assert float((out.float() - ref).abs().max()) <= out_tol * max(1.0, float(ref.abs().max()))
+    _rwkv_close(outs[-1], state, ref, ref_state, out_tol)
 
 
 def test_lut_sigmoid_bitwise_equals_plain_version(cuda):

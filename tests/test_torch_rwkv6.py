@@ -1,8 +1,9 @@
 """The PyTorch port's rwkv6 family against the JAX package: the plain
 version of the rwkv6_scan kernel (``chunked_wkv`` behind the CPU wrapper)
-and the two-pass split of its CUDA prefill route (each chunk's start
-state, then every chunk's output from it) against the Pallas kernel in
-interpret mode, the kernels' ``route``, and the rwkv6-7b SMOKE model
+the closed form of its CUDA decode route (``decode_ref``) and the two-pass
+split of its CUDA prefill route (each chunk's start state, then every
+chunk's output from it) against the Pallas kernel in interpret mode, the
+kernels' ``route``, and the rwkv6-7b SMOKE model
 (2 layers, d 64, 4 heads of 16, f32) with the JAX weights carried across
 by ``params_from_jax``: forward, decode steps, the quantized ``lm_head``,
 the serve engine's greedy tokens and the CLI.
@@ -41,7 +42,8 @@ from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.models.quantized import quantize_params
 from repro_torch.models.rwkv6 import RWKVState, chunked_wkv
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_ref, wkv
-from repro_torch.kernels.rwkv6_scan.ref import chunk_states_ref, rwkv6_scan_two_pass_ref
+from repro_torch.kernels.rwkv6_scan.ref import (chunk_states_ref, decode_ref,
+                                                rwkv6_scan_two_pass_ref)
 from repro_torch.serve import ServeEngine
 from repro_torch.utils.tree import tree_flatten_with_names
 
@@ -132,14 +134,32 @@ def test_chunk_states_are_the_states_after_each_prefix():
                                **SCAN_TOL)
 
 
+@pytest.mark.parametrize("K", [16, 64])
+def test_decode_ref_matches_chunked_wkv_and_pallas(K):
+    """The decode route's closed form at S = 1 (out = r S0 + (r u k) v,
+    S1 = S0 exp(logw) + k^T v) gives chunked_wkv's result and the Pallas
+    kernel's (interpret mode)."""
+    ins = _scan_inputs(300 + K, 2, 3, 1, K)
+    (jr, jk, jv, jw, ju, js0), args = _both(ins)
+    jout, js1 = jrwkv6_scan(jr, jk, jv, jw, ju, js0, chunk=64, interpret=True)
+    out, s1 = decode_ref(*args)
+    ref, ref_s1 = rwkv6_scan_ref(*args)
+    assert out.shape == (2, 3, 1, K) and out.dtype == torch.float32
+    for got, want in ((out, np.asarray(jout)), (s1, np.asarray(js1)), (out, ref.numpy()),
+                      (s1, ref_s1.numpy())):
+        np.testing.assert_allclose(got.numpy(), want, **SCAN_TOL)
+
+
 @pytest.mark.parametrize("S,chunk,route", [
-    (1, 64, "one_block"), (40, 64, "one_block"), (64, 64, "one_block"), (1, 1, "one_block"),
+    (1, 64, "decode"), (40, 64, "one_block"), (64, 64, "one_block"), (1, 1, "decode"),
     (16, 16, "one_block"), (128, 64, "chunked"), (8192, 64, "chunked"), (32, 16, "chunked"),
-    (2, 1, "chunked"), (192, 64, "chunked"),
+    (2, 1, "chunked"), (192, 64, "chunked"), (1, 16, "decode"), (2, 64, "one_block"),
+    (63, 64, "one_block"),
 ])
 def test_route_takes_the_two_passes_from_two_chunks(S, chunk, route):
-    """One chunk of L = min(chunk, S) (the decode step) goes to the
-    one-block kernel, two or more (the prefill) to the two passes."""
+    """One step (the decode step) goes to the decode kernel, one chunk of
+    L = min(chunk, S) > 1 to the one-block kernel, two or more (the
+    prefill) to the two passes."""
     assert rmod.route(S, chunk) == route
 
 
@@ -149,6 +169,18 @@ def test_scan_rejects_an_unknown_kernel():
         rwkv6_scan(*args, kernel="two_pass")
     out, _ = rwkv6_scan(*args, kernel="chunked")      # the CPU takes the plain version either way
     assert torch.equal(out, rwkv6_scan(*args)[0])
+
+
+@pytest.mark.parametrize("S", [1, 64])
+def test_scan_accepts_the_decode_kernel_and_the_cpu_ignores_it(S):
+    """``kernel="decode"`` passes the validator; on the CPU the plain
+    version runs whatever the kernel and the number of steps."""
+    args = [torch.tensor(a) for a in _scan_inputs(13, 1, 2, S, 16)]
+    launches = (rwkv6_scan.launches, rwkv6_scan.decode_launches)
+    out, s1 = rwkv6_scan(*args, kernel="decode")
+    ref, ref_s1 = rwkv6_scan_ref(*args)
+    assert torch.equal(out, ref) and torch.equal(s1, ref_s1)
+    assert (rwkv6_scan.launches, rwkv6_scan.decode_launches) == launches
 
 
 def test_scan_state_chains():
