@@ -49,14 +49,30 @@ each printing its results on a line of its own:
      byte for byte as executor="cuda" with the checks on, timed in turns
      (cuda, auto, auto, cuda); (b) phase 4's own ring under "auto" must plan
      ("batched", elided), end as phase 4's batched run, and predict the
-     declined words phase 4's cuda bail_hist met;
+     declined words phase 4's cuda bail_hist met; (4f) the Executive at
+     full width: 4096 nodes of VMConfig() under ExecutiveConfig() (quantum
+     32, 8 micro-slices a round) with io_mode="vector", task 0 the ring
+     without spawners; before start() Executive.spawn (a deadline, so the
+     verifier's WCET bound admits it) adds a prio-1 sampler to every node
+     (a loop longer than a quantum, uart.write, 1 sleep), an fs.save task
+     to every 16th (a CheckpointManager in a temporary directory), and to
+     every 64th a second prio-1 task and a spawn whose deadline the WCET
+     bound rejects.  Held byte for byte: cuda against batched (states, out
+     streams, the UART stream, checkpoint ids, executive_stats), vector
+     against partial under cuda (per-node scalar callbacks with the same
+     effects), and executor="oracle" against cuda on a 256-node copy; at
+     least 8 vmloop launches a round.  Prints start / rounds / sync ms,
+     steps/s, the Executive's counters and the WCET admission's host ms,
+     the host IO service's ms, round 0 by layer (schedule_prio, each
+     launch, hand-back, preempt, route and warp) and the ring without the
+     Executive in turns;
   5. vmloop's time per launch, its plain version's time, and its bound,
      on the fleet (n = 4096) and on the serve monitor's 64 nodes, with the
      longest node's instructions and the ns each took; at each point the
      counting instance is timed in turns with the default one and held
      against its plain version (states and op_hist), at n = 4096 the
-     checks-elided instance too, and the serve monitor runs three steps
-     with obs on the counting instance;
+     checks-elided instance and the Executive's budget of 32 too, and the
+     serve monitor runs three steps with obs on the counting instance;
   6. fixmatmul bitwise against its plain version at danube's decode shapes
      (M = 1, 2, 4, 8, 16 on the streaming kernel, 17 and 64 on the tiled
      one), rwkv6's lm_head, ragged shapes, operands misaligned by a byte
@@ -144,6 +160,10 @@ SMOKE_TOL = 2e-2                # max |logit diff|, card vs CPU, SMOKE quantized
 OBS_DEADLINE_MS = 1             # phase 4c: a round of more than 100 instructions misses it
 ORACLE_NODES = 256              # phase 4d: the ANN ring under executor="oracle"
 ENSEMBLE = 5                    # phase 4d: replicas, one of them bit-flipped
+SAMPLER = "0 50 0 do 1+ loop uart.write 1 sleep"   # phase 4f: 108 instructions at most
+SECOND = "0 40 0 do 1+ loop uart.write"            # phase 4f: every 64th node, prio 1
+SAMPLER_DEADLINE_MS = 50        # phase 4f: feasible (the WCET bound is 2 virtual ms)
+REJECTED_DEADLINE_MS = 1        # phase 4f: infeasible
 
 
 def fail(msg: str) -> None:
@@ -294,15 +314,8 @@ def main() -> int:
             vm.out_stream.clear()
         fleet = FleetVM(nodes=ring_nodes, executor=executor, device=dev, obs=obs)
         split = {}
-        for name in ("start", "sync") + (("_resolve_auto",) if executor == "auto" else ()):
-            setattr(fleet, name, synchronized(torch, getattr(fleet, name), split,
-                                              name.strip("_") + "_ms"))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = fleet.run(max_rounds=200, service_every=service_every)
-        dt = time.perf_counter() - t
-        split["rounds_ms"] = 1e3 * dt - split["start_ms"] - split["sync_ms"]
-        final = vms.stack_states([vm.state for vm in ring_nodes])
+        names = ("start", "sync") + (("_resolve_auto",) if executor == "auto" else ())
+        res, dt, final = timed_run(torch, fleet, split, names, service_every=service_every)
         return fleet, res, dt, final, split
 
     kmod.vmloop_call.launches = 0
@@ -453,12 +466,18 @@ def main() -> int:
     elided_launches = auditor_ring(kmod, check, cfg, dev, n_nodes, run, REXAVM, vms)
     auditor_spawners(check, n_nodes, run, results)
 
+    # 4f. the Executive at full width: preemptive micro-slices over vmloop,
+    # the vectorized syscall plane and WCET admission
+    exec_launches = executive_phase(torch, kmod, check, cfg, dev, n_nodes, run)
+
     # 5. time per launch at n=4096, beside the plain version and the bound;
     # then at the serve monitor's 64 nodes, which launch it once a round.
     # Each point times the default instance and the counting one in turns.
-    fleet_t, fleet_obs, fleet_elided = time_vmloop(torch, kmod, nodes, init, cfg, dev, elided=True)
+    fleet_t, fleet_obs, fleet_elided, fleet_q = time_vmloop(torch, kmod, nodes, init, cfg, dev,
+                                                            elided=True, quantum=True)
     fleet_obs["launches"] = obs_launches
     fleet_elided["launches"] = elided_launches
+    fleet_q["launches"] = exec_launches
     from repro_torch.serve import FleetServeMonitor, ServeStats
 
     mon = FleetServeMonitor(n=MONITOR_NODES, executor="cuda", device=dev)
@@ -472,12 +491,12 @@ def main() -> int:
         "name": "vmloop", "route": "cuda",
         "source": "src/repro_torch/kernels/vmloop/csrc/vmloop.cu",
         "replaces": "src/repro/kernels/vmloop/vmloop.py:64",
-        "launches": launches + elided_launches, "max_abs_err": max_err,
+        "launches": launches + elided_launches + exec_launches, "max_abs_err": max_err,
         **{k: fleet_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "per_shape": {
             f"n{n_nodes}": fleet_t, f"n{MONITOR_NODES}_monitor": mon_t,
             f"n{n_nodes}_obs": fleet_obs, f"n{MONITOR_NODES}_obs": mon_obs,
-            f"n{n_nodes}_elided": fleet_elided},
+            f"n{n_nodes}_elided": fleet_elided, f"n{n_nodes}_budget32": fleet_q},
     }]
     del nodes, init, results, S, fleet, mon
     torch.cuda.empty_cache()
@@ -566,6 +585,23 @@ def synchronized(torch, fn, into: dict, key: str):
         into[key] = 1e3 * (time.perf_counter() - t)
         return out
     return call
+
+
+def timed_run(torch, fleet, split: dict, names=("start", "sync"), **kw):
+    """``fleet.run(max_rounds=200, **kw)`` with each of ``names`` (start and
+    sync at least) timed on the card into ``split`` and the rest of the run
+    as ``rounds_ms``; returns (result, seconds, final stacked state)."""
+    from repro_torch.core.vm import vmstate as vms
+
+    for name in names:
+        setattr(fleet, name, synchronized(torch, getattr(fleet, name), split,
+                                          name.strip("_") + "_ms"))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fleet.run(max_rounds=200, **kw)
+    dt = time.perf_counter() - t
+    split["rounds_ms"] = 1e3 * dt - split["start_ms"] - split["sync_ms"]
+    return res, dt, vms.stack_states([vm.state for vm in fleet.nodes])
 
 
 def check_rows_budget(torch, kmod, check, cfg, dev) -> None:
@@ -767,6 +803,230 @@ def auditor_spawners(check, n_nodes, run, results) -> None:
     }), flush=True)
 
 
+class ScalarTrio:
+    """Per-node scalar callbacks with the effects of the vectorized
+    uart.write and fs.save, for io_mode="partial" (which calls ``fn(*args)``
+    once a node): uart.write appends to the node's out stream and to
+    ``stream``; fs.save returns one id for each service invocation that
+    met it (the id the vectorized FSService pushes) and saves nothing."""
+
+    def __init__(self, nodes, fleet):
+        self.stream, self.fleet = [], fleet
+        self._id, self._seen = 0, None
+        for i, vm in enumerate(nodes):
+            vm.svc_add("uart.write", functools.partial(self.uart, i, vm), args=1, num=56)
+            vm.svc_add("fs.save", self.fs, args=1, ret=1, num=57)
+
+    def uart(self, i, vm, v):
+        vm.out_stream.append(v)
+        self.stream.append((i, v))
+
+    def fs(self, tag):
+        if self._seen != self.fleet.io_service.services:
+            self._seen = self.fleet.io_service.services
+            self._id += 1
+        return self._id
+
+
+def executive_setup(cfg, dev, n):
+    """Phase 4f's nodes: the ring without spawners as task 0, and the
+    sampler, fs.save and second programs compiled into each node (their
+    entries; no task launched).  Returns (nodes, initial states, entries)."""
+    import tempfile
+
+    from repro_torch.core.vm import REXAVM, vmstate as vms
+    from repro_torch.exec import install_services
+    from repro_torch.resilience import CheckpointManager
+
+    nodes = [REXAVM(cfg, seed=1 + i, device=dev) for i in range(n)]
+    with tempfile.TemporaryDirectory() as tmp:        # registers fs.save's name only
+        install_services(nodes, CheckpointManager(tmp))
+    entries = []
+    for i, vm in enumerate(nodes):
+        vm.launch(vm.load(ann_program(i, n, spawners=False)))
+        entries.append((vm.load(SAMPLER).entry, vm.load(f"{i} fs.save out").entry,
+                        vm.load(SECOND).entry))
+    return nodes, [vms.clone(vm.state) for vm in nodes], entries
+
+
+def executive_run(torch, cfg, dev, ring, executor, io_mode, tmp, start_only: bool = False):
+    """One FleetVM.run of phase 4f's fleet from its initial states: fresh
+    services (a CheckpointManager under ``tmp``), the spawns through
+    Executive.spawn (timed: the WCET admission), then start / rounds / sync
+    as phase 4's ``run``.  With ``start_only`` it returns the started fleet."""
+    from repro_torch.core.vm import FleetVM, vmstate as vms
+    from repro_torch.exec import Executive, ExecutiveConfig, install_services
+    from repro_torch.resilience import CheckpointManager
+
+    nodes, init, entries = ring
+    for vm, st in zip(nodes, init):
+        vm.state = vms.clone(st)
+        vm.out_stream.clear()
+    fleet = FleetVM(nodes=nodes, executor=executor, device=dev, executive=ExecutiveConfig(),
+                    io_mode=io_mode)
+    mgr = CheckpointManager(os.path.join(tmp, f"{executor}_{io_mode}"), keep=2)
+    svcs = install_services(nodes, mgr)
+    scalar = ScalarTrio(nodes, fleet) if io_mode == "partial" else None
+    ex = Executive(fleet)
+    t = time.perf_counter()
+    for i, (sampler, saver, second) in enumerate(entries):
+        ex.spawn(i, sampler, prio=1, deadline=SAMPLER_DEADLINE_MS)
+        if i % 16 == 0:
+            ex.spawn(i, saver)
+        if i % 64 == 0:
+            ex.spawn(i, second, prio=1)
+            ex.spawn(i, sampler, prio=1, deadline=REJECTED_DEADLINE_MS)
+    admit_ms = 1e3 * (time.perf_counter() - t)
+    if start_only:
+        fleet.start()
+        return fleet
+    split = {"admit_ms": admit_ms, "io_ms": 0.0, "io_calls": 0}
+    service, one = fleet._service_host_io, {}
+
+    def service_io(mask):                     # each call timed, summed into io_ms
+        out = synchronized(torch, service, one, "ms")(mask)
+        split["io_ms"] += one["ms"]
+        split["io_calls"] += 1
+        return out
+
+    fleet._service_host_io = service_io
+    res, dt, final = timed_run(torch, fleet, split)
+    uart = scalar.stream if scalar else svcs.uart.stream
+    return {"fleet": fleet, "res": res, "dt": dt, "final": final, "split": split, "uart": uart,
+            "outs": [list(vm.out_stream) for vm in nodes], "ckpt": mgr.latest_step()}
+
+
+def same_run(check, a, b) -> list:
+    """What differs between two phase 4f runs (states, out streams, the
+    UART stream, rounds, checkpoint ids)."""
+    err, bad = check.max_abs_diff(a["final"], b["final"])
+    for key in ("outs", "uart"):
+        if a[key] != b[key]:
+            bad.append(key)
+    if a["res"].rounds != b["res"].rounds:
+        bad.append("rounds")
+    return bad
+
+
+def exec_stats(run) -> dict:
+    e = run["fleet"].executive_stats()
+    e.pop("executor")
+    return e
+
+
+def executive_phase(torch, kmod, check, cfg, dev, n_nodes, run) -> int:
+    """Phase 4f: returns vmloop's launches in the first cuda run.  ``run``
+    is phase 4's, which times the baseline (the ring alone, no Executive)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    ring = executive_setup(cfg, dev, n_nodes)
+    setup_s = time.perf_counter() - t0
+    spawns = (n_nodes, len(range(0, n_nodes, 16)), len(range(0, n_nodes, 64)))
+    runs, turns = {}, {"executive": [], "baseline": []}
+    nodes, init, _ = ring
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = None
+        for turn in ("executive", "baseline", "baseline", "executive"):
+            if turn == "executive":
+                kmod.vmloop_call.launches = 0
+                er = executive_run(torch, cfg, dev, ring, "cuda", "vector", tmp)
+                if launches is None:
+                    launches, runs["cuda"] = kmod.vmloop_call.launches, er
+                elif same_run(check, er, runs["cuda"]) or exec_stats(er) != exec_stats(runs["cuda"]):
+                    fail("4f: the two cuda Executive runs differ")
+                steps = int(er["res"].steps.sum())
+                turns[turn].append({"s": er["dt"], "steps_per_s": steps / er["dt"],
+                                    "ms_per_round": 1e3 * er["dt"] / er["res"].rounds,
+                                    **er["split"]})
+                continue
+            _, res, dt, _, split = run("cuda", 1, ring=(nodes, init))
+            if res.statuses != ["halt"] * n_nodes:
+                fail(f"4f baseline: not every node halted: {sorted(set(res.statuses))}")
+            steps = int(res.steps.sum())
+            turns[turn].append({"s": dt, "steps_per_s": steps / dt, "rounds": res.rounds,
+                                "ms_per_round": 1e3 * dt / res.rounds, **split})
+        rc = runs["cuda"]
+        res = rc["res"]
+        if res.statuses != ["halt"] * n_nodes:
+            fail(f"4f: not every node halted: {sorted(set(res.statuses))}")
+        ec = exec_stats(rc)
+        if (ec["spawns_admitted"] != sum(spawns) or ec["spawns_rejected"] != spawns[2]
+                or ec["preemptions"] <= 0 or ec["svc_scalar_calls"] != 0):
+            fail(f"4f: executive_stats {ec}")
+        if len(rc["uart"]) != n_nodes + spawns[2] or rc["ckpt"] is None:
+            fail(f"4f: {len(rc['uart'])} UART writes, checkpoint {rc['ckpt']}")
+        if launches < 8 * res.rounds:
+            fail(f"4f: vmloop launched {launches} times over {res.rounds} rounds (< 8 a round)")
+        # (a) batched on the card
+        runs["batched"] = executive_run(torch, cfg, dev, ring, "batched", "vector", tmp)
+        bad = same_run(check, rc, runs["batched"])
+        if bad or exec_stats(runs["batched"]) != ec or runs["batched"]["ckpt"] != rc["ckpt"]:
+            fail(f"4f (a): cuda != batched on {bad}")
+        # (b) the per-node service under cuda
+        runs["partial"] = executive_run(torch, cfg, dev, ring, "cuda", "partial", tmp)
+        bad = same_run(check, rc, runs["partial"])
+        met = 2                                          # uart.write, fs.save
+        if bad or ec["svc_batches"] > rc["fleet"].io_service.services * met:
+            fail(f"4f (b): vector != partial on {bad}, {ec['svc_batches']} batches over "
+                 f"{rc['fleet'].io_service.services} services")
+        # round 0 by layer
+        marks = []
+
+        def mark(layer):
+            torch.cuda.synchronize()
+            marks.append((layer, time.perf_counter()))
+
+        fleet = executive_run(torch, cfg, dev, ring, "cuda", "vector", tmp, start_only=True)
+        mark("start")
+        fleet.kernels.round_exec(fleet._S, mark)
+        ms: dict = {}
+        for (_, a), (layer, b) in zip(marks, marks[1:]):
+            ms[layer] = ms.get(layer, 0.0) + 1e3 * (b - a)
+        kernel_launches = sum(layer == "kernel" for layer, _ in marks)
+        del fleet
+        # (c) the Oracle on a 256-node copy
+        small = executive_setup(cfg, dev, ORACLE_NODES)
+        ro = executive_run(torch, cfg, dev, small, "oracle", "vector", tmp)
+        rcs = executive_run(torch, cfg, dev, small, "cuda", "vector", tmp)
+        bad = same_run(check, ro, rcs)
+        if bad or exec_stats(ro) != exec_stats(rcs):
+            fail(f"4f (c): oracle != cuda on {bad} at {ORACLE_NODES} nodes")
+    steps = int(res.steps.sum())
+    mean = {k: {f: sum(t[f] for t in v) / len(v) for f in ("s", "steps_per_s", "ms_per_round",
+                                                           "start_ms", "rounds_ms", "sync_ms")}
+            for k, v in turns.items()}
+    print(json.dumps({
+        "phase": "executive", "nodes": n_nodes, "quantum": 32, "slices": 8, "io_mode": "vector",
+        "setup_s": setup_s, "rounds": res.rounds, "steps": steps,
+        "start_ms": rc["split"]["start_ms"], "rounds_ms": rc["split"]["rounds_ms"],
+        "sync_ms": rc["split"]["sync_ms"], "io_ms": rc["split"]["io_ms"],
+        "io_calls": rc["split"]["io_calls"], "ms_per_round": 1e3 * rc["dt"] / res.rounds,
+        "steps_per_s": steps / rc["dt"], "admit_ms": rc["split"]["admit_ms"],
+        "task_switches": ec["task_switches"], "preemptions": ec["preemptions"],
+        "spawns_admitted": ec["spawns_admitted"], "spawns_rejected": ec["spawns_rejected"],
+        "syscalls": ec["syscalls"], "svc_batches": ec["svc_batches"],
+        "io_services": rc["fleet"].io_service.services, "checkpoint": rc["ckpt"],
+        "vmloop_launches": launches, "launches_per_round": launches / res.rounds,
+        "kernel_stats": {k: v for k, v in rc["fleet"].kernel_stats().items() if k != "executor"},
+        "batched_steps_per_s": steps / runs["batched"]["dt"],
+        "partial_steps_per_s": steps / runs["partial"]["dt"],
+        "oracle_nodes": ORACLE_NODES, "oracle_s": ro["dt"], "oracle_cuda_s": rcs["dt"],
+        "identical": ["cuda=batched", "vector=partial", "oracle=cuda"],
+    }), flush=True)
+    print(json.dumps({
+        "phase": "executive_breakdown", "round": 0, "schedule_prio_ms": ms["schedule_prio"],
+        "kernel_ms": ms["kernel"], "kernel_launches": kernel_launches,
+        "kernel_ms_per_launch": ms["kernel"] / kernel_launches, "tail_ms": ms.get("tail", 0.0),
+        "preempt_ms": ms["preempt"], "route_warp_ms": ms["route"],
+        "round_ms": 1e3 * (marks[-1][1] - marks[0][1]),
+    }), flush=True)
+    print(json.dumps({"phase": "executive_baseline", "turns": turns, "mean": mean,
+                      "executive_over_baseline_s": mean["executive"]["s"] / mean["baseline"]["s"]}),
+          flush=True)
+    return launches
+
+
 def oracle_ring(torch, dev, check, VMConfig, REXAVM, FleetVM, vms) -> None:
     """Phase 4d (a): the ANN ring at ORACLE_NODES nodes under
     executor="oracle" (each node's slice through the plain-Python Oracle on
@@ -846,28 +1106,34 @@ def monitor_obs(torch, kmod, dev, FleetServeMonitor, ServeStats, ObsConfig) -> i
     return launches
 
 
-def time_vmloop(torch, kmod, nodes, states, cfg, dev, elided: bool = False) -> tuple:
+def time_vmloop(torch, kmod, nodes, states, cfg, dev, elided: bool = False,
+                quantum: bool = False) -> tuple:
     """One slice (cfg.steps_per_slice) of vmloop over the stacked ``states``
     of ``nodes``, scheduled as the executor does, for the default instance,
-    the counting one (obs=True) and, with ``elided``, the checks-elided one
-    (elide_checks=True), in turns: ms per launch (CUDA events around each of
-    20 launches after 2 warm-ups, the state restored and a spin kernel
-    queued before each, so the events time the device), each plain
+    the counting one (obs=True), with ``elided`` the checks-elided one
+    (elide_checks=True) and with ``quantum`` the default instance at the
+    Executive's budget of 32, in turns: ms per launch (CUDA events around
+    each of 20 launches after 2 warm-ups, the state restored and a spin
+    kernel queued before each, so the events time the device), each plain
     version's ms, held equal (the counting instance's op_hist too; the
     checks-elided instance on verified programs also equal to the default),
     and the bound: the cells the launch changed (each written once) plus
     each node's loaded code frame (its program and arrays, each read once)
     and, for the counting instance, its op_hist written once; or its
     instructions at the INT32 rate.  Returns the records in the order
-    default, counting[, checks-elided]."""
+    default, counting[, checks-elided][, budget 32]."""
     from repro_torch.core.vm import vmstate as vms
     from repro_torch.core.vm.interp import interp_for
     from repro_torch.kernels.vmloop import check
     from repro_torch.kernels.vmloop.ref import core_of, vmloop_ref
 
-    kwargs = {"default": {}, "counting": {"obs": True}, "checks-elided": {"elide_checks": True}}
+    kwargs = {"default": {}, "counting": {"obs": True}, "checks-elided": {"elide_checks": True},
+              "budget 32": {}}
+    budgets = dict.fromkeys(kwargs, cfg.steps_per_slice)
+    budgets["budget 32"] = 32
     # the default instance last in each turn: `work` keeps its state
-    order = ("counting",) + (("checks-elided",) if elided else ()) + ("default",)
+    order = (("counting",) + (("checks-elided",) if elided else ())
+             + (("budget 32",) if quantum else ()) + ("default",))
     S0 = vms.to_device(vms.stack_states(states), dev)
     interp_for(cfg).schedule(S0)
     work = vms.clone(S0)
@@ -882,25 +1148,25 @@ def time_vmloop(torch, kmod, nodes, states, cfg, dev, elided: bool = False) -> t
                 a.copy_(b)
             torch.cuda._sleep(SPIN_CYCLES // 100)   # the launch is queued before the events run
             start.record()
-            out = kmod.vmloop_call(core, cfg.steps_per_slice, cfg, **kwargs[inst])
+            out = kmod.vmloop_call(core, budgets[inst], cfg, **kwargs[inst])
             end.record()
             torch.cuda.synchronize()
             if rep >= 2:
                 total[inst] += start.elapsed_time(end)
             finals[inst] = (work if inst == "default" else vms.clone(work), out[1:])
     n = len(nodes)
-    changed = sum(int((a != b).sum()) for a, b in zip(work, S0))
     frame_cells = sum(sum(f.end - f.start for f in vm.frames.frames.values()) for vm in nodes)
-    n_exec = finals["default"][1][0]
-    instrs = int(n_exec.sum())
-    longest = int(n_exec.max())
     recs = []
-    for inst in ("default", "counting", "checks-elided")[:len(order)]:
+    for inst in ("default",) + order[:-1]:
         final, outs = finals[inst]
+        changed = sum(int((a != b).sum()) for a, b in zip(final, S0))
+        n_exec = outs[0]
+        instrs = int(n_exec.sum())
+        longest = int(n_exec.max())
         plain = vms.clone(S0)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        plain_out = vmloop_ref(plain, cfg.steps_per_slice, cfg, **kwargs[inst])[1:]
+        plain_out = vmloop_ref(plain, budgets[inst], cfg, **kwargs[inst])[1:]
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t)
         err, bad = check.max_abs_diff(final, plain)
@@ -915,12 +1181,12 @@ def time_vmloop(torch, kmod, nodes, states, cfg, dev, elided: bool = False) -> t
         ms = total[inst] / reps
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         t_ops = 1e3 * instrs / INT32_OPS_PER_S
-        label = "" if inst == "default" else f" {inst} instance"
+        label = {"default": "", "budget 32": " at budget 32"}.get(inst, f" {inst} instance")
         print(f"vmloop timing n={n}{label}: {ms:.4f} ms/launch, "
               f"plain {plain_ms:.2f} ms, {instrs} instructions, longest node {longest} "
               f"({1e6 * ms / longest:.1f} ns each), bound {max(t_bytes, t_ops):.6f} ms ({nbytes} B)",
               flush=True)
-        recs.append({"nodes": n, "instance": inst, "ms": ms,
+        recs.append({"nodes": n, "instance": inst, "budget": budgets[inst], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "instructions": instrs, "longest_node": longest,

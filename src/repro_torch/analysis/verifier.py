@@ -44,8 +44,8 @@ the entry: every reachable instruction weighted by the product of the trip
 counts of its enclosing back-edge regions.  ``do``/``loop`` regions with
 literal ``doinit`` bounds contribute ``max(limit - start, 1)``; any other
 back edge (``begin``/``again``/``until``) or a non-literal bound makes the
-WCET ``None`` — unbounded statically, quantum-bounded at admission (the
-reference's Executive, which the port does not have yet).
+WCET ``None`` — unbounded statically, quantum-bounded at admission
+(``repro_torch.exec.Executive.spawn`` then admits on the deadline alone).
 
 Scope: the verifier covers the exceptions the elided kernel checks guard
 (``EXC_STACK`` and the literal push bound) plus control-flow validity.

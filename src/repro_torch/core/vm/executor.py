@@ -23,7 +23,11 @@
                                     host, slow by construction.
 
 All update a stacked (or single) state in place and are byte-exact with
-each other and with the JAX reference.  For the telemetry plane each
+each other and with the JAX reference.  The three fleet engines also run
+the Executive's micro-slice (``schedule_prio -> vmloop -> preempt`` at a
+budget of the quantum, with ``switched``/``preempted`` per node):
+``run_slice_exec_batched`` on the batched and Oracle engines,
+``run_slice_exec_batched_aux`` on the kernel's.  For the telemetry plane each
 fleet engine also offers ``obs_schedule(S) -> found`` and
 ``obs_execute(S, steps, found) -> ExecAux``: the same slice split at the
 schedule/execute seam, counting every retired instruction in its bin
@@ -68,6 +72,11 @@ class BatchedSliceExecutor:
 
     def run_slice_batched(self, S, steps: int) -> torch.Tensor:
         return self.interp.run_slice(S, steps)
+
+    def run_slice_exec_batched(self, S, quantum: int):
+        """The Executive micro-slice (``Interpreter.run_slice_exec``):
+        ``(found, switched, preempted)``, each (N,)."""
+        return self.interp.run_slice_exec(S, quantum)
 
     # -- observability: obs_schedule then obs_execute is run_slice_batched,
     # -- with every retired instruction binned ---------------------------------
@@ -116,6 +125,11 @@ class CudaSliceExecutor:
     ``mark(layer)``, when given, is called after each layer: "schedule",
     "kernel" (each launch), "tail" (each interpreter step), "preempt".
 
+    ``run_slice_exec_batched_aux(S, quantum, mark=None)`` is the
+    Executive's micro-slice on the same passes: ``schedule_prio`` (marked
+    "schedule_prio") in place of ``schedule``, a budget of ``quantum``, and
+    ``preempted`` read before the preempt.
+
     ``elide_checks=True`` launches the kernel's checks-elided instance and
     hands declined words to the checks-elided interpreter; the counting
     path (``obs_execute``) stays checked.
@@ -131,8 +145,8 @@ class CudaSliceExecutor:
         self._checked = interp_for(cfg, isa)
 
     def _execute(self, S, steps: int, mark, node_hist=None):
-        """Kernel passes and hand-backs, then preempt, on a scheduled state;
-        ``node_hist`` ((N, num_ops + 4) int32), when given, accumulates each
+        """Kernel passes and hand-backs on a scheduled state; the caller
+        preempts.  ``node_hist`` ((N, num_ops + 4) int32), when given, accumulates each
         node's retired instructions by bin.  Returns ``(n_exec, ever,
         met)`` as ``run_slice_batched_aux``'s last three."""
         from repro_torch.kernels.vmloop.ops import fleet_vmloop
@@ -172,15 +186,37 @@ class CudaSliceExecutor:
             n_exec.index_add_(0, rows, n_r)
             retired.index_add_(0, rows, n_r)
             ever[rows] = ever[rows] | (bailed != 0)
-        it.preempt(S)
-        mark("preempt")
         return n_exec, ever.to(I32), met.view(N, nops + 1).sum(dim=0)
 
-    def run_slice_batched_aux(self, S, steps: int, mark=None):
+    def _slice(self, S, steps: int, mark, executive: bool):
+        """One slice: schedule, ``_execute``'s passes, preempt.  The
+        Executive's micro-slice schedules by priority and also returns
+        ``switched`` and ``preempted`` (read before the preempt)."""
         mark = mark or (lambda layer: None)
-        found = self.interp.schedule(S)
-        mark("schedule")
-        return (found, *self._execute(S, steps, mark))
+        if executive:
+            prev = S.cur.clone()
+            found = self.interp.schedule_prio(S)
+            head = (found, (found & (S.cur != prev)).to(I32))
+            mark("schedule_prio")
+        else:
+            found = self.interp.schedule(S)
+            head = (found,)
+            mark("schedule")
+        out = self._execute(S, steps, mark)
+        if executive:
+            head += (self.interp.running_cur(S),)
+        self.interp.preempt(S)
+        mark("preempt")
+        return (*head, *out)
+
+    def run_slice_batched_aux(self, S, steps: int, mark=None):
+        return self._slice(S, steps, mark, executive=False)
+
+    def run_slice_exec_batched_aux(self, S, quantum: int, mark=None):
+        """``(found, switched, preempted, n_exec, bailed, hist)``: the
+        Executive micro-slice's counters (as ``Interpreter.run_slice_exec``)
+        and the kernel's (as ``run_slice_batched_aux``)."""
+        return self._slice(S, quantum, mark, executive=True)
 
     def run_slice_batched(self, S, steps: int) -> torch.Tensor:
         return self.run_slice_batched_aux(S, steps)[0]
@@ -200,7 +236,10 @@ class CudaSliceExecutor:
         N = S.pc.shape[0]
         node_hist = torch.zeros(N, n_bins(self.interp.isa), dtype=I32, device=S.pc.device)
         iow0 = _iowait(S)
-        n_exec, ever, met = self._execute(S, steps, mark or (lambda layer: None), node_hist)
+        mark = mark or (lambda layer: None)
+        n_exec, ever, met = self._execute(S, steps, mark, node_hist)
+        self.interp.preempt(S)
+        mark("preempt")
         bailed = ever.sum(dtype=I32)
         return ExecAux(
             op_hist=node_hist.sum(0, dtype=I32), io_susp=(_iowait(S) - iow0).to(I32),
@@ -241,6 +280,14 @@ class OracleFleetExecutor:
     def run_slice_batched(self, S, steps: int) -> torch.Tensor:
         found = self._each_node(S, lambda st: self.oracle.run_slice(st, steps)[1])
         return torch.as_tensor(found, device=S.pc.device)
+
+    def run_slice_exec_batched(self, S, quantum: int):
+        """The Executive micro-slice through the Oracle:
+        ``(found, switched, preempted)``, each (N,)."""
+        out = self._each_node(S, lambda st: self.oracle.run_slice_exec(st, quantum)[1:])
+        dev = S.pc.device
+        return (torch.as_tensor(out[:, 0] != 0, device=dev),
+                *(torch.as_tensor(out[:, k].astype(np.int32), device=dev) for k in (1, 2)))
 
     # -- observability -----------------------------------------------------------
 

@@ -19,8 +19,16 @@ A round is three layers, all updating that state in place:
 
 Host IO (FIOS calls, ``out``/``in``) is found by a small per-round status
 probe and serviced by :class:`~repro_torch.core.vm.ios.FleetIOService`,
-which moves only the suspended nodes' rows.  ``reference_round`` is the
-same round over independent host-looped nodes.
+which moves only the suspended nodes' rows, or by the vectorized syscall
+plane (``io_mode="vector"``, :class:`~repro_torch.exec.syscalls.
+VectorSyscallService`: the same movement, one handler call per distinct
+syscall).  ``reference_round`` is the same round over independent
+host-looped nodes.
+
+With ``executive=`` (an :class:`~repro_torch.exec.ExecutiveConfig`) step 1
+becomes ``slices`` preemptive micro-slices of ``quantum`` instructions
+(``schedule_prio -> vmloop -> preempt`` each), and steps 2–4 run once a
+round after them (``FleetKernels.round_exec``).
 
 With ``obs=`` (``repro_torch.obs``) each round runs split at its phase
 seams (schedule, execute, clock and router, warp) so that the fleet can
@@ -53,6 +61,7 @@ from repro_torch.core.vm.spec import (
     ST_DONE,
     ST_ERR,
     ST_EVENT,
+    ST_FREE,
     ST_HALT,
     ST_IOWAIT,
     ST_SLEEP,
@@ -79,12 +88,16 @@ class FleetKernels:
     whether each node bailed, and per opcode the nodes that met it as a
     declined word (``executor="cuda"`` only; None otherwise; ``mark`` as
     ``CudaSliceExecutor.run_slice_batched_aux``'s); ``rounds_aux(S, steps,
-    n)`` runs ``n`` whole rounds and sums those."""
+    n)`` runs ``n`` whole rounds and sums those.
+
+    With an ``executive`` (``ExecutiveConfig``), ``round_exec(S, mark=None)``
+    is one round under the Executive (see there)."""
 
     def __init__(self, cfg: VMConfig, isa: ISA | None = None, executor: str = "batched",
-                 elide_checks: bool = False):
+                 elide_checks: bool = False, executive=None):
         self.cfg = cfg
         self.isa = isa or get_isa()
+        self.executive = executive
         if elide_checks and executor not in ("batched", "cuda"):
             raise ValueError(f"executor {executor!r} has no checks-elided engine")
         if executor == "batched":
@@ -171,6 +184,37 @@ class FleetKernels:
         self.post_slice(S, steps0)
         return S, n_exec, bailed, hist
 
+    def round_exec(self, S, mark=None):
+        """One fleet round under the Executive: ``slices`` micro-slices of
+        ``quantum`` instructions, each ``schedule_prio -> vmloop -> preempt``
+        (under ``cuda`` the kernel at a budget of ``quantum`` with the
+        hand-back, ``CudaSliceExecutor.run_slice_exec_batched_aux``), then
+        the clock, the router and the warp once, the clock from the round's
+        instructions.  Returns ``(S, task_switches, preemptions,
+        kernel_steps, bailed, bail_hist)``, device int64 sums over the
+        micro-slices, zeros where the engine has no kernel.  ``mark`` as
+        ``run_slice_exec_batched_aux``'s, and "route" after the tail."""
+        q, k = self.executive.quantum, self.executive.slices
+        ex = self.executor
+        dev = S.pc.device
+        steps0 = S.steps.clone()
+        sums = torch.zeros(4, dtype=torch.int64, device=dev)   # switches, preempts, kernel, bailed
+        hist = torch.zeros(self.isa.num_ops + 1, dtype=torch.int64, device=dev)
+        for _ in range(k):
+            if self.executor_kind == "cuda":
+                _, sw, pe, n_exec, bailed, h = ex.run_slice_exec_batched_aux(S, q, mark)
+                sums[2] += n_exec.sum()
+                sums[3] += bailed.sum()
+                hist += h
+            else:
+                _, sw, pe = ex.run_slice_exec_batched(S, q)
+            sums[0] += sw.sum()
+            sums[1] += pe.sum()
+        self.post_slice(S, steps0)
+        if mark is not None:
+            mark("route")
+        return (S, *sums, hist)
+
     def rounds_aux(self, S, steps: int, n_rounds: int):
         dev = S.pc.device
         n_sum = torch.zeros((), dtype=torch.int64, device=dev)
@@ -215,6 +259,23 @@ class FleetVM:
     each round is counted (``metrics()``), and traced and timed as the
     config says (``export_trace()``).
 
+    ``io_mode`` picks the host-IO service: ``"partial"`` (the default
+    without an Executive) moves only the suspended nodes' rows through
+    :class:`FleetIOService`; ``"vector"`` (the default with one) moves the
+    same rows through the vectorized syscall plane
+    (:class:`~repro_torch.exec.syscalls.VectorSyscallService`: one handler
+    call per distinct syscall number, not one Python callback per node);
+    ``"full"`` syncs the whole state, services every node and pushes it
+    back.  ``io_h2d_bytes``/``io_d2h_bytes`` count the service's share.
+
+    ``executive`` (an :class:`~repro_torch.exec.ExecutiveConfig`) runs each
+    round as ``slices`` preemptive micro-slices of ``quantum`` instructions,
+    dispatched by the priority scheduler (class, then ``prio``, then
+    round-robin rotation), with the clock, router and warp once a round.
+    Spawn tasks through :class:`~repro_torch.exec.Executive`; the counters
+    are live in ``executive_stats()`` and ``metrics()["executive"]``.  It
+    excludes ``obs`` (ValueError), as the reference's does.
+
     ``executor="auto"``: at every ``start()``/``push()`` the Auditor
     verifies each node's loaded programs and plans the engine
     (``analysis.plan_backend``, the reference's policy): ``"cuda"`` when the
@@ -236,6 +297,8 @@ class FleetVM:
         executor: str = "batched",
         device=None,
         obs=None,
+        io_mode: str | None = None,
+        executive=None,
     ):
         if nodes is not None:
             if not nodes:
@@ -255,6 +318,19 @@ class FleetVM:
         isa = self.nodes[0].isa
         if any(vm.isa is not isa for vm in self.nodes):
             raise ValueError("fleet nodes must share one ISA")
+        if executive is not None and obs is not None:
+            # The obs plane's phased round and the Executive's sub-sliced
+            # round are distinct round shapes, as in the reference.
+            raise ValueError(
+                "executive and obs are mutually exclusive; Executive "
+                "counters are reported via metrics()['executive'] instead"
+            )
+        self.executive = executive
+        if io_mode is None:
+            io_mode = "vector" if executive is not None else "partial"
+        if io_mode not in ("partial", "full", "vector"):
+            raise ValueError(f"unknown io_mode {io_mode!r}")
+        self.io_mode = io_mode
         self.n = len(self.nodes)
         self.executor_requested = executor
         self._auto = executor == "auto"
@@ -268,7 +344,12 @@ class FleetVM:
         self._op_send = isa.opcode["send"]
         self._op_recv = isa.opcode["receive"]
         self._S: VMState | None = None
-        self.io_service = FleetIOService(self.nodes)
+        if io_mode == "vector":
+            from repro_torch.exec.syscalls import VectorSyscallService
+
+            self.io_service = VectorSyscallService(self.nodes)
+        else:
+            self.io_service = FleetIOService(self.nodes)
         self.h2d = 0
         self.d2h = 0
         self.h2d_bytes = 0
@@ -280,6 +361,17 @@ class FleetVM:
         self._bailed_acc = 0
         self._bail_hist_acc = 0
         self._total_steps_acc = 0
+        # Executive telemetry: device sums like the kernel's, plus the
+        # admissions (Executive.spawn) and the task deadline misses.
+        self._task_switches_acc = 0
+        self._preempts_acc = 0
+        self._exec_slices = 0
+        self._spawns_admitted = 0
+        self._spawns_rejected = 0
+        # Sticky per-(node, task slot) deadline-miss flags, cleared when a
+        # slot frees; the total counts each occupancy's first miss once.
+        self._deadline_missed = np.zeros((self.n, self.cfg.max_tasks), bool)
+        self._task_deadline_miss_total = 0
         # The telemetry plane: off by default — no extra device outputs, no
         # per-phase synchronization, nothing accumulated.
         from repro_torch.obs.metrics import normalize_obs
@@ -299,6 +391,21 @@ class FleetVM:
             self._deadline = DeadlineMonitor(self.obs.deadline_wall_ms)
             self.io_service.tracer = self._tracer
 
+    @classmethod
+    def from_nodes(cls, nodes: list[REXAVM], **kw) -> "FleetVM":
+        """Stack pre-configured REXAVM nodes into one fleet."""
+        return cls(nodes=nodes, **kw)
+
+    @property
+    def io_h2d_bytes(self) -> int:
+        """IO-service bytes host -> device."""
+        return self.io_service.h2d_bytes
+
+    @property
+    def io_d2h_bytes(self) -> int:
+        """IO-service bytes device -> host."""
+        return self.io_service.d2h_bytes
+
     # -- telemetry ---------------------------------------------------------------
 
     def kernel_stats(self) -> dict:
@@ -316,7 +423,9 @@ class FleetVM:
         counted.  Here each declined word is handed to the interpreter and
         the kernel resumes after it, so ``fallback_steps`` counts only the
         declined instructions, and a node-round that meets ``task`` and
-        then ``rnd`` counts once under each."""
+        then ``rnd`` counts once under each.  Under an Executive a
+        "node-round" is a node's micro-slice, and ``exec_slices`` counts
+        the micro-slices the kernel engine drove."""
         kernel = int(self._kernel_steps_acc)
         total = int(self._total_steps_acc)
         fallback = max(total - kernel, 0)
@@ -333,7 +442,7 @@ class FleetVM:
             "bailed_frac": fallback / total if total else 0.0,
             "bailed_node_rounds": int(self._bailed_acc),
             "bail_hist": bail_hist,
-            "exec_slices": 0,
+            "exec_slices": int(self._exec_slices) if self.executor_kind == "cuda" else 0,
         }
 
     def trace_stats(self) -> dict:
@@ -352,31 +461,38 @@ class FleetVM:
         }
 
     def executive_stats(self) -> dict:
-        """The reference's Executive and syscall-plane keys, zeroed as the
-        reference's are without an Executive (not in the port yet)."""
+        """Executive and syscall-plane telemetry with the reference's keys,
+        zeroed without an Executive and, for the ``svc_*`` keys, under the
+        per-node ``FleetIOService``.  ``task_switches``/``preemptions`` are
+        the device sums of the Executive round; ``task_deadline_misses``
+        counts each task-slot occupancy's first virtual-clock deadline miss;
+        ``svc_batches`` against ``svc_scalar_calls`` shows the vectorized
+        service (one handler call per distinct syscall, not one per node)."""
+        svc = self.io_service
+        ecfg = self.executive
         return {
             "executor": self.executor_kind,
-            "enabled": False,
-            "quantum": 0,
-            "slices_per_round": 0,
-            "exec_slices": 0,
-            "task_switches": 0,
-            "preemptions": 0,
-            "spawns_admitted": 0,
-            "spawns_rejected": 0,
-            "task_deadline_misses": 0,
-            "tasks_missed": 0,
-            "syscalls": 0,
-            "svc_batches": 0,
-            "svc_scalar_calls": 0,
-            "svc_posts": 0,
-            "svc_post_drops": 0,
+            "enabled": ecfg is not None,
+            "quantum": int(ecfg.quantum) if ecfg else 0,
+            "slices_per_round": int(ecfg.slices) if ecfg else 0,
+            "exec_slices": int(self._exec_slices),
+            "task_switches": int(self._task_switches_acc),
+            "preemptions": int(self._preempts_acc),
+            "spawns_admitted": int(self._spawns_admitted),
+            "spawns_rejected": int(self._spawns_rejected),
+            "task_deadline_misses": int(self._task_deadline_miss_total),
+            "tasks_missed": int(self._deadline_missed.sum()),
+            "syscalls": int(getattr(svc, "syscalls", 0)),
+            "svc_batches": int(getattr(svc, "svc_batches", 0)),
+            "svc_scalar_calls": int(getattr(svc, "scalar_calls", 0)),
+            "svc_posts": int(getattr(svc, "posts", 0)),
+            "svc_post_drops": int(getattr(svc, "post_drops", 0)),
         }
 
     def transfer_stats(self) -> dict:
         """All movement counters in one dict (serve monitor / benchmarks):
-        the reference's keys.  The syscall-plane fields are 0: the port has
-        only the per-node ``FleetIOService`` so far."""
+        the reference's keys.  ``io_syscalls``/``io_svc_batches`` come from
+        the vectorized syscall plane (0 under the per-node service)."""
         svc = self.io_service
         return {
             "executor": self.executor_kind,
@@ -389,8 +505,8 @@ class FleetVM:
             "io_nodes_serviced": svc.nodes_serviced,
             "io_h2d_bytes": svc.h2d_bytes,
             "io_d2h_bytes": svc.d2h_bytes,
-            "io_syscalls": 0,
-            "io_svc_batches": 0,
+            "io_syscalls": int(getattr(svc, "syscalls", 0)),
+            "io_svc_batches": int(getattr(svc, "svc_batches", 0)),
             "probes": self.probes,
         }
 
@@ -448,7 +564,7 @@ class FleetVM:
     def _make_kernels(self, executor: str, elide_checks: bool) -> FleetKernels:
         isa = self.nodes[0].isa
         return FleetKernels(self.cfg, isa if isa is not get_isa() else None, executor,
-                            elide_checks)
+                            elide_checks, self.executive)
 
     def _analyze_nodes(self) -> list:
         """The static verifier over every node's live task entries (on the
@@ -547,14 +663,35 @@ class FleetVM:
     # -- execution -------------------------------------------------------------------
 
     def _probe(self):
-        """Small device-to-host read of the scheduler-visible state."""
+        """Small device-to-host read of the scheduler-visible state; under an
+        Executive ``now`` and ``deadline`` ride along for its deadline
+        misses (else they are None, and the plain probe stays three copies)."""
         self.probes += 1
         S = self._S
-        return (
-            S.tstatus.cpu().numpy(),
-            S.io_op.cpu().numpy(),
-            S.steps.cpu().numpy(),
-        )
+        tstatus, io_op, steps = (x.cpu().numpy() for x in (S.tstatus, S.io_op, S.steps))
+        if self.executive is None:
+            return tstatus, io_op, steps, None, None
+        return tstatus, io_op, steps, S.now.cpu().numpy(), S.deadline.cpu().numpy()
+
+    def _service_host_io(self, node_mask: np.ndarray) -> bool:
+        """Service the host-IO suspensions of the masked nodes: ``partial``
+        and ``vector`` move only those nodes' rows through the IO service;
+        ``full`` syncs the whole state, services every node and pushes it
+        back."""
+        if self.io_mode in ("partial", "vector"):
+            svc = self.io_service
+            d2h0, h2d0 = svc.d2h_bytes, svc.h2d_bytes
+            self._S, progress = svc.service(self._S, np.flatnonzero(node_mask))
+            # The headline byte counters include the IO service's share.
+            self.d2h_bytes += svc.d2h_bytes - d2h0
+            self.h2d_bytes += svc.h2d_bytes - h2d0
+            return progress
+        self.sync()
+        progress = False
+        for vm in self.nodes:
+            progress |= vm._service_io(route_net=False)
+        self.push()
+        return progress
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
@@ -623,6 +760,17 @@ class FleetVM:
                 # is counted, traced and timed on its own.
                 self._round_obs(steps)
                 rounds += 1
+            elif self.executive is not None:
+                # slices micro-slices of quantum instructions, then the
+                # clock, router and warp once; the counters stay on the device.
+                self._S, sw, pe, ne, bl, hist = kern.round_exec(self._S)
+                self._task_switches_acc = self._task_switches_acc + sw
+                self._preempts_acc = self._preempts_acc + pe
+                self._kernel_steps_acc = self._kernel_steps_acc + ne
+                self._bailed_acc = self._bailed_acc + bl
+                self._bail_hist_acc = self._bail_hist_acc + hist
+                self._exec_slices += self.executive.slices
+                rounds += 1
             elif kern.rounds_aux is not None and service_every > 1:
                 chunk = min(service_every, max_rounds - rounds)
                 self._S, n_sum, b_sum, hist = kern.rounds_aux(self._S, steps, chunk)
@@ -641,7 +789,14 @@ class FleetVM:
                 rounds += 1
             if rounds % service_every != 0 and rounds < max_rounds:
                 continue
-            tstatus, io_op, steps_now = self._probe()
+            tstatus, io_op, steps_now, now_v, deadline_v = self._probe()
+            if self.executive is not None:
+                # Task deadline misses: a live slot whose virtual clock has
+                # passed its (nonzero) deadline, counted once an occupancy.
+                active = tstatus != ST_FREE
+                missed_now = (deadline_v > 0) & (now_v[:, None] > deadline_v) & active
+                self._task_deadline_miss_total += int((missed_now & ~self._deadline_missed).sum())
+                self._deadline_missed = (self._deadline_missed | missed_now) & active
             host_io = (
                 (tstatus == ST_IOWAIT)
                 & (io_op != 0)
@@ -650,11 +805,7 @@ class FleetVM:
             )
             serviced = False
             if host_io.any():
-                svc = self.io_service
-                d2h0, h2d0 = svc.d2h_bytes, svc.h2d_bytes
-                self._S, serviced = svc.service(self._S, np.flatnonzero(host_io.any(axis=1)))
-                self.d2h_bytes += svc.d2h_bytes - d2h0
-                self.h2d_bytes += svc.h2d_bytes - h2d0
+                serviced = self._service_host_io(host_io.any(axis=1))
             # A node is finished only when task 0 is terminal AND no other
             # task is runnable, waiting, or IO-suspended.
             task0_term = np.isin(tstatus[:, 0], (ST_DONE, ST_HALT, ST_ERR))
@@ -689,8 +840,22 @@ class FleetVM:
 # Host-routed reference (the operational specification of one fleet round)
 # ---------------------------------------------------------------------------
 
+_REF_ORACLES: dict = {}
+
+
+def _reference_oracle(cfg: VMConfig, isa: ISA):
+    """The plain-Python Oracle that ``reference_round``'s Executive rounds
+    share (the nodes' own executors may be device-backed)."""
+    from repro_torch.core.vm.oracle import Oracle
+
+    key = (cfg, id(isa))
+    if key not in _REF_ORACLES:
+        _REF_ORACLES[key] = Oracle(cfg, isa)
+    return _REF_ORACLES[key]
+
+
 def reference_round(nodes: list[REXAVM], steps: int | None = None,
-                    obs: dict | None = None) -> list[bool]:
+                    obs: dict | None = None, executive=None) -> list[bool]:
     """One fleet round over independent host-looped REXAVMs: slice every
     node, advance its clock, route all sends then all receives through the
     host (same order, rings, backpressure and drop rules as the router),
@@ -699,16 +864,30 @@ def reference_round(nodes: list[REXAVM], steps: int | None = None,
     ``obs``, when given, is a dict the round's router counters accumulate
     into, as the reference's: ``drops`` (messages to out-of-range
     destinations) and ``depth_peak`` (the deepest mailbox after the send
-    phase) — the definitions of ``mbox_drops`` and ``mbox_high``."""
+    phase) — the definitions of ``mbox_drops`` and ``mbox_high``; under an
+    Executive it also grows ``task_switches`` and ``preemptions``.
+
+    ``executive`` (an ``ExecutiveConfig``) runs ``slices`` micro-slices of
+    ``quantum`` instructions per node through the Oracle's priority
+    scheduler (``Oracle.run_slice_exec``), and advances the clock once from
+    the round's instructions, as ``FleetKernels.round_exec``."""
     cfg = nodes[0].cfg
     isa = nodes[0].isa
     N, T = len(nodes), cfg.max_tasks
     MB, DS = cfg.mbox_size, cfg.ds_size
     op_send, op_recv = isa.opcode["send"], isa.opcode["receive"]
     steps = steps or cfg.steps_per_slice
+    oracle = _reference_oracle(cfg, isa) if executive is not None else None
     for vm in nodes:
         before = int(vm.state.steps)
-        vm._slice(steps)
+        if oracle is None:
+            vm._slice(steps)
+        else:
+            for _ in range(executive.slices):
+                _, _, switched, preempted = oracle.run_slice_exec(vm.state, executive.quantum)
+                if obs is not None:
+                    obs["task_switches"] = obs.get("task_switches", 0) + switched
+                    obs["preemptions"] = obs.get("preemptions", 0) + preempted
         executed = int(vm.state.steps) - before
         vm.state.now.fill_(int(vm.state.now) + max(1, executed * cfg.us_per_instr // 1000))
     progress = [False] * N

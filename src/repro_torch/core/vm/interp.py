@@ -1019,13 +1019,10 @@ class Interpreter:
 
     # -- scheduler (Alg. 6) -------------------------------------------------------------
 
-    def schedule(self, S) -> torch.Tensor:
-        """Select each node's next task: IO events > timeouts > ready.
-        Returns ``found`` (N,) bool."""
+    def _klass(self, S) -> torch.Tensor:
+        """Each task's runnability class (Alg. 6): 3 an awaited event hit,
+        2 a timeout reached, 1 ready, 0 none; (N, T) int32."""
         cfg = self.cfg
-        T = cfg.max_tasks
-        dev = S.pc.device
-        idx = self.arange(T, dev)
         ev = S.tstatus == ST_EVENT
         mem_v = S.mem.gather(1, torch.clamp(S.ev_addr - MEM_BASE, 0, cfg.mem_size - 1).long())
         cs_v = S.cs.gather(1, torch.clamp(S.ev_addr, 0, cfg.cs_size - 1).long())
@@ -1033,23 +1030,49 @@ class Interpreter:
         ev_hit = ev_hit | (ev & (S.ev_addr < MEM_BASE) & (cs_v == S.ev_val))
         to_hit = ((S.tstatus == ST_SLEEP) | ev) & (S.now[:, None] >= S.timeout)
         ready = S.tstatus == ST_YIELD
-        klass = torch.where(ev_hit, 3, torch.where(to_hit, 2, torch.where(ready, 1, 0))).to(I32)
-        score = klass * T + (T - 1 - idx)
-        best = score.argmax(dim=1)
+        return torch.where(ev_hit, 3, torch.where(to_hit, 2, torch.where(ready, 1, 0))).to(I32)
+
+    def _wake(self, S, klass: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+        """Dispatch task ``best`` (N,) of each node whose class there is
+        non-zero: make it current and ST_RUN; an await returns its status
+        (0 = event, -1 = timeout; paper Ex. 1).  Returns ``found``."""
         kb = klass.gather(1, best[:, None])[:, 0]
         found = kb > 0
         was_event = S.tstatus.gather(1, best[:, None])[:, 0] == ST_EVENT
-        rows = torch.arange(S.pc.shape[0], device=dev)
+        rows = torch.arange(S.pc.shape[0], device=S.pc.device)
         S.cur.copy_(torch.where(found, best.to(I32), S.cur))
         S.tstatus[rows, best] = torch.where(found, ST_RUN, S.tstatus[rows, best])
-        # await returns status: 0 = event, -1 = timeout (paper Ex. 1).
         push = found & was_event & (kb >= 2)
         dsp = S.dsp[rows, best]
-        di = torch.clamp(dsp, 0, cfg.ds_size - 1).long()
+        di = torch.clamp(dsp, 0, self.cfg.ds_size - 1).long()
         v = torch.where(kb == 3, 0, -1).to(I32)
         S.ds[rows, best, di] = torch.where(push, v, S.ds[rows, best, di])
         S.dsp[rows, best] = torch.where(push, dsp + 1, dsp)
         return found
+
+    def schedule(self, S) -> torch.Tensor:
+        """Select each node's next task: IO events > timeouts > ready, the
+        lowest index first.  Returns ``found`` (N,) bool."""
+        T = self.cfg.max_tasks
+        klass = self._klass(S)
+        score = klass * T + (T - 1 - self.arange(T, S.pc.device))
+        return self._wake(S, klass, score.argmax(dim=1))
+
+    def schedule_prio(self, S) -> torch.Tensor:
+        """The Executive's scheduler: the classes of ``schedule``, ties
+        broken on (class, ``prio``, round-robin rotation ``(idx - cur - 1)
+        mod T`` from the last-run task).  The maximum is taken in two
+        stages, the class and then ``prio`` among that class's tasks (a
+        full int32, never folded into one score), and the rotation, a
+        permutation, makes the pick unique.  Returns ``found`` (N,) bool."""
+        T = self.cfg.max_tasks
+        klass = self._klass(S)
+        rot = torch.remainder(self.arange(T, S.pc.device)[None, :] - S.cur[:, None] - 1, T)
+        kmax = klass.amax(dim=1, keepdim=True)
+        cand = klass == kmax
+        pmax = torch.where(cand, S.prio, -(2 ** 31)).amax(dim=1, keepdim=True)
+        cand = cand & (S.prio == pmax)
+        return self._wake(S, klass, torch.where(cand, rot, T).argmin(dim=1))
 
     def preempt(self, S) -> None:
         """A task that exhausted its slice stays ready."""
@@ -1065,6 +1088,26 @@ class Interpreter:
         self.vmloop(S, steps, active=found)
         self.preempt(S)
         return found
+
+    def running_cur(self, S) -> torch.Tensor:
+        """(N,) int32: 1 where the current task is still ST_RUN (a quantum
+        that ends here is a preemption)."""
+        rows = torch.arange(S.pc.shape[0], device=S.pc.device)
+        return (S.tstatus[rows, S.cur.long()] == ST_RUN).to(I32)
+
+    def run_slice_exec(self, S, steps: int):
+        """One Executive micro-slice on every node: schedule_prio -> vmloop
+        -> preempt.  Returns ``(found, switched, preempted)``, each (N,):
+        ``switched`` 1 where the dispatcher picked another task than last
+        ran, ``preempted`` 1 where the task was still ST_RUN at the end of
+        the quantum."""
+        prev = S.cur.clone()
+        found = self.schedule_prio(S)
+        switched = (found & (S.cur != prev)).to(I32)
+        self.vmloop(S, steps, active=found)
+        preempted = self.running_cur(S)
+        self.preempt(S)
+        return found, switched, preempted
 
 
 @functools.lru_cache(maxsize=8)

@@ -1,9 +1,10 @@
 """Input-Output System (paper §3.6, Def. 2): the VM's foreign interface.
 
-``FiosRegistry``  — host functions bridged into the word set (fiosAdd).
-                    Opcodes follow the reference's numbering rule: opcode =
-                    ``FIOS_BASE`` + the lowest free syscall number, so the
-                    bytecode a frame compiles to equals the reference's.
+``FiosRegistry``  — host functions bridged into the word set (fiosAdd);
+                    a deprecation shim over the numbered SVC table in
+                    ``repro_torch.exec.syscalls`` (opcode = ``FIOS_BASE`` +
+                    the syscall number, so the bytecode a frame compiles to
+                    equals the reference's).
 ``DiosRegistry``  — host data arrays mapped into the VM address space at
                     ``MEM_BASE`` (diosAdd); e.g. the ADC sample buffer.
 ``HostLink``      — host-side message bus between REXAVM nodes: wires each
@@ -26,69 +27,58 @@ from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
 
-from repro_torch.core.vm.spec import FIOS_BASE, MAX_FIOS, MEM_BASE
+from repro_torch.core.vm.spec import MEM_BASE
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.vm.machine import REXAVM
 
 
-@dataclass
-class FiosEntry:
-    name: str
-    fn: Callable
-    args: int           # number of cells popped from DS
-    ret: int            # number of cells pushed (0 or 1)
-    num: int = 0        # syscall number; opcode = FIOS_BASE + num
-
-
 class FiosRegistry:
-    """Name-keyed table of host callbacks by syscall number (the
-    reference's ``SyscallTable`` behind its ``FiosRegistry`` facade).
+    """Deprecated name-keyed facade over the numbered SVC table (the
+    reference's shim).
 
-    ``register`` without ``num`` takes the lowest free number, so
-    registration order fixes the opcodes as in the reference; ``num`` pins a
-    number (a fleet service shares one across nodes), which must be free.
-    Re-registering a name replaces its callback and keeps its number.
+    Host callbacks live in :class:`repro_torch.exec.syscalls.SyscallTable`
+    (stable syscall numbers, declared arities, vectorized handlers).  ``add``
+    forwards into ``table.register`` at the lowest free number, which keeps
+    the registration-order opcodes, and ``entries``/``by_name``/``opcode``/
+    ``entry_for_opcode`` read straight through, so the compiler and
+    ``REXAVM._service_io`` see the table.  New code registers through
+    ``vm.fios.table.register(...)`` or ``REXAVM.svc_add``.
     """
 
     def __init__(self):
-        self.entries: list[Optional[FiosEntry]] = []
-        self.by_name: dict[str, int] = {}
+        # Imported here: exec.syscalls imports this module (FleetIOService).
+        from repro_torch.exec.syscalls import SyscallTable
 
-    def register(self, name: str, fn: Callable, args: int = 0, ret: int = 0,
-                 num: int | None = None) -> int:
-        """svcAdd: bind ``name`` to syscall ``num``.  Returns the opcode."""
-        if name in self.by_name:
-            cur = self.by_name[name]
-            if num is not None and num != cur:
-                raise ValueError(f"syscall {name!r} already bound to number {cur}, not {num}")
-            self.entries[cur] = FiosEntry(name, fn, args, ret, cur)
-            return FIOS_BASE + cur
-        if num is None:
-            num = next((i for i, e in enumerate(self.entries) if e is None), len(self.entries))
-            if num >= MAX_FIOS:
-                raise RuntimeError("FIOS table full")
-        if not 0 <= num < MAX_FIOS:
-            raise ValueError(f"syscall number {num} outside 0..{MAX_FIOS - 1}")
-        while len(self.entries) <= num:
-            self.entries.append(None)
-        if self.entries[num] is not None:
-            raise ValueError(f"syscall number {num} already bound to {self.entries[num].name!r}")
-        self.entries[num] = FiosEntry(name, fn, args, ret, num)
-        self.by_name[name] = num
-        return FIOS_BASE + num
+        self.table = SyscallTable()
+
+    @property
+    def entries(self):
+        return self.table.entries
+
+    @property
+    def by_name(self):
+        return self.table.by_name
 
     def add(self, name: str, fn: Callable, args: int = 0, ret: int = 0) -> int:
-        """fiosAdd (paper Def. 2): ``register`` at the lowest free number.
-        Returns the assigned opcode."""
-        return self.register(name, fn, args, ret)
+        """fiosAdd (paper Def. 2).  Returns the assigned opcode.
+
+        Deprecated: registrations land in the numbered syscall table."""
+        import warnings
+
+        warnings.warn(
+            "FiosRegistry.add is deprecated; register numbered syscalls via "
+            "repro_torch.exec.syscalls.SyscallTable (vm.fios.table.register)",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+        return self.table.register(name, fn, args=args, ret=ret)
 
     def opcode(self, name: str) -> Optional[int]:
-        num = self.by_name.get(name)
-        return None if num is None else FIOS_BASE + num
+        return self.table.opcode(name)
 
-    def entry_for_opcode(self, opcode: int) -> Optional[FiosEntry]:
-        return self.entries[opcode - FIOS_BASE]
+    def entry_for_opcode(self, opcode: int):
+        return self.table.entry_for_opcode(opcode)
 
 
 @dataclass
@@ -164,22 +154,32 @@ class FleetIOService:
                 return self._service(S, node_idx)
         return self._service(S, node_idx)
 
-    def _service(self, S, node_idx) -> tuple[object, bool]:
+    def _gather(self, S, idx: list[int]) -> None:
+        """Copy rows ``idx`` of ``S`` into those nodes' host frontends."""
         from repro_torch.core.vm import vmstate as vms
 
+        host = vms.to_host(vms.take_nodes(S, idx))
+        self.d2h_bytes += vms.state_nbytes(host)
+        for j, i in enumerate(idx):
+            self.nodes[i].state = vms.unstack(host, j)
+
+    def _scatter(self, S, idx: list[int]) -> None:
+        """Write those nodes' host states back into rows ``idx`` of ``S``."""
+        from repro_torch.core.vm import vmstate as vms
+
+        back = vms.stack_states([self.nodes[i].state for i in idx])
+        self.h2d_bytes += vms.state_nbytes(back)
+        vms.put_nodes(S, idx, back)
+
+    def _service(self, S, node_idx) -> tuple[object, bool]:
         node_idx = [int(i) for i in node_idx]
         if not node_idx:
             return S, False
-        host = vms.to_host(vms.take_nodes(S, node_idx))
-        self.d2h_bytes += vms.state_nbytes(host)
+        self._gather(S, node_idx)
         progress = False
-        for j, i in enumerate(node_idx):
-            vm = self.nodes[i]
-            vm.state = vms.unstack(host, j)
-            progress |= vm._service_io(route_net=False)
-        back = vms.stack_states([self.nodes[i].state for i in node_idx])
-        self.h2d_bytes += vms.state_nbytes(back)
-        vms.put_nodes(S, node_idx, back)
+        for i in node_idx:
+            progress |= self.nodes[i]._service_io(route_net=False)
+        self._scatter(S, node_idx)
         self.services += 1
         self.nodes_serviced += len(node_idx)
         return S, progress

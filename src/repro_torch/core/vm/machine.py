@@ -98,10 +98,14 @@ class REXAVM:
         return self.fios.add(name, fn, args, ret)
 
     def svc_add(self, name: str, fn: Callable, args: int = 0, ret: int = 0,
-                num: int | None = None) -> int:
-        """Register a numbered syscall.  ``num`` pins a syscall number
-        (fleet services share one across nodes).  Returns the opcode."""
-        return self.fios.register(name, fn, args=args, ret=ret, num=num)
+                num: int | None = None, vectorized: bool = False) -> int:
+        """Register a numbered syscall (the non-deprecated ``fios_add``).
+        ``num`` pins a syscall number (fleet services share one across
+        nodes); ``vectorized`` marks an ``fn(rows, svc)`` batch handler for
+        :class:`repro_torch.exec.syscalls.VectorSyscallService`.  Returns
+        the opcode."""
+        return self.fios.table.register(name, fn, args=args, ret=ret, num=num,
+                                        vectorized=vectorized)
 
     def dios_add(self, name: str, data) -> int:
         """Register a host array; returns its VM address."""

@@ -834,3 +834,46 @@ class Oracle:
         if int(v.tstatus[int(v.cur)]) == ST_RUN:
             v.tstatus[int(v.cur)] = ST_YIELD
         return st, found
+
+    # -- Executive scheduler (mirror of Interpreter.schedule_prio) ---------------
+
+    def schedule_prio(self, st: VMState):
+        """Lexicographic (class, prio, round-robin rotation) task pick."""
+        return st, self._schedule_prio(host_view(st))
+
+    def _schedule_prio(self, st) -> bool:
+        T = self.cfg.max_tasks
+        cur = int(st.cur)
+        best, best_key, best_klass = -1, None, 0
+        for i in range(T):
+            s = int(st.tstatus[i])
+            klass = 0
+            if s == ST_EVENT and self._mread(st, int(st.ev_addr[i])) == int(st.ev_val[i]):
+                klass = 3
+            elif s in (ST_SLEEP, ST_EVENT) and int(st.now) >= int(st.timeout[i]):
+                klass = 2
+            elif s == ST_YIELD:
+                klass = 1
+            if klass == 0:
+                continue
+            rot = (i - cur - 1) % T
+            key = (klass, int(st.prio[i]), -rot)
+            if best < 0 or key > best_key:
+                best, best_key, best_klass = i, key, klass
+        if best < 0:
+            return False
+        self._wake(st, best, best_klass)
+        return True
+
+    def run_slice_exec(self, st: VMState, steps: int):
+        """Executive micro-slice: returns (st, found, switched, preempted)."""
+        v = host_view(st)
+        prev = int(v.cur)
+        found = self._schedule_prio(v)
+        switched = 1 if (found and int(v.cur) != prev) else 0
+        if found:
+            self.vmloop(v, steps)
+        preempted = 1 if int(v.tstatus[int(v.cur)]) == ST_RUN else 0
+        if preempted:
+            v.tstatus[int(v.cur)] = ST_YIELD
+        return st, found, switched, preempted

@@ -141,7 +141,7 @@ def sweep_states(cfg: VMConfig, device) -> tuple[list[tuple[str, str]], object]:
     states = []
     for _, prog in pairs:
         vm = REXAVM(cfg, device="cpu")
-        vm.fios_add("seven", lambda: 7, args=0, ret=1)
+        vm.svc_add("seven", lambda: 7, args=0, ret=1)
         vm.launch(vm.load(prog))
         states.append(vm.state)
     S = vms.to_device(vms.stack_states(states), device)

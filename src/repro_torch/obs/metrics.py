@@ -233,8 +233,9 @@ class FleetMetrics:
     ``trace``     — ``trace_stats()`` minus the executor key (zeroed: the
                     trace-JIT is not ported yet);
     ``transfers`` — ``transfer_stats()`` minus executor and rounds;
-    ``executive`` — ``executive_stats()`` minus the executor key (zeroed:
-                    the Executive is not ported yet).
+    ``executive`` — ``executive_stats()`` minus the executor key: the
+                    Executive's and the syscall plane's live counters
+                    (zeroed only for a fleet without an Executive).
     """
 
     executor: str

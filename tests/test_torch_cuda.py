@@ -19,7 +19,9 @@ same inputs, and the fleet's ``executor="cuda"`` with obs against
 ``executor="batched"`` with obs, bin for bin; vmloop's checks-elided
 instance (``elide_checks=True``) against its plain version, and a
 verified ``FleetVM(executor="auto")`` on it, byte-identical to the checked
-``executor="cuda"`` fleet; a CUDA tensor never takes the
+``executor="cuda"`` fleet; the Executive round (``ExecutiveConfig``) on
+the kernel and under "auto", byte-identical to the batched Executive
+fleet with equal counters; a CUDA tensor never takes the
 plain version (each launch counter grows), and no kernel runs on inputs
 that require grad.  Needs an
 NVIDIA GPU with nvcc; every test here skips without one.
@@ -349,6 +351,63 @@ def test_auto_fleet_runs_the_elided_instance(cuda):
     assert ra.outputs == rc.outputs and ra.rounds == rc.rounds
     assert check.max_abs_diff(Sa, Sc) == (0, [])
     assert fa.kernel_stats()["bail_hist"] == {}
+
+
+def _executive_fleet(executor, cfg, dev, declined: bool, n=16):
+    """A small Executive fleet: every node a bounded loop and a spawned
+    prio-1 task that outlives its quanta.  With ``declined`` node 0 runs
+    the ``task`` word inside a quantum and the spawned tasks write to the
+    UART service (words the kernel hands back); without, every word is the
+    kernel's, so "auto" plans the checks-elided kernel."""
+    from repro_torch.exec import Executive, ExecutiveConfig, install_services
+
+    fleet = FleetVM(cfg, n=n, executor=executor, device=dev,
+                    executive=ExecutiveConfig(quantum=16, slices=4))
+    svcs = install_services(fleet.nodes)
+    ex = Executive(fleet)
+    for i, node in enumerate(fleet.nodes):
+        main = (": w 3 0 do 7 out loop ;\n1 0 $ w task out 5 out" if declined and i == 0
+                else f"0 begin 1+ dup {20 + i} >= until out")
+        node.launch(node.load(main))
+        task = f"0 {10 + i} 0 do 1+ loop " + ("uart.write" if declined else "out")
+        assert ex.spawn(i, task, prio=1, deadline=1000) > 0
+    return fleet, svcs
+
+
+@pytest.mark.parametrize("executor", ["cuda", "auto"])
+def test_executive_fleet_equals_batched(executor, cuda):
+    """The Executive round on the kernel (a budget of the quantum, the
+    hand-back, ``preempted`` read before the preempt), and under "auto" on
+    the checks-elided instance, byte-identical to the batched Executive
+    fleet on the card, with equal counters."""
+    cfg = CFGS[0]
+    declined = executor == "cuda"
+    out = {}
+    for ex_kind in (executor, "batched"):
+        fleet, svcs = _executive_fleet(ex_kind, cfg, cuda, declined)
+        launches, elided = kmod.vmloop_call.launches, kmod.vmloop_call.elide_launches
+        res = fleet.run(max_rounds=60)
+        assert res.statuses == ["done"] * fleet.n
+        ran = (kmod.vmloop_call.launches - launches, kmod.vmloop_call.elide_launches - elided)
+        out[ex_kind] = (res, vms.stack_states([vm.state for vm in fleet.nodes]), fleet, svcs, ran)
+    (rk, Sk, fk, sk, ran), (rb, Sb, fb, sb, _) = out[executor], out["batched"]
+    assert rk.rounds == rb.rounds and rk.outputs == rb.outputs
+    assert check.max_abs_diff(Sk, Sb) == (0, [])
+    assert [vm.out_stream for vm in fk.nodes] == [vm.out_stream for vm in fb.nodes]
+    assert sk.uart.stream == sb.uart.stream and len(sk.uart.stream) == (fk.n if declined else 0)
+    ek, eb = fk.executive_stats(), fb.executive_stats()
+    ek.pop("executor"), eb.pop("executor")
+    assert ek == eb and ek["preemptions"] > 0 and ek["task_switches"] > 0
+    assert ran[0] >= ek["exec_slices"] > 0
+    ks = fk.kernel_stats()
+    assert ks["exec_slices"] == ek["exec_slices"]
+    assert ks["kernel_steps"] + ks["fallback_steps"] == ks["total_steps"]
+    if declined:
+        assert ks["bail_hist"].get("task", 0) > 0 and ran[1] == 0
+    else:
+        a = fk.analysis_stats()
+        assert (a["executor"], a["elide_checks"]) == ("cuda", True)
+        assert ran[0] == ran[1] and ks["bail_hist"] == {}
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 2560, 640), (1, 6912, 2560), (64, 2560, 6912),
