@@ -65,13 +65,34 @@ each printing its results on a line of its own:
      steps/s, the Executive's counters and the WCET admission's host ms,
      the host IO service's ms, round 0 by layer (schedule_prio, each
      launch, hand-back, preempt, route and warp) and the ring without the
-     Executive in turns;
+     Executive in turns; (4g) the trace-JIT at full width: 4096 nodes of
+     VMConfig() running one firmware (the ANN step with a noise draw by
+     `rnd`, a word the kernel hands back, in a loop without end), one
+     program group on the full-fleet path: (a) round 0 by layer (schedule,
+     probe, recording, specialized steps, tail launches, hand-back,
+     preempt, route and warp) and the host syncs of a specialized slice,
+     then 8 rounds a run in turns, trace, cuda, trace, cuda, batched, each
+     byte for byte the first, with steps/s and start / rounds / sync ms,
+     trace_stats() (one group, > 90% specialized), vmloop launched only as
+     the tail with per-node budgets and never its plain version, and one
+     specialized slice under torch.profiler (kernels and device ms a step,
+     the device's busy share); (b) the
+     same fleet under executor="auto" (plan ("trace", False), ["rnd"]
+     predicted, 4096 AOT branch sets, nothing built during the run, the
+     Auditor's ms); (c) phase 4f's Executive fleet with that firmware as
+     task 0, trace against cuda for 5 rounds (states, streams,
+     executive_stats, exec_slices); (d) phase 4's ring at 64 nodes, one
+     program a node, trace against cuda; (e) the serve monitor (64 nodes)
+     under trace against cuda, and REXAVM(backend="cuda"|"trace") against
+     the Oracle over tests/test_vm_pallas.py's host-IO programs;
   5. vmloop's time per launch, its plain version's time, and its bound,
      on the fleet (n = 4096) and on the serve monitor's 64 nodes, with the
      longest node's instructions and the ns each took; at each point the
      counting instance is timed in turns with the default one and held
      against its plain version (states and op_hist), at n = 4096 the
-     checks-elided instance and the Executive's budget of 32 too, and the
+     checks-elided instance and the Executive's budget of 32 too, and at
+     the trace tail's per-node budgets (4g's round 0) in turns with the
+     default instance on the same state, and the
      serve monitor runs three steps with obs on the counting instance;
   6. fixmatmul bitwise against its plain version at danube's decode shapes
      (M = 1, 2, 4, 8, 16 on the streaming kernel, 17 and 64 on the tiled
@@ -164,6 +185,17 @@ SAMPLER = "0 50 0 do 1+ loop uart.write 1 sleep"   # phase 4f: 108 instructions 
 SECOND = "0 40 0 do 1+ loop uart.write"            # phase 4f: every 64th node, prio 1
 SAMPLER_DEADLINE_MS = 50        # phase 4f: feasible (the WCET bound is 2 virtual ms)
 REJECTED_DEADLINE_MS = 1        # phase 4f: infeasible
+# phase 4g: one firmware on every node, the sensor ANN step forever with a
+# noise draw by `rnd` (a word the kernel hands back) in every iteration
+TRACE_PROGRAM = ("array x { 10 20 30 40 } array w { 1 2 3 4 5 6 7 8 9 10 11 12 13 14 15 16 } "
+                 "array y { 0 0 0 0 } var acc "
+                 ": sense begin x w y 0 vecfold x y dotprod 256 rnd + acc +! again ; sense")
+TRACE_ROUNDS = 8                # phase 4g (a), (b): rounds a run
+TRACE_EXEC_ROUNDS = 5           # phase 4g (c)
+TRACE_RING_NODES = 64           # phase 4g (d): phase 4's ring, one program a node
+HOST_IO = (("0 30 0 do 1+ loop out halt", False), ("seven 1+ halt", True),
+           ("var flag : w 1 flag ! end ; 0 0 $ w task drop 100 1 flag await . flag @ . halt",
+            False))             # phase 4g (e): tests/test_vm_pallas.py's host-IO programs
 
 
 def fail(msg: str) -> None:
@@ -470,6 +502,14 @@ def main() -> int:
     # the vectorized syscall plane and WCET admission
     exec_launches = executive_phase(torch, kmod, check, cfg, dev, n_nodes, run)
 
+    # 4g. the trace-JIT at full width: one firmware on every node, against
+    # cuda and batched, under auto, under the Executive; phase 4's ring at
+    # 64 nodes; the serve monitor and the single-node backends
+    trace_launches, tail = trace_phase(torch, kmod, check, cfg, dev, n_nodes)
+    trace_executive(torch, check, cfg, dev, n_nodes)
+    trace_ring(check, cfg, dev, run, REXAVM, vms)
+    trace_monitor_and_nodes(torch, check, dev, REXAVM, vms)
+
     # 5. time per launch at n=4096, beside the plain version and the bound;
     # then at the serve monitor's 64 nodes, which launch it once a round.
     # Each point times the default instance and the counting one in turns.
@@ -478,6 +518,8 @@ def main() -> int:
     fleet_obs["launches"] = obs_launches
     fleet_elided["launches"] = elided_launches
     fleet_q["launches"] = exec_launches
+    fleet_tail = time_trace_tail(torch, kmod, check, tail, cfg)
+    fleet_tail["launches"] = trace_launches
     from repro_torch.serve import FleetServeMonitor, ServeStats
 
     mon = FleetServeMonitor(n=MONITOR_NODES, executor="cuda", device=dev)
@@ -491,12 +533,14 @@ def main() -> int:
         "name": "vmloop", "route": "cuda",
         "source": "src/repro_torch/kernels/vmloop/csrc/vmloop.cu",
         "replaces": "src/repro/kernels/vmloop/vmloop.py:64",
-        "launches": launches + elided_launches + exec_launches, "max_abs_err": max_err,
+        "launches": launches + elided_launches + exec_launches + trace_launches,
+        "max_abs_err": max_err,
         **{k: fleet_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "per_shape": {
             f"n{n_nodes}": fleet_t, f"n{MONITOR_NODES}_monitor": mon_t,
             f"n{n_nodes}_obs": fleet_obs, f"n{MONITOR_NODES}_obs": mon_obs,
-            f"n{n_nodes}_elided": fleet_elided, f"n{n_nodes}_budget32": fleet_q},
+            f"n{n_nodes}_elided": fleet_elided, f"n{n_nodes}_budget32": fleet_q,
+            f"n{n_nodes}_trace_tail": fleet_tail},
     }]
     del nodes, init, results, S, fleet, mon
     torch.cuda.empty_cache()
@@ -587,8 +631,8 @@ def synchronized(torch, fn, into: dict, key: str):
     return call
 
 
-def timed_run(torch, fleet, split: dict, names=("start", "sync"), **kw):
-    """``fleet.run(max_rounds=200, **kw)`` with each of ``names`` (start and
+def timed_run(torch, fleet, split: dict, names=("start", "sync"), max_rounds: int = 200, **kw):
+    """``fleet.run(max_rounds, **kw)`` with each of ``names`` (start and
     sync at least) timed on the card into ``split`` and the rest of the run
     as ``rounds_ms``; returns (result, seconds, final stacked state)."""
     from repro_torch.core.vm import vmstate as vms
@@ -598,7 +642,7 @@ def timed_run(torch, fleet, split: dict, names=("start", "sync"), **kw):
                                           name.strip("_") + "_ms"))
     torch.cuda.synchronize()
     t = time.perf_counter()
-    res = fleet.run(max_rounds=200, **kw)
+    res = fleet.run(max_rounds=max_rounds, **kw)
     dt = time.perf_counter() - t
     split["rounds_ms"] = 1e3 * dt - split["start_ms"] - split["sync_ms"]
     return res, dt, vms.stack_states([vm.state for vm in fleet.nodes])
@@ -828,10 +872,11 @@ class ScalarTrio:
         return self._id
 
 
-def executive_setup(cfg, dev, n):
-    """Phase 4f's nodes: the ring without spawners as task 0, and the
-    sampler, fs.save and second programs compiled into each node (their
-    entries; no task launched).  Returns (nodes, initial states, entries)."""
+def executive_setup(cfg, dev, n, main=None, saver=None):
+    """Phase 4f's nodes: the ring without spawners as task 0 (or
+    ``main(i)``), and the sampler, fs.save (``{i} fs.save out``, or
+    ``saver``) and second programs compiled into each node (their entries;
+    no task launched).  Returns (nodes, initial states, entries)."""
     import tempfile
 
     from repro_torch.core.vm import REXAVM, vmstate as vms
@@ -843,17 +888,19 @@ def executive_setup(cfg, dev, n):
         install_services(nodes, CheckpointManager(tmp))
     entries = []
     for i, vm in enumerate(nodes):
-        vm.launch(vm.load(ann_program(i, n, spawners=False)))
-        entries.append((vm.load(SAMPLER).entry, vm.load(f"{i} fs.save out").entry,
+        vm.launch(vm.load(main(i) if main else ann_program(i, n, spawners=False)))
+        entries.append((vm.load(SAMPLER).entry, vm.load(saver or f"{i} fs.save out").entry,
                         vm.load(SECOND).entry))
     return nodes, [vms.clone(vm.state) for vm in nodes], entries
 
 
-def executive_run(torch, cfg, dev, ring, executor, io_mode, tmp, start_only: bool = False):
+def executive_run(torch, cfg, dev, ring, executor, io_mode, tmp, start_only: bool = False,
+                  max_rounds: int = 200):
     """One FleetVM.run of phase 4f's fleet from its initial states: fresh
     services (a CheckpointManager under ``tmp``), the spawns through
     Executive.spawn (timed: the WCET admission), then start / rounds / sync
-    as phase 4's ``run``.  With ``start_only`` it returns the started fleet."""
+    as phase 4's ``run``, at most ``max_rounds``.  With ``start_only`` it
+    returns the started fleet."""
     from repro_torch.core.vm import FleetVM, vmstate as vms
     from repro_torch.exec import Executive, ExecutiveConfig, install_services
     from repro_torch.resilience import CheckpointManager
@@ -890,7 +937,7 @@ def executive_run(torch, cfg, dev, ring, executor, io_mode, tmp, start_only: boo
         return out
 
     fleet._service_host_io = service_io
-    res, dt, final = timed_run(torch, fleet, split)
+    res, dt, final = timed_run(torch, fleet, split, max_rounds=max_rounds)
     uart = scalar.stream if scalar else svcs.uart.stream
     return {"fleet": fleet, "res": res, "dt": dt, "final": final, "split": split, "uart": uart,
             "outs": [list(vm.out_stream) for vm in nodes], "ckpt": mgr.latest_step()}
@@ -1025,6 +1072,440 @@ def executive_phase(torch, kmod, check, cfg, dev, n_nodes, run) -> int:
                       "executive_over_baseline_s": mean["executive"]["s"] / mean["baseline"]["s"]}),
           flush=True)
     return launches
+
+
+def group_growth(engine, before: dict) -> dict:
+    """The trace engine's program groups that grew since ``before`` (their
+    node-slices then), with the node-slices each grew by."""
+    return {k: g["node_slices"] - before.get(k, 0) for k, g in engine.group_stats.items()
+            if g["node_slices"] != before.get(k, 0)}
+
+
+def node_slices(engine) -> dict:
+    return {k: g["node_slices"] for k, g in engine.group_stats.items()}
+
+
+class TailSpy:
+    """While on, counts vmloop's launches by kind: the trace tail's first
+    launch of a slice (every node, a budget tensor), its relaunches over
+    row lists, and any call of the kernel's plain version; the first tail
+    launch's inputs are kept (phase 5 times them)."""
+
+    def __init__(self, kmod):
+        from repro_torch.kernels.vmloop import ops
+
+        self.ops, self.kmod = ops, kmod
+        self.real_call, self.real_plain = ops.vmloop_call, kmod.run_core
+        self.counts = {"tail_first": 0, "rows": 0, "plain": 0}
+        self.first = None
+
+    def call(self, core, steps, cfg, isa=None, rows=None, budget=None, **kw):
+        if rows is None and budget is not None:
+            self.counts["tail_first"] += 1
+            if self.first is None:
+                self.first = (type(core)(*[x.clone() for x in core]), budget.clone())
+        elif rows is not None:
+            self.counts["rows"] += 1
+        return self.real_call(core, steps, cfg, isa, rows=rows, budget=budget, **kw)
+
+    def plain(self, *args, **kw):
+        self.counts["plain"] += 1
+        return self.real_plain(*args, **kw)
+
+    def __enter__(self):
+        self.ops.vmloop_call, self.kmod.run_core = self.call, self.plain
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.vmloop_call, self.kmod.run_core = self.real_call, self.real_plain
+
+
+def trace_phase(torch, kmod, check, cfg, dev, n_nodes) -> tuple:
+    """Phase 4g (a) and (b): TRACE_PROGRAM on every node (one program
+    group, the full-fleet path).  Round 0 by layer through ``mark`` (cold:
+    its recording falls in it) and the host syncs of one specialized slice
+    (``torch.cuda.set_sync_debug_mode``); then TRACE_ROUNDS rounds a run in
+    turns, trace, cuda, trace, cuda, then batched, each equal to the first
+    byte for byte; trace_stats() one group grown by n_nodes a round,
+    specialized_frac > 0.9, guard_exits <= total_steps, vmloop launched
+    only as the tail (a budget tensor) and never its plain version.  (b) the
+    same fleet under "auto": plan ("trace", False), predicted ["rnd"],
+    n_nodes AOT branch sets, nothing built during the run, the same bytes.
+    Returns the trace runs' vmloop launches and round 0's first tail launch
+    (core, budget)."""
+    import warnings
+    from collections import Counter
+
+    from repro_torch.core.vm import FleetVM, REXAVM, vmstate as vms
+
+    t0 = time.perf_counter()
+    nodes = [REXAVM(cfg, seed=1 + i, device=dev) for i in range(n_nodes)]
+    for vm in nodes:
+        vm.launch(vm.load(TRACE_PROGRAM))
+    init = [vms.clone(vm.state) for vm in nodes]
+    setup_s = time.perf_counter() - t0
+
+    def fresh(executor):
+        for vm, st in zip(nodes, init):
+            vm.state = vms.clone(st)
+        return FleetVM(nodes=nodes, executor=executor, device=dev)
+
+    # round 0 by layer, and the first tail launch's inputs
+    fleet = fresh("trace")
+    fleet.start()
+    S, ex = fleet._S, fleet.kernels.executor
+    eng = ex.engine
+    marks = []
+
+    def mark(layer):
+        torch.cuda.synchronize()
+        marks.append((layer, time.perf_counter()))
+
+    steps0, passes0, rec0 = S.steps.clone(), ex.spec_passes, eng.traces_recorded
+    with TailSpy(kmod) as spy:
+        mark("start")
+        ex.run_slice_batched(S, cfg.steps_per_slice, mark)
+        fleet.kernels.post_slice(S, steps0)
+        mark("route")
+    ms: dict = {}
+    for (_, a), (layer, b) in zip(marks, marks[1:]):
+        ms[layer] = ms.get(layer, 0.0) + 1e3 * (b - a)
+    count = Counter(layer for layer, _ in marks)
+    spec_steps = ex.spec_passes - passes0
+    tail = spy.first
+    if spy.counts["plain"] or tail is None:
+        fail(f"4g: round 0's tail: {spy.counts}")
+    # the host syncs of one specialized slice, as torch's sync debug mode sees them
+    passes1 = ex.spec_passes
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            ex.run_slice_batched(S, cfg.steps_per_slice)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    profile = profile_spec_slice(torch, ex, S, cfg.steps_per_slice)
+    # what the row helpers avoid: a device tensor built from a Python
+    # number, and an indexed store of one, as the sync debug mode sees them
+    idx = torch.zeros(4, dtype=torch.long, device=dev)
+    cells = torch.zeros(4, dtype=torch.int32, device=dev)
+    scalar_syncs = []
+    for op in (lambda: torch.as_tensor(7, dtype=torch.int32, device=dev),
+               lambda: cells.__setitem__(idx, 7)):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                op()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        scalar_syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    breakdown = {
+        "phase": "trace_breakdown", "round": 0, "nodes": n_nodes,
+        "schedule_ms": ms["schedule"], "probe_ms": ms["probe"],
+        "record_ms": ms.get("record", 0.0), "traces_recorded": eng.traces_recorded - rec0,
+        "spec_ms": ms["spec"], "spec_steps": spec_steps,
+        "ms_per_spec_step": ms["spec"] / max(spec_steps, 1),
+        "kernel_ms": ms["kernel"], "kernel_launches": count["kernel"],
+        "handback_ms": ms.get("tail", 0.0), "handbacks": count["tail"],
+        "preempt_ms": ms["preempt"], "route_warp_ms": ms["route"],
+        "round_ms": 1e3 * (marks[-1][1] - marks[0][1]),
+        "tail_budgets": [int(tail[1].min()), int(tail[1].max())],
+        "syncs_per_spec_step": syncs / max(ex.spec_passes - passes1, 1),
+        "syncs_as_tensor_and_setitem_of_a_number": scalar_syncs, **profile,
+    }
+    del fleet, S
+    # (a) the runs in turns
+    turns: dict = {}
+    ref = None
+    launches = 0
+    stats = None
+    for executor in ("trace", "cuda", "trace", "cuda", "batched"):
+        fleet = fresh(executor)
+        before = node_slices(eng)
+        split: dict = {}
+        kmod.vmloop_call.launches = 0
+        with TailSpy(kmod) as spy:
+            res, dt, final = timed_run(torch, fleet, split, max_rounds=TRACE_ROUNDS)
+        ran = kmod.vmloop_call.launches
+        if res.rounds != TRACE_ROUNDS:
+            fail(f"4g (a) {executor}: {res.rounds} rounds, expected {TRACE_ROUNDS}")
+        if ref is None:
+            ref = final
+        err, bad = check.max_abs_diff(final, ref)
+        if bad:
+            fail(f"4g (a): {executor} != the first trace run on {bad} (max abs err {err})")
+        steps = int(res.steps.sum())
+        if executor == "trace":
+            stats = fleet.trace_stats()
+            grown = group_growth(eng, before)
+            if (list(grown.values()) != [n_nodes * TRACE_ROUNDS] or stats["specialized_frac"] <= 0.9
+                    or stats["guard_exits"] > stats["total_steps"]):
+                fail(f"4g (a): groups grew {grown}, trace_stats {stats}")
+            if (spy.counts["plain"] or spy.counts["tail_first"] != TRACE_ROUNDS
+                    or ran != spy.counts["tail_first"] + spy.counts["rows"]):
+                fail(f"4g (a): vmloop {ran} launches, {spy.counts}: only the tail, a budget "
+                     "tensor each slice, never the plain version")
+            launches += ran
+        turns.setdefault(executor, []).append({"s": dt, "steps_per_s": steps / dt,
+                                               "launches": ran, **split})
+    if launches <= 0:
+        fail("4g: the trace path launched vmloop no time")
+    mean = {ex_: {k: sum(t[k] for t in v) / len(v) for k in v[0]} for ex_, v in turns.items()}
+    print(json.dumps({
+        "phase": "trace", "nodes": n_nodes, "rounds": TRACE_ROUNDS, "setup_s": setup_s,
+        "steps": steps, **{f"{ex_}_{k}": mean[ex_][k] for ex_ in mean
+                           for k in ("steps_per_s", "start_ms", "rounds_ms", "sync_ms")},
+        "trace_over_cuda": mean["trace"]["steps_per_s"] / mean["cuda"]["steps_per_s"],
+        "trace_stats": {k: v for k, v in stats.items() if k != "executor"},
+        "trace_launches": launches, "turns": turns,
+        "identical": ["trace=cuda=batched"],
+    }), flush=True)
+    print(json.dumps(breakdown), flush=True)
+    # (b) under auto
+    fleet = fresh("auto")
+    split = {}
+    fleet._resolve_auto = synchronized(torch, fleet._resolve_auto, split, "auditor_ms")
+    fleet.sync = synchronized(torch, fleet.sync, split, "sync_ms")
+    synchronized(torch, fleet.start, split, "start_ms")()
+    a = fleet.analysis_stats()
+    compiled = eng.traces_compiled
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    kmod.vmloop_call.launches = 0
+    with TailSpy(kmod) as spy:
+        res = fleet.run(max_rounds=TRACE_ROUNDS)
+    dt = time.perf_counter() - t
+    launches += kmod.vmloop_call.launches
+    final = vms.stack_states([vm.state for vm in nodes])
+    plan = (a["executor"], a["elide_checks"])
+    if (plan != ("trace", False) or a["predicted_bail_words"] != ["rnd"]
+            or a["aot_branch_sets"] != n_nodes):
+        fail(f"4g (b): plan {plan}, predicted {a['predicted_bail_words']}, "
+             f"{a['aot_branch_sets']} AOT branch sets")
+    err, bad = check.max_abs_diff(final, ref)
+    if bad or eng.traces_compiled != compiled or spy.counts["plain"]:
+        fail(f"4g (b): auto != the trace run on {bad}; built {eng.traces_compiled - compiled} "
+             f"during the run; {spy.counts}")
+    ts = fleet.trace_stats()
+    print(json.dumps({
+        "phase": "trace_auto", "nodes": n_nodes, "rounds": res.rounds, "plan": list(plan),
+        "predicted_bail_words": a["predicted_bail_words"], "aot_branch_sets": a["aot_branch_sets"],
+        "traces_compiled": ts["traces_compiled"], "built_during_run": 0,
+        "steps_per_s": int(res.steps.sum()) / (dt + split["start_ms"] / 1e3),
+        "auditor_ms": split["auditor_ms"], "start_ms": split["start_ms"],
+        "rounds_ms": 1e3 * dt - split["sync_ms"], "sync_ms": split["sync_ms"],
+        "specialized_frac": ts["specialized_frac"], "identical_to_trace": True,
+    }), flush=True)
+    return launches, tail
+
+
+def profile_spec_slice(torch, ex, S, steps: int) -> dict:
+    """One more slice of the trace engine under torch.profiler: kernels
+    and device ms a specialized step, the device's busy share of the
+    slice's wall time, and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    passes = ex.spec_passes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        ex.run_slice_batched(S, steps)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    spec = max(ex.spec_passes - passes, 1)
+    kernels = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        kernels[ev.key] = (kernels.get(ev.key, (0, 0.0))[0] + ev.count,
+                           kernels.get(ev.key, (0, 0.0))[1] + us)
+    busy = sum(us for _, us in kernels.values())
+    if busy <= 0:
+        return {"profile": "torch.profiler recorded no device time (not measured)"}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"profiled_wall_ms_per_spec_step": wall_us / 1e3 / spec,
+            "kernels_per_spec_step": sum(n for n, _ in kernels.values()) / spec,
+            "device_ms_per_spec_step": busy / 1e3 / spec, "device_busy_share": busy / wall_us,
+            "top_kernels_device_ms": {k[:60]: round(us / 1e3, 3) for k, (_, us) in top}}
+
+
+def trace_executive(torch, check, cfg, dev, n_nodes) -> None:
+    """Phase 4g (c): phase 4f's Executive fleet (the spawns, the services,
+    io_mode="vector") with TRACE_PROGRAM as task 0 and one fs.save program
+    for every node, so that all code segments are equal: a handful of
+    program groups, one per (entry pc) pattern.  TRACE_EXEC_ROUNDS rounds
+    under "trace" against "cuda": states, out streams, the UART stream,
+    checkpoints, executive_stats() and trace_stats()["exec_slices"]."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    ring = executive_setup(cfg, dev, n_nodes, main=lambda i: TRACE_PROGRAM, saver="7 fs.save out")
+    setup_s = time.perf_counter() - t0
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for executor in ("trace", "cuda"):
+            runs[executor] = executive_run(torch, cfg, dev, ring, executor, "vector", tmp,
+                                           max_rounds=TRACE_EXEC_ROUNDS)
+    rt, rc = runs["trace"], runs["cuda"]
+    bad = same_run(check, rt, rc)
+    et, ts = exec_stats(rt), rt["fleet"].trace_stats()
+    if bad or et != exec_stats(rc) or rt["ckpt"] != rc["ckpt"]:
+        fail(f"4g (c): trace != cuda under the Executive on {bad}")
+    if (ts["exec_slices"] != et["exec_slices"] or et["exec_slices"] != TRACE_EXEC_ROUNDS * 8
+            or ts["spec_steps"] <= 0):
+        fail(f"4g (c): trace_stats {ts}, executive_stats {et}")
+    steps = int(rt["res"].steps.sum())
+    print(json.dumps({
+        "phase": "trace_executive", "nodes": n_nodes, "rounds": rt["res"].rounds,
+        "setup_s": setup_s, "steps": steps,
+        **{f"{ex_}_{k}": r["split"][k] for ex_, r in runs.items()
+           for k in ("start_ms", "rounds_ms", "sync_ms", "admit_ms", "io_ms")},
+        **{f"{ex_}_steps_per_s": steps / r["dt"] for ex_, r in runs.items()},
+        "groups": len(ts["groups"]), "exec_slices": ts["exec_slices"],
+        "trace_stats": {k: v for k, v in ts.items() if k not in ("executor", "groups")},
+        "task_switches": et["task_switches"], "preemptions": et["preemptions"],
+        "syscalls": et["syscalls"], "identical_to_cuda": True,
+    }), flush=True)
+
+
+def trace_ring(check, cfg, dev, run, REXAVM, vms) -> None:
+    """Phase 4g (d): phase 4's ring (spawners: task and rnd) at
+    TRACE_RING_NODES nodes, one program a node, under "trace" (the
+    per-group gather and scatter, the recorder over every program) against
+    "cuda", byte for byte."""
+    n = TRACE_RING_NODES
+    nodes = [REXAVM(cfg, seed=1 + i, device=dev) for i in range(n)]
+    for i, vm in enumerate(nodes):
+        vm.launch(vm.load(ann_program(i, n)))
+    init = [vms.clone(vm.state) for vm in nodes]
+    out = {ex_: run(ex_, 1, ring=(nodes, init)) for ex_ in ("trace", "cuda")}
+    (ft, rt, dtt, St, _), (_, rc, dtc, Sc, _) = out["trace"], out["cuda"]
+    err, bad = check.max_abs_diff(St, Sc)
+    if bad or rt.outputs != rc.outputs or rt.rounds != rc.rounds or rt.statuses != ["halt"] * n:
+        fail(f"4g (d): trace ring != cuda ring on {bad} (max abs err {err}) at {n} nodes")
+    ts = ft.trace_stats()
+    print(json.dumps({
+        "phase": "trace_ring", "nodes": n, "rounds": rt.rounds, "steps": int(rt.steps.sum()),
+        "trace_s": dtt, "cuda_s": dtc, "traces_recorded": ts["traces_recorded"],
+        "spec_steps": ts["spec_steps"], "guard_exits": ts["guard_exits"],
+        "specialized_frac": ts["specialized_frac"], "identical_to_cuda": True,
+    }), flush=True)
+
+
+def trace_monitor_and_nodes(torch, check, dev, REXAVM, vms) -> None:
+    """Phase 4g (e): FleetServeMonitor(n=64, executor="trace") for three
+    steps against the "cuda" monitor (reports equal, one program group
+    grown); then REXAVM(backend="cuda") and REXAVM(backend="trace") on the
+    card over HOST_IO, byte for byte against backend="oracle", the cuda
+    backend's kernel counters checked."""
+    from repro_torch.config import VMConfig
+    from repro_torch.serve import FleetServeMonitor, ServeStats
+
+    reports, grown = {}, None
+    for executor in ("trace", "cuda"):
+        mon = FleetServeMonitor(n=MONITOR_NODES, executor=executor, device=dev)
+        eng = mon.fleet.kernels.executor.engine if executor == "trace" else None
+        before = node_slices(eng) if eng else None
+        for step in range(1, 4):
+            mon(ServeStats(steps=step, prefill_tokens=SERVE_BATCH * PROMPT_LEN,
+                           decode_tokens=SERVE_BATCH * step))
+        reports[executor] = mon.reports()
+        if eng:
+            grown = group_growth(eng, before)
+    if reports["trace"] != reports["cuda"] or len(grown) != 1:
+        fail(f"4g (e): trace monitor reports differ or groups grew {grown}")
+    cfg = VMConfig(cs_size=2048, steps_per_slice=64, mbox_size=4)
+    nodes_out = {}
+    for backend in ("cuda", "trace"):
+        for prog, fios in HOST_IO:
+            pair = {}
+            for b in (backend, "oracle"):
+                vm = REXAVM(cfg, backend=b, device=dev)
+                if fios:
+                    vm.svc_add("seven", lambda: 7, args=0, ret=1)
+                pair[b] = (vm, vm.run(vm.load(prog), max_slices=100))
+            (vb, rb), (vo, ro) = pair[backend], pair["oracle"]
+            err, bad = check.max_abs_diff(vms.stack1(vb.state), vms.stack1(vo.state))
+            if bad or (rb.status, rb.output, rb.steps) != (ro.status, ro.output, ro.steps) \
+                    or vb.out_stream != vo.out_stream:
+                fail(f"4g (e): REXAVM(backend={backend!r}) != oracle on {prog!r}: {bad}")
+            ex = vb.executor
+            if backend == "cuda":
+                ok = ex.kernel_steps > 0 and ex.kernel_steps + ex.fallback_steps == rb.steps
+                if fios:
+                    ok &= ex.bailouts >= 1 and ex.bail_hist.get("fios/trap", 0) >= 1
+                if "task" in prog:
+                    ok &= ex.bail_hist.get("task", 0) >= 1
+                if not ok:
+                    fail(f"4g (e): cuda backend counters on {prog!r}: kernel {ex.kernel_steps}, "
+                         f"fallback {ex.fallback_steps}, bailouts {ex.bailouts}, {ex.bail_hist}")
+                nodes_out[prog] = {"kernel_steps": ex.kernel_steps, "bailouts": ex.bailouts,
+                                   "bail_hist": ex.bail_hist}
+    print(json.dumps({"phase": "trace_monitor_nodes", "monitor_nodes": MONITOR_NODES,
+                      "monitor_groups_grown": grown, "reports_equal_cuda": True,
+                      "single_node_cuda": nodes_out, "single_node_equal_oracle": ["cuda", "trace"]}),
+          flush=True)
+
+
+def time_trace_tail(torch, kmod, check, tail, cfg) -> dict:
+    """Phase 5: vmloop at the trace tail's per-node budgets (round 0 of 4g's
+    fleet, after its specialized steps) in turns with the default instance
+    at cfg.steps_per_slice on the same state: ms per launch (CUDA events,
+    20 launches after 2 warm-ups, the state restored and a spin kernel
+    queued before each), the plain version's ms, held equal, and the bound:
+    the cells the launch changed, written once, and each retired
+    instruction's cell, read once; or its instructions at the INT32 rate."""
+    core0, budget = tail
+    tb = kmod._tables(None, core0.pc.device)[0]
+    work = type(core0)(*[x.clone() for x in core0])
+    kinds = {"tail": {"budget": budget}, "default": {}}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = dict.fromkeys(kinds, 0.0)
+    reps = 20
+    outs = {}
+    for rep in range(reps + 2):
+        for kind, kw in kinds.items():
+            for a, b in zip(work, core0):
+                a.copy_(b)
+            torch.cuda._sleep(SPIN_CYCLES // 100)
+            start.record()
+            out = kmod.vmloop_call(work, cfg.steps_per_slice if kind == "default" else 0, cfg, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            if rep >= 2:
+                total[kind] += start.elapsed_time(end)
+            outs[kind] = (type(core0)(*[x.clone() for x in work]), out[1:])
+    final, kout = outs["tail"]
+    plain = type(core0)(*[x.clone() for x in core0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pout = kmod.run_core(plain, tb, 0, cfg, budget=budget)[1:]
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    bad = [f for f, a, b in zip(core0._fields, final, plain) if not torch.equal(a, b)]
+    if bad or not all(torch.equal(a, b) for a, b in zip(kout, pout)):
+        fail(f"phase 5: vmloop at the trace tail's budgets != plain version on {bad}")
+    changed = sum(int((a != b).sum()) for a, b in zip(final, core0))
+    instrs = int(kout[0].sum())
+    nbytes = 4 * (changed + instrs)
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * instrs / INT32_OPS_PER_S
+    ms = total["tail"] / reps
+    rec = {"nodes": int(budget.shape[0]), "instance": "default", "budget": "trace tail",
+           "budgets": [int(budget.min()), int(budget.max())], "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "instructions": instrs, "bytes": nbytes, "default_ms": total["default"] / reps,
+           "ms_over_default": ms / (total["default"] / reps)}
+    print(f"vmloop timing n={rec['nodes']} at the trace tail's budgets {rec['budgets']}: "
+          f"{ms:.4f} ms/launch (default at {cfg.steps_per_slice} in turns {rec['default_ms']:.4f}), "
+          f"plain {plain_ms:.2f} ms, {instrs} instructions, bound {rec['bound_ms']:.6f} ms",
+          flush=True)
+    return rec
 
 
 def oracle_ring(torch, dev, check, VMConfig, REXAVM, FleetVM, vms) -> None:

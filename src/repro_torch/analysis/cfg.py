@@ -20,8 +20,8 @@ so the verifier reasons about the same program the kernels execute:
 :class:`Instr` is the single decoded-instruction record both the verifier
 (`repro_torch.analysis.verifier`) and the feasibility pass
 (`repro_torch.analysis.feasibility`) consume; ``trace_kind`` reproduces the
-reference trace-JIT's ``(tag, opcode)`` branch-set element byte for byte
-(the trace-JIT is not in the port yet).
+trace-JIT's ``(tag, opcode)`` branch-set element byte for byte
+(``core/vm/trace.py``, as the reference's).
 """
 
 from __future__ import annotations

@@ -17,11 +17,10 @@ Three static products drive ``FleetVM(executor="auto")``:
 ``plan_backend``    the selection policy, the reference's word for word:
                     the vmloop kernel (``"cuda"``, the reference's
                     ``"pallas"``) when it claims the whole footprint,
-                    the trace-JIT when every program is a predictable
-                    single path, the batched interpreter otherwise — and the
-                    checks-elided instance if and only if every live entry
-                    verified.  The port has no trace-JIT yet: a ``"trace"``
-                    plan makes ``FleetVM.start()`` raise.
+                    the trace-JIT (``"trace"``, ``core/vm/trace.py``) when
+                    every program is a predictable single path, the batched
+                    interpreter otherwise — and the checks-elided instance
+                    if and only if every live entry verified.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """The REXA VM in PyTorch: compiler, batched interpreter, the plain-Python
-Oracle, single node, device-resident fleet and voting ensemble
+Oracle, the trace-JIT, single node, device-resident fleet and voting ensemble
 (counterpart of ``repro.core.vm``; imports no JAX)."""
 
 from repro_torch.core.vm.spec import (
@@ -24,6 +24,7 @@ from repro_torch.core.vm.executor import (
     TorchExecutor,
     make_executor,
 )
+from repro_torch.core.vm.trace import TraceJitExecutor, program_key
 from repro_torch.core.vm.machine import REXAVM, RunResult
 from repro_torch.core.vm.fleet import FleetKernels, FleetResult, FleetVM, reference_round
 from repro_torch.core.vm.ensemble import EnsembleVM, VoteResult, replicate_state
@@ -34,7 +35,8 @@ __all__ = [
     "Compiler", "CompileError", "tokenize", "CodeFrame", "Dictionary", "FrameManager",
     "FiosRegistry", "DiosRegistry", "FleetIOService", "HostLink", "build_router",
     "Interpreter", "interp_for", "Oracle", "BatchedSliceExecutor", "CudaSliceExecutor",
-    "OracleExecutor", "OracleFleetExecutor", "TorchExecutor", "make_executor", "REXAVM",
+    "OracleExecutor", "OracleFleetExecutor", "TorchExecutor", "TraceJitExecutor",
+    "make_executor", "program_key", "REXAVM",
     "RunResult", "FleetKernels", "FleetResult", "FleetVM", "reference_round", "EnsembleVM",
     "VoteResult", "replicate_state", "vmstate",
 ]

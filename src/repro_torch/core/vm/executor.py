@@ -10,6 +10,10 @@
   * :class:`OracleExecutor`       — backend ``"oracle"``: the plain-Python
                                     reference (``core/vm/oracle.py``), in
                                     place on the host state;
+  * ``"cuda"`` and ``"trace"``      — the single-node backends over the two
+                                    engines below (``CudaSliceExecutor.
+                                    run_slice``, ``TraceJitExecutor.
+                                    run_slice``), copied as ``"torch"``;
   * :class:`BatchedSliceExecutor` — ``executor="batched"`` of the fleet: the
                                     batched interpreter over the stacked state;
   * :class:`CudaSliceExecutor`    — ``executor="cuda"`` of the fleet (the
@@ -20,13 +24,19 @@
                                     it, preempt;
   * :class:`OracleFleetExecutor`  — ``executor="oracle"`` of the fleet: every
                                     node's slice through the Oracle on the
-                                    host, slow by construction.
+                                    host, slow by construction;
+  * ``TraceJitExecutor``           — ``executor="trace"`` (``core/vm/trace.
+                                    py``): nodes grouped by program, each
+                                    group's recorded path replayed as
+                                    guarded specialized steps, then
+                                    ``CudaSliceExecutor``'s kernel passes as
+                                    the tail at each node's remaining budget.
 
 All update a stacked (or single) state in place and are byte-exact with
-each other and with the JAX reference.  The three fleet engines also run
+each other and with the JAX reference.  The four fleet engines also run
 the Executive's micro-slice (``schedule_prio -> vmloop -> preempt`` at a
 budget of the quantum, with ``switched``/``preempted`` per node):
-``run_slice_exec_batched`` on the batched and Oracle engines,
+``run_slice_exec_batched`` on the batched, Oracle and trace engines,
 ``run_slice_exec_batched_aux`` on the kernel's.  For the telemetry plane each
 fleet engine also offers ``obs_schedule(S) -> found`` and
 ``obs_execute(S, steps, found) -> ExecAux``: the same slice split at the
@@ -133,20 +143,45 @@ class CudaSliceExecutor:
     ``elide_checks=True`` launches the kernel's checks-elided instance and
     hands declined words to the checks-elided interpreter; the counting
     path (``obs_execute``) stays checked.
+
+    ``run_slice(state, steps)`` is the single-node protocol behind
+    ``REXAVM(backend="cuda")`` (the reference's ``PallasSliceExecutor.
+    run_slice``): the host-canonical state is copied to ``device`` as a
+    one-node stack, one slice runs, and it is copied back; ``h2d``/``d2h``
+    and their bytes count the copies, ``kernel_steps`` and
+    ``fallback_steps`` the instructions retired in the kernel and in the
+    interpreter, ``bailouts`` the slices that met a declined word and
+    ``bail_hist`` the slices that met each one (``"fios/trap"`` for FIOS
+    calls and traps).  With ``obs`` every slice runs the counting path and
+    ``op_hist`` accumulates its bins.
     """
 
     backend = "cuda"
 
-    def __init__(self, cfg: VMConfig, isa: ISA | None = None, elide_checks: bool = False):
+    def __init__(self, cfg: VMConfig, isa: ISA | None = None, elide_checks: bool = False,
+                 device=None, obs=None):
+        from repro_torch.obs.metrics import n_bins, normalize_obs
+
         self.cfg = cfg
         self.isa = isa
         self.elide_checks = elide_checks
         self.interp = interp_for(cfg, isa, elide_checks)
         self._checked = interp_for(cfg, isa)
+        self.device = device
+        self.obs = normalize_obs(obs)
+        self.op_hist = None if self.obs is None else np.zeros(n_bins(self.interp.isa), np.int64)
+        self.h2d = self.d2h = self.h2d_bytes = self.d2h_bytes = 0
+        self.kernel_steps = 0
+        self.fallback_steps = 0
+        self.bailouts = 0
+        self.bail_hist: dict[str, int] = {}
 
-    def _execute(self, S, steps: int, mark, node_hist=None):
+    def _execute(self, S, steps, mark, node_hist=None):
         """Kernel passes and hand-backs on a scheduled state; the caller
-        preempts.  ``node_hist`` ((N, num_ops + 4) int32), when given, accumulates each
+        preempts.  ``steps`` is one budget for every node (an int) or one
+        per node ((N,) int32: the trace-JIT's tail, each node's slice less
+        its specialized steps), which the first launch takes as ``budget``.
+        ``node_hist`` ((N, num_ops + 4) int32), when given, accumulates each
         node's retired instructions by bin.  Returns ``(n_exec, ever,
         met)`` as ``run_slice_batched_aux``'s last three."""
         from repro_torch.kernels.vmloop.ops import fleet_vmloop
@@ -156,8 +191,10 @@ class CudaSliceExecutor:
         it = self._checked if obs else self.interp
         N, nops = S.pc.shape[0], it.num_ops
         dev = S.pc.device
-        S, n_exec, bailed, bail_op, *h = fleet_vmloop(S, steps, self.cfg, self.isa, obs=obs,
-                                                      elide_checks=elide)
+        per_node = isinstance(steps, torch.Tensor)
+        S, n_exec, bailed, bail_op, *h = fleet_vmloop(
+            S, 0 if per_node else steps, self.cfg, self.isa, budget=steps if per_node else None,
+            obs=obs, elide_checks=elide)
         if obs:
             node_hist += h[0]
         mark("kernel")
@@ -170,15 +207,16 @@ class CudaSliceExecutor:
             cell = rows * (nops + 1) + torch.clamp(bail_op, 0, nops).long()
             met[cell] = met[cell] | hit
             pending = torch.zeros(N, dtype=torch.bool, device=dev)
-            pending[rows] = hit & (retired[rows] < steps)
+            pending[rows] = hit & (retired[rows] < (steps[rows] if per_node else steps))
             rows = pending.nonzero().flatten()          # the pass's one sync
             if rows.numel() == 0:
                 break
             retired += it.vmloop(S, 1, active=pending, hist=node_hist)[0]
             mark("tail")
+            left = (steps[rows] if per_node else steps) - retired[rows]
             S, n_r, bailed, bail_op, *h = fleet_vmloop(
-                S, steps, self.cfg, self.isa,
-                rows=rows.to(I32), budget=steps - retired[rows], obs=obs, elide_checks=elide,
+                S, 0 if per_node else steps, self.cfg, self.isa,
+                rows=rows.to(I32), budget=left, obs=obs, elide_checks=elide,
             )
             if obs:
                 node_hist.index_add_(0, rows, h[0])
@@ -246,6 +284,33 @@ class CudaSliceExecutor:
             deopts=bailed, kernel_steps=n_exec.sum(dtype=I32), bailed=bailed,
             bail_hist=met.to(I32),
         )
+
+
+    # -- the single-node protocol (REXAVM(backend="cuda")) ---------------------------
+
+    def run_slice(self, state, steps: int):
+        nbytes = vms.state_nbytes(state)
+        S = vms.stack1(vms.to_device(state, resolve_device(self.device)))
+        if S.cs.data_ptr() == state.cs.data_ptr():
+            S = vms.clone(S)
+        self.h2d += 1
+        self.h2d_bytes += nbytes
+        if self.op_hist is not None:
+            aux = self.obs_execute(S, steps, self.obs_schedule(S))
+            self.op_hist += aux.op_hist.cpu().numpy()
+            n_exec, bailed, hist = aux.kernel_steps, aux.bailed, aux.bail_hist
+        else:
+            _, n_exec, bailed, hist = self.run_slice_batched_aux(S, steps)
+        out = vms.unstack(vms.to_host(S), 0)
+        self.d2h += 1
+        self.d2h_bytes += nbytes
+        kernel = int(n_exec.sum())
+        self.kernel_steps += kernel
+        self.fallback_steps += int(out.steps) - int(state.steps) - kernel
+        self.bailouts += int(bailed.sum())
+        for word, count in bail_hist_dict(self.interp.isa, hist.cpu().numpy()).items():
+            self.bail_hist[word] = self.bail_hist.get(word, 0) + count
+        return out
 
 
 class OracleFleetExecutor:
@@ -413,18 +478,26 @@ class OracleExecutor:
 
 
 # The single-node backends of REXAVM(backend=...).
-VM_BACKENDS = ("torch", "oracle")
+VM_BACKENDS = ("torch", "oracle", "cuda", "trace")
 
 
 def make_executor(backend: str, cfg: VMConfig, isa: ISA | None = None, device=None, obs=None):
     """A single-node slice engine.  ``device=None`` is CUDA and raises
     without it (the Oracle runs on the host, but resolves the device all the
-    same); ``obs`` (None | bool | ObsConfig) turns on ``op_hist``."""
+    same); ``obs`` (None | bool | ObsConfig) turns on ``op_hist``.  On a
+    CPU device ``"cuda"`` (and the trace-JIT's tail) takes the vmloop
+    kernel's plain version."""
     device = resolve_device(device)
     if backend == "torch":
         return TorchExecutor(cfg, isa, device, obs=obs)
     if backend == "oracle":
         return OracleExecutor(cfg, isa, obs=obs)
+    if backend == "cuda":
+        return CudaSliceExecutor(cfg, isa, device=device, obs=obs)
+    if backend == "trace":
+        from repro_torch.core.vm.trace import TraceJitExecutor
+
+        return TraceJitExecutor(cfg, isa, device=device, obs=obs)
     raise ValueError(
         f"unknown VM backend {backend!r}: valid backends are "
         + ", ".join(repr(b) for b in VM_BACKENDS)

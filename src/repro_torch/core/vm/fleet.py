@@ -7,10 +7,12 @@ A round is three layers, all updating that state in place:
   1. one micro-slice per node (``schedule -> vmloop -> preempt``) on the
      batched interpreter (``executor="batched"``), on the vmloop CUDA
      kernel, which hands each word it declines to the interpreter
-     (``executor="cuda"``), or through the plain-Python Oracle on the host
-     (``executor="oracle"``); ``executor="auto"`` lets the Auditor
-     (``repro_torch.analysis``) pick batched or cuda at ``start()``, with
-     the stack checks elided where every program verified;
+     (``executor="cuda"``), through the plain-Python Oracle on the host
+     (``executor="oracle"``), or as the trace-JIT's guarded specialized
+     steps per program group with the kernel as the tail
+     (``executor="trace"``, ``core/vm/trace.py``); ``executor="auto"`` lets
+     the Auditor (``repro_torch.analysis``) pick batched, cuda or trace at
+     ``start()``, with the stack checks elided where every program verified;
   2. the virtual clock: ``now += max(1, executed * us_per_instr // 1000)``;
   3. mailbox routing (``routing.build_router``): all sends in (node, task)
      order, then all receives;
@@ -68,12 +70,13 @@ from repro_torch.core.vm.spec import (
     ST_YIELD,
     get_isa,
 )
+from repro_torch.core.vm.trace import TraceJitExecutor, program_key
 from repro_torch.core.vm.vmstate import VMState
 
 I32 = torch.int32
 _I32_MAX = 2 ** 31 - 1
 
-EXECUTORS = ("batched", "cuda", "oracle")
+EXECUTORS = ("batched", "cuda", "oracle", "trace")
 
 
 class FleetKernels:
@@ -106,6 +109,8 @@ class FleetKernels:
             self.executor = CudaSliceExecutor(cfg, isa, elide_checks)
         elif executor == "oracle":
             self.executor = OracleFleetExecutor(cfg, isa)
+        elif executor == "trace":
+            self.executor = TraceJitExecutor(cfg, isa)
         else:
             raise ValueError(
                 f"unknown fleet executor {executor!r}: valid executors are "
@@ -188,11 +193,14 @@ class FleetKernels:
         """One fleet round under the Executive: ``slices`` micro-slices of
         ``quantum`` instructions, each ``schedule_prio -> vmloop -> preempt``
         (under ``cuda`` the kernel at a budget of ``quantum`` with the
-        hand-back, ``CudaSliceExecutor.run_slice_exec_batched_aux``), then
-        the clock, the router and the warp once, the clock from the round's
-        instructions.  Returns ``(S, task_switches, preemptions,
-        kernel_steps, bailed, bail_hist)``, device int64 sums over the
-        micro-slices, zeros where the engine has no kernel.  ``mark`` as
+        hand-back, ``CudaSliceExecutor.run_slice_exec_batched_aux``; the
+        host-driven trace and Oracle engines through their
+        ``run_slice_exec_batched``), then the clock, the router and the warp
+        once, the clock from the round's instructions.  Returns ``(S,
+        task_switches, preemptions, kernel_steps, bailed, bail_hist)``,
+        device int64 sums over the micro-slices, zeros where the engine
+        reports no kernel counters (the trace engine's tail included, as
+        the reference's ``round_exec_host``).  ``mark`` as
         ``run_slice_exec_batched_aux``'s, and "route" after the tail."""
         q, k = self.executive.quantum, self.executive.slices
         ex = self.executor
@@ -279,12 +287,18 @@ class FleetVM:
     ``executor="auto"``: at every ``start()``/``push()`` the Auditor
     verifies each node's loaded programs and plans the engine
     (``analysis.plan_backend``, the reference's policy): ``"cuda"`` when the
-    kernel claims every reachable word, ``"batched"`` otherwise, each with
-    the stack checks elided when every entry verified, and the checked
+    kernel claims every reachable word, ``"trace"`` when every program is a
+    predictable single path (its predicted branch sets, the entry path's and
+    the steady loop's, are built before the first slice, so no build falls
+    inside a run), ``"batched"`` otherwise, the kernel and batched engines
+    with the stack checks elided when every entry verified, and the checked
     batched engine when any program has a verifier error.  Until the first
-    ``start()`` it runs checked ``batched``.  A ``"trace"`` plan (single-path
-    programs with declined words) raises ``NotImplementedError``: the port
-    has no trace-JIT yet.  ``analysis_stats()`` reports the plan.
+    ``start()`` it runs checked ``batched``.  ``analysis_stats()`` reports
+    the plan.
+
+    ``executor="trace"`` (the trace-JIT): ``start()``/``push()`` install each
+    node's ``program_key``; ``trace_stats()`` reports the engine's counters
+    since this fleet was created (or ``auto`` first planned trace).
     """
 
     def __init__(
@@ -361,6 +375,10 @@ class FleetVM:
         self._bailed_acc = 0
         self._bail_hist_acc = 0
         self._total_steps_acc = 0
+        # The trace engine's counters are monotonic and shared (one engine a
+        # VMConfig): keep this fleet's baseline and report deltas.
+        self._trace0 = self.kernels.executor.stats() if executor == "trace" else None
+        self._trace_steps_total = 0
         # Executive telemetry: device sums like the kernel's, plus the
         # admissions (Executive.spawn) and the task deadline misses.
         self._task_switches_acc = 0
@@ -410,7 +428,8 @@ class FleetVM:
 
     def kernel_stats(self) -> dict:
         """Instructions retired inside the vmloop kernel vs the interpreter
-        (zeros under the batched executor), with the keys and meanings of
+        (zeros under the batched, Oracle and trace executors, as the
+        reference's under its non-kernel engines), with the keys and meanings of
         the reference's ``pallas_stats()``: ``kernel_steps`` in the kernel,
         ``fallback_steps`` in the interpreter, ``bailed_node_rounds`` the
         node-rounds with at least one bail, and ``bail_hist`` each declined
@@ -446,18 +465,37 @@ class FleetVM:
         }
 
     def trace_stats(self) -> dict:
-        """The reference's trace-executor keys, zeroed: the trace-JIT is not
-        in the port yet (``metrics()`` keeps its schema)."""
+        """Trace-engine telemetry with the reference's keys and values,
+        counted since this fleet was created: traces recorded and built,
+        specialized steps, guard exits (deopts into the generic tail), the
+        share of executed instructions that ran specialized, per-program
+        groups, and the Executive micro-slices the engine drove.  The same
+        keys, zeroed, under every other executor."""
+        if self._trace0 is None:
+            return {
+                "executor": self.executor_kind,
+                "traces_recorded": 0,
+                "traces_compiled": 0,
+                "spec_steps": 0,
+                "guard_exits": 0,
+                "total_steps": 0,
+                "specialized_frac": 0.0,
+                "groups": {},
+                "exec_slices": 0,
+            }
+        now, base = self.kernels.executor.stats(), self._trace0
+        spec = now["spec_steps"] - base["spec_steps"]
+        total = self._trace_steps_total
         return {
             "executor": self.executor_kind,
-            "traces_recorded": 0,
-            "traces_compiled": 0,
-            "spec_steps": 0,
-            "guard_exits": 0,
-            "total_steps": 0,
-            "specialized_frac": 0.0,
-            "groups": {},
-            "exec_slices": 0,
+            "traces_recorded": now["traces_recorded"] - base["traces_recorded"],
+            "traces_compiled": now["traces_compiled"] - base["traces_compiled"],
+            "spec_steps": spec,
+            "guard_exits": now["guard_exits"] - base["guard_exits"],
+            "total_steps": total,
+            "specialized_frac": spec / total if total else 0.0,
+            "groups": now["groups"],
+            "exec_slices": int(self._exec_slices),
         }
 
     def executive_stats(self) -> dict:
@@ -580,28 +618,34 @@ class FleetVM:
         Runs at every start()/push(), exactly when compiles or incremental
         code loads land, so the plan reflects the programs about to run.
         Programs with verifier errors are not rejected here (the CLI is the
-        reject path): they run on the checked batched engine.  A plan the
-        port has no engine for raises."""
+        reject path): they run on the checked batched engine.  On a trace
+        plan every branch set the engine will record (each node's entry path
+        and steady loop, ``predict_branch_sets``) is built now, so the first
+        slice finds its steps ready and ``traces_compiled`` stays still
+        during the run."""
         from repro_torch.analysis.feasibility import plan_backend, predict_branch_sets
 
         reports = self._analyze_nodes()
-        branch_sets = []
+        branch_sets = []          # per node: the entry path's set (the plan's input)
+        aot_sets = []             # every set the engine will record
         for vm, rep in zip(self.nodes, reports):
             sets = (predict_branch_sets(vm.state.cs.cpu().numpy(), rep.entries[0].pc, vm.isa)
                     if rep.entries else ())
             branch_sets.append(sets[0] if sets else None)
+            aot_sets.extend(sets)
         plan = plan_backend(reports, branch_sets)
         self._node_reports = reports
         self._analysis = plan
-        if plan.executor == "trace":
-            raise NotImplementedError(
-                "executor='auto' planned the trace-JIT engine (single-path programs with "
-                f"declined words {sorted(plan.bail_words)}); the trace-JIT is not in the "
-                "port yet: run these programs with executor='batched' or 'cuda'")
         if (plan.executor, plan.elide_checks) != (self.executor_kind, self._elide):
             self.kernels = self._make_kernels(plan.executor, plan.elide_checks)
             self.executor_kind = plan.executor
             self._elide = plan.elide_checks
+            if plan.executor == "trace" and self._trace0 is None:
+                self._trace0 = self.kernels.executor.stats()
+        if plan.executor == "trace":
+            eng = self.kernels.executor.engine
+            for bs in aot_sets:
+                eng.fn_for(bs)
 
     def analysis_stats(self) -> dict:
         """Auditor telemetry with the reference's keys.  Under
@@ -639,13 +683,19 @@ class FleetVM:
     def start(self) -> None:
         """Stack the nodes' host states into the device-resident state.
         Under ``executor="auto"`` the Auditor runs first: verify the loaded
-        programs and resolve the engine."""
+        programs, resolve the engine and build the predicted trace steps;
+        under the trace engine the nodes' program keys are installed."""
         if self._auto:
             self._resolve_auto()
         stacked = vms.stack_states([vm.state for vm in self.nodes])
         self._S = vms.to_device(stacked, self.device)
         self.h2d += 1
         self.h2d_bytes += vms.state_nbytes(stacked)
+        if self.executor_kind == "trace":
+            # start()/push() is when compiles and code loads land: a changed
+            # code segment re-keys its trace-cache entries (stale keys would
+            # still be byte-safe, only slower).
+            self.kernels.executor.set_program_keys([program_key(vm.state.cs) for vm in self.nodes])
 
     def sync(self) -> None:
         """Copy the stacked state back into the nodes' host frontends."""
@@ -826,6 +876,7 @@ class FleetVM:
         self.rounds_total += rounds
         executed = self._S.steps.cpu().numpy().astype(np.int64) - steps0
         self._total_steps_acc += int(executed.sum())
+        self._trace_steps_total += int(executed.sum())
         self._S = None
         task0 = [int(vm.state.tstatus[0]) for vm in self.nodes]
         return FleetResult(

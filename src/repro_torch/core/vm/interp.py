@@ -48,6 +48,9 @@ from repro_torch.core.vm.spec import (
     ST_RUN,
     ST_SLEEP,
     ST_YIELD,
+    TAG_CALL,
+    TAG_LIT,
+    TAG_OP,
     get_isa,
 )
 from repro_torch.core.vm.vmstate import OUT_CHR, OUT_NUM
@@ -122,10 +125,7 @@ class _Rows:
 
     def set(self, field: str, v, where=None) -> None:
         x = getattr(self.S, field)
-        v = torch.as_tensor(v, dtype=x.dtype, device=x.device).expand(self.r.shape)
-        if where is not None:
-            v = torch.where(where, v, x[self.r, self.t])
-        x[self.r, self.t] = v
+        x[self.r, self.t] = _rowval(v, x.dtype, self.r, where, x[self.r, self.t] if where is not None else None)
 
     def add(self, field: str, d) -> None:
         x = getattr(self.S, field)
@@ -152,13 +152,9 @@ class _Rows:
         DS = self.it.cfg.ds_size
         dsp = self.get("dsp")
         idx = torch.clamp(dsp, 0, DS - 1).long()
-        v = torch.as_tensor(v, dtype=I32, device=dsp.device).expand(self.r.shape)
-        if where is not None:
-            v = torch.where(where, v, self.S.ds[self.r, self.t, idx])
-            self.set("dsp", dsp + 1, where)
-        else:
-            self.set("dsp", dsp + 1)
-        self.S.ds[self.r, self.t, idx] = v
+        old = self.S.ds[self.r, self.t, idx] if where is not None else None
+        self.set("dsp", dsp + 1, where)
+        self.S.ds[self.r, self.t, idx] = _rowval(v, I32, self.r, where, old)
 
     def fpush(self, v) -> None:
         FS = self.it.cfg.fs_size
@@ -182,7 +178,7 @@ class _Rows:
     def raise_exc(self, code, where=None) -> None:
         p = self.get("pending_exc")
         hit = p == 0 if where is None else (p == 0) & where
-        self.set("pending_exc", torch.where(hit, torch.as_tensor(code, dtype=I32, device=p.device), p))
+        self.set("pending_exc", torch.where(hit, code, p))
 
     def set_status(self, s, where=None) -> None:
         self.set("tstatus", s, where)
@@ -281,6 +277,19 @@ class _Rows:
         s_on = saddr != 0
         svals, _, _ = self.vread(torch.where(s_on, saddr, 1), self.it.cfg.max_vec, length=ln)
         return vscale(vals, svals, s_on[:, None])
+
+
+def _rowval(v, dtype, r: torch.Tensor, where=None, old=None) -> torch.Tensor:
+    """A per-row value ``v`` (a tensor, or a Python number for every row) of
+    ``dtype`` for rows ``r``, taken only ``where`` holds (``old`` elsewhere).
+    A Python number goes into the kernel as an argument (``torch.full``,
+    ``torch.where``): building a device tensor from it would be a blocking
+    host-to-device copy."""
+    if isinstance(v, torch.Tensor):
+        v = v.to(dtype)
+    elif where is None:
+        return torch.full(r.shape, v, dtype=dtype, device=r.device)
+    return v if where is None else torch.where(where, v, old)
 
 
 def vscale(vals, svals, s_on):
@@ -639,8 +648,7 @@ def _bodies(cfg: VMConfig, isa: ISA) -> dict[str, Callable[[_Rows], None]]:
 
         def put(field, v):
             x = getattr(S, field)
-            v = torch.as_tensor(v, dtype=x.dtype, device=x.device).expand(r.shape)
-            x[r, sl] = torch.where(found, v, x[r, sl])
+            x[r, sl] = _rowval(v, x.dtype, r, found, x[r, sl])
 
         put("pc", addr)
         put("dsp", 0)
@@ -884,21 +892,27 @@ class Interpreter:
     def running(self, S) -> torch.Tensor:
         return S.tstatus.gather(1, S.cur.long()[:, None])[:, 0] == ST_RUN
 
+    def _stack_fault(self, S, din, dout, fin, fout) -> torch.Tensor:
+        """(N,) bool: the stack pre-check fails for an instruction that pops
+        ``din`` and pushes ``dout`` data cells (``fin``/``fout`` loop cells),
+        per node or one for all."""
+        cfg = self.cfg
+        cur = S.cur.long()[:, None]
+        dsp = S.dsp.gather(1, cur)[:, 0]
+        fsp = S.fsp.gather(1, cur)[:, 0]
+        under = (dsp < din) | (fsp < fin)
+        over = (dsp - din + dout > cfg.ds_size) | (fsp - fin + fout > cfg.fs_size)
+        return under | over
+
     def _keys(self, S, active, sup):
         """The group key of every node's next instruction (see _K_*)."""
-        cfg = self.cfg
         pc_ok, tag, payload = self._fetch(S)
         code = torch.clamp(payload, 0, self.num_ops)
         if self.elide_checks:
             key = code
         else:
-            nd = self.needs(S.pc.device)[:, code.long()]
-            cur = S.cur.long()[:, None]
-            dsp = S.dsp.gather(1, cur)[:, 0]
-            fsp = S.fsp.gather(1, cur)[:, 0]
-            under = (dsp < nd[0]) | (fsp < nd[2])
-            over = (dsp - nd[0] + nd[1] > cfg.ds_size) | (fsp - nd[2] + nd[3] > cfg.fs_size)
-            key = torch.where(under | over, _K_STACK, code)
+            fault = self._stack_fault(S, *self.needs(S.pc.device)[:, code.long()])
+            key = torch.where(fault, _K_STACK, code)
         key = torch.where(tag == 1, _K_LIT, torch.where(tag == 2, _K_CALL,
                           torch.where(tag == 3, _K_TAGBAD, key)))
         key = torch.where(pc_ok, key, _K_PCBAD)
@@ -909,8 +923,13 @@ class Interpreter:
 
     # -- one instruction per row -------------------------------------------------------
 
-    def _step_group(self, S, key: int, r: torch.Tensor, payload: torch.Tensor) -> None:
+    def _step_group(self, S, key: int, r: torch.Tensor, payload) -> None:
+        """One instruction of kind ``key`` on rows ``r``; ``payload`` is the
+        fetched cells' payload per node ((N,) int32), or one Python int for
+        every row."""
         c = _Rows(self, S, r)
+        if isinstance(payload, torch.Tensor):
+            payload = payload[r]
         if key == _K_PCBAD:
             c.raise_exc(EXC_TRAP)
             c.set_status(ST_ERR)
@@ -922,17 +941,17 @@ class Interpreter:
             ri = torch.clamp(rsp, 0, self.cfg.rs_size - 1).long()
             S.rs[r, c.t, ri] = torch.where(over, S.rs[r, c.t, ri], pc + 1)
             c.set("rsp", rsp + 1, ~over)
-            c.set_pc(payload[r], ~over)
+            c.set_pc(payload, ~over)
             c.raise_exc(EXC_STACK, over)
             return
         c.set_pc(c.pc() + 1)
         if key == _K_LIT:
             if self.elide_checks:
-                c.dpush(payload[r])
+                c.dpush(payload)
             else:
                 over = c.get("dsp") >= self.cfg.ds_size
                 c.raise_exc(EXC_STACK, over)
-                c.dpush(payload[r], ~over)
+                c.dpush(payload, ~over)
         elif key == _K_TAGBAD:
             c.raise_exc(EXC_TRAP)
         elif key == _K_STACK:
@@ -959,6 +978,19 @@ class Interpreter:
         c.set("pending_exc", 0, exc)
         c.set_pc(handler, has)
         c.set_status(ST_ERR, exc & ~has)
+
+    def static_step(self, tag: int, code: int) -> "StaticStep":
+        """One instruction kind with its tag and (for an opcode) its op body
+        fixed when it is built, the counterpart of the reference's
+        ``make_static_step`` (the trace-JIT's specialized step,
+        ``core/vm/trace.py``).  On any rows whose next cell has that tag and
+        opcode, calling it equals ``vmloop(S, 1, active=rows)``: ``pc + 1``,
+        the opcode's stack pre-check (unless elided), the body (a literal's
+        push with its overflow test, a call's return-stack check, a
+        reserved tag's trap), then the step count and exception dispatch.
+        ``code`` is clipped to ``[0, num_ops]``: FIOS calls and
+        out-of-range payloads take ``bodies[num_ops]``."""
+        return StaticStep(self, tag, code)
 
     def vmloop(self, S, steps: int, active=None, budget=None, sup=None, hist=None):
         """Alg. 1: per node, run up to ``budget`` (default ``steps``)
@@ -1108,6 +1140,51 @@ class Interpreter:
         preempted = self.running_cur(S)
         self.preempt(S)
         return found, switched, preempted
+
+
+class StaticStep:
+    """``Interpreter.static_step(tag, code)``: ``step(S, rows, instr)``
+    retires the instruction cell ``instr`` (of this kind) on ``rows``, in
+    place.  ``groups(S, mask)`` and ``run(S, groups, instr)`` are the same
+    call split at its one host synchronization: ``groups`` sorts the masked
+    nodes into this kind's rows and, where the stack pre-check fails, the
+    stack fault's, so that a caller holding a mask (the trace-JIT's guard)
+    syncs once a step."""
+
+    def __init__(self, it: Interpreter, tag: int, code: int):
+        self.it = it
+        if tag == TAG_OP:
+            code = min(max(int(code), 0), it.num_ops)
+            self.key = code
+            self.need = None if it.elide_checks else tuple(n[code] for n in it._needs_host)
+        else:
+            self.key = {TAG_LIT: _K_LIT, TAG_CALL: _K_CALL}.get(tag, _K_TAGBAD)
+            self.need = None
+
+    def groups(self, S, mask: torch.Tensor) -> list:
+        """``[(key, rows)]`` of the nodes in ``mask``, each non-empty; the one
+        host sync of the step."""
+        if self.need is None:
+            rows = mask.nonzero().flatten()
+            return [(self.key, rows)] if rows.numel() else []
+        fault = self.it._stack_fault(S, *self.need)
+        cls = torch.where(mask, fault.to(I32), 2)        # 0 steps, 1 stack fault, 2 idle
+        order = torch.argsort(cls, stable=True)
+        n_ok, n_fault = torch.stack([(cls == 0).sum(), (cls == 1).sum()]).tolist()
+        out = [(self.key, order[:n_ok]), (_K_STACK, order[n_ok:n_ok + n_fault])]
+        return [(k, r) for k, r in out if r.numel()]
+
+    def run(self, S, groups: list, instr: int) -> None:
+        payload = int(instr) >> 2
+        for key, rows in groups:
+            self.it._step_group(S, key, rows, payload)
+        if groups:
+            self.it._finish(S, torch.cat([rows for _, rows in groups]))
+
+    def __call__(self, S, rows: torch.Tensor, instr: int) -> None:
+        mask = torch.zeros(S.pc.shape[0], dtype=torch.bool, device=S.pc.device)
+        mask[rows] = True
+        self.run(S, self.groups(S, mask), instr)
 
 
 @functools.lru_cache(maxsize=8)

@@ -5,13 +5,18 @@ registries behind one object.  The host application compiles code frames,
 runs micro-slices on the device, services FIOS calls and host streams
 between slices (the nested IO service loop of Fig. 10), and reads the
 output ring.  The host-canonical state is a single ``VMState`` of CPU
-tensors.  Slices run on one of two backends (``executor.make_executor``):
+tensors.  Slices run on one of four backends (``executor.make_executor``):
 
   * ``torch``  — the batched interpreter on ``device`` (the state is copied
                  there and back for each slice);
-  * ``oracle`` — the plain-Python reference, in place on the host state.
+  * ``oracle`` — the plain-Python reference, in place on the host state;
+  * ``cuda``   — the vmloop kernel with the hand-back of declined words (the
+                 reference's ``"pallas"``), copied as ``torch``; its
+                 executor counts ``kernel_steps``, ``bailouts``, ``bail_hist``;
+  * ``trace``  — the trace-JIT (``core/vm/trace.py``): the node's recorded
+                 path as guarded specialized steps, the kernel as the tail.
 
-Both give byte-identical states.
+All give byte-identical states.
 """
 
 from __future__ import annotations

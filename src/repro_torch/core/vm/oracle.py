@@ -97,7 +97,7 @@ class Oracle:
         self._ops = self._build_ops()
         # Optional tracer callback ``hook(pc, instr)`` invoked after every
         # successful in-bounds fetch, before the instruction executes (the
-        # trace-JIT's recorder in the reference).
+        # trace-JIT's recorder, ``core/vm/trace.py``).
         self.trace_hook = None
         # Optional counter callback ``hook(pc_ok, instr)`` invoked once per
         # *retired* step — including the invalid-pc trap step, which retires

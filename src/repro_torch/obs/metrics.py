@@ -30,7 +30,9 @@ stepped row), so counting cannot diverge from execution:
   * :func:`make_counting_finish` — counting vmloop with a per-node bound,
     then preempt;
   * :func:`classify_host`        — the plain-Python mirror for the Oracle's
-    ``step_hook``.
+    ``step_hook``;
+  * :func:`trace_spec_hist`      — the trace-JIT's specialized steps in
+    closed form over a recorded path's prefix table (never re-executed).
 
 The device classifier is ``core.vm.interp.bins_of``; the vmloop kernel's
 counting instance (``vmloop_call(..., obs=True)``) bins the instructions
@@ -161,6 +163,32 @@ def make_counting_slice(interp) -> Callable:
     return slice_obs
 
 
+def trace_spec_hist(n: torch.Tensor, hp, length: int, loop_start: int) -> torch.Tensor:
+    """Bin counts of the first ``n`` specialized steps of a recorded path,
+    summed over nodes: ``(NB,)`` int32 on ``n``'s device.
+
+    ``hp`` is the trace's ``(TRACE_MAX + 1, NB)`` prefix table (``hp[k]``
+    bins the first ``k`` recorded positions).  The trace runs positions
+    ``0 .. length - 1`` and then wraps to ``loop_start``, so for ``n``
+    retired steps::
+
+        base  = hp[min(n, length)]
+        extra = max(n - length, 0)            # steps past the first pass
+        cycle = hp[length] - hp[loop_start]   # one full wrap
+        tail  = hp[loop_start + extra % len(cycle)] - hp[loop_start]
+
+    Guards only stop consumption, so the retired steps are always exactly
+    this prefix of the position sequence."""
+    n = n.to(I32)
+    hp = torch.as_tensor(np.asarray(hp, np.int32), device=n.device)
+    base = hp[torch.clamp(n, max=length).long()]
+    extra = torch.clamp(n - length, min=0)
+    cyc_len = max(length - loop_start, 1)
+    cycle = (hp[length] - hp[loop_start])[None, :]
+    tail = hp[(loop_start + extra % cyc_len).long()] - hp[loop_start][None, :]
+    return (base + (extra // cyc_len)[:, None] * cycle + tail).sum(dim=0, dtype=I32)
+
+
 # ---------------------------------------------------------------------------
 # Per-slice / per-round device aggregates
 # ---------------------------------------------------------------------------
@@ -230,8 +258,8 @@ class FleetMetrics:
                     misses (``DeadlineMonitor.snapshot()``);
     ``pallas``    — ``kernel_stats()`` (the reference's ``pallas_stats()``)
                     minus the executor key;
-    ``trace``     — ``trace_stats()`` minus the executor key (zeroed: the
-                    trace-JIT is not ported yet);
+    ``trace``     — ``trace_stats()`` minus the executor key (zeroed
+                    outside ``executor="trace"``);
     ``transfers`` — ``transfer_stats()`` minus executor and rounds;
     ``executive`` — ``executive_stats()`` minus the executor key: the
                     Executive's and the syscall plane's live counters

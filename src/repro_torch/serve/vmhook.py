@@ -39,9 +39,10 @@ class FleetServeMonitor:
         engine.generate(prompts)
         monitor.reports()      # -> per-node list of reported values
 
-    ``executor`` is ``"batched"``, ``"cuda"`` (the vmloop kernel) or
-    ``"oracle"``; ``device=None`` runs on CUDA and raises when there is
-    none.  ``obs`` turns on the monitor fleet's telemetry (an
+    ``executor`` is ``"batched"``, ``"cuda"`` (the vmloop kernel),
+    ``"oracle"`` or ``"trace"`` (the trace-JIT: every node runs the same
+    job, one program group); ``device=None`` runs on CUDA and raises when
+    there is none.  ``obs`` turns on the monitor fleet's telemetry (an
     ``ObsConfig``, or ``True``), read by :meth:`metrics`.  ``mesh`` is not
     in the port yet and raises when given.
     """
@@ -90,8 +91,9 @@ class FleetServeMonitor:
         return self.fleet.transfer_stats()
 
     def trace_stats(self) -> dict:
-        raise NotImplementedError("trace_stats: the trace executor is not in the PyTorch "
-                                  "port yet (ROADMAP.md queue 1, item 5)")
+        """The monitor fleet's trace-engine counters (``FleetVM.
+        trace_stats()``: zeroed unless ``executor="trace"``)."""
+        return self.fleet.trace_stats()
 
     def metrics(self):
         """The monitor fleet's ``FleetMetrics``: the measuring jobs' own

@@ -10,8 +10,8 @@
   CLI's report;
 * ``FleetVM(executor="auto", device="cpu")``: a verified fleet runs the
   checks-elided engine byte for byte against both ``reference_round``s;
-  errors run checked ``batched``; a trace plan raises; ``push()`` plans
-  again; the predicted bail-out words are the observed ``bail_hist`` keys;
+  errors run checked ``batched``; a trace plan runs the trace-JIT with its
+  branch sets built at ``start()``; ``push()`` plans again; the predicted bail-out words are the observed ``bail_hist`` keys;
 * the kernel's checks-elided instance, built for the CPU with g++
   (``run_core<false, true>``), equals its plain version on the sweep and
   on random states, and on the verified sweep the reference's
@@ -398,17 +398,38 @@ def test_auto_error_fleet_runs_checked_batched():
     assert int(st.tstatus[0]) == ST_ERR and int(st.last_exc[0]) == EXC_STACK
 
 
-def test_auto_trace_plan_raises():
-    """Single-path programs with a declined word plan the trace-JIT, which
-    the port does not have: start() and run() raise; nothing else runs."""
+def test_auto_trace_plan_runs_on_the_trace_engine():
+    """Single-path programs with a declined word plan the trace-JIT: both
+    predicted branch sets of each node (entry path, steady loop) are built
+    at start(), nothing is built during 4 rounds, and the fleet ends byte
+    for byte as executor="batched" and the reference's reference_round."""
     fleet = make_fleet([SPIN_RND] * 2, "auto")
-    with pytest.raises(NotImplementedError, match="trace-JIT"):
-        fleet.start()
-    with pytest.raises(NotImplementedError, match="trace-JIT"):
-        fleet.run(max_rounds=2)
-    assert fleet._analysis.executor == "trace" and fleet._S is None
+    fleet.start()
     a = fleet.analysis_stats()
+    assert (a["executor"], a["elide_checks"]) == ("trace", False) == (fleet.executor_kind, False)
     assert a["predicted_bail_words"] == ["rnd"] and a["aot_branch_sets"] == 2
+    eng = fleet.kernels.executor.engine
+    sets = predict_branch_sets(fleet.nodes[0].state.cs.numpy(), fleet._node_reports[0].entries[0].pc)
+    assert len(sets) == 2 and all(bs in eng.fns for bs in sets)
+    compiled = eng.traces_compiled
+    batched = make_fleet([SPIN_RND] * 2, "batched")
+    batched.start()
+    jnodes = [JVM(JCFG, backend="oracle", seed=1 + i) for i in range(2)]
+    for jvm in jnodes:
+        jvm.launch(jvm.load(SPIN_RND))
+    for _ in range(4):
+        fleet.kernels.round(fleet._S, STEPS)
+        batched.kernels.round(batched._S, STEPS)
+        jref_round(jnodes, STEPS)
+    fleet.sync()
+    batched.sync()
+    assert eng.traces_compiled == compiled
+    assert fleet.trace_stats()["spec_steps"] > 0
+    for node, bn, jn in zip(fleet.nodes, batched.nodes, jnodes):
+        assert check.max_abs_diff(node.state, bn.state) == (0, [])
+        ref = vms.to_reference(node.state)
+        for f in jvms.VMState._fields:
+            assert np.array_equal(getattr(ref, f), np.asarray(getattr(jn.state, f))), f
 
 
 def test_push_plans_again():

@@ -21,7 +21,10 @@ instance (``elide_checks=True``) against its plain version, and a
 verified ``FleetVM(executor="auto")`` on it, byte-identical to the checked
 ``executor="cuda"`` fleet; the Executive round (``ExecutiveConfig``) on
 the kernel and under "auto", byte-identical to the batched Executive
-fleet with equal counters; a CUDA tensor never takes the
+fleet with equal counters; the trace-JIT fleet (the kernel as its tail
+at per-node budgets) byte-identical to ``executor="cuda"``, and the
+single-node ``"cuda"`` and ``"trace"`` backends to the Oracle; a CUDA
+tensor never takes the
 plain version (each launch counter grows), and no kernel runs on inputs
 that require grad.  Needs an
 NVIDIA GPU with nvcc; every test here skips without one.
@@ -29,6 +32,7 @@ NVIDIA GPU with nvcc; every test here skips without one.
 Run on the card with ``python -m pytest tests/test_torch_cuda.py``.
 """
 
+import collections
 import importlib
 
 import pytest
@@ -410,6 +414,75 @@ def test_executive_fleet_equals_batched(executor, cuda):
         assert ran[0] == ran[1] and ks["bail_hist"] == {}
 
 
+TRACE_PROGS = [
+    ": w 0 begin 1+ dup 300 >= until drop ; w 0 v get 10 < if 1 else 2 endif . halt",
+    "0 20 0 do 5 rnd + 1+ loop . halt",
+    ": t 3 . end ; 0 0 $ t task drop 7 rnd . halt",
+]
+
+
+def test_trace_fleet_equals_cuda(cuda):
+    """The trace-JIT on the card: program groups of several nodes (data
+    divergence inside one group), declined words as specialized steps, the
+    vmloop kernel as the tail at per-node budgets (its launch counter grows,
+    the plain version is never taken); byte-identical to executor="cuda"."""
+    cfg = CFGS[0]
+    n = 12
+    out = {}
+    for executor in ("trace", "cuda"):
+        fleet = FleetVM(cfg, n=n, executor=executor, device=cuda)
+        for i, node in enumerate(fleet.nodes):
+            node.dios_add("v", [7 * i])
+            node.launch(node.load(TRACE_PROGS[i % len(TRACE_PROGS)]))
+        launches = kmod.vmloop_call.launches
+        res = fleet.run(max_rounds=80)
+        assert res.statuses == ["halt"] * n
+        out[executor] = (res, vms.stack_states([vm.state for vm in fleet.nodes]), fleet,
+                         kmod.vmloop_call.launches - launches)
+    (rt, St, ft, lt), (rc, Sc, _, lc) = out["trace"], out["cuda"]
+    assert rt.rounds == rc.rounds and rt.outputs == rc.outputs
+    assert check.max_abs_diff(St, Sc) == (0, [])
+    ts = ft.trace_stats()
+    assert lt >= rt.rounds and lc > 0
+    assert ts["spec_steps"] > 0 and ts["guard_exits"] > 0 and len(ts["groups"]) >= len(TRACE_PROGS)
+    assert ft.kernel_stats()["kernel_steps"] == 0
+
+
+@pytest.mark.parametrize("backend", ["cuda", "trace"])
+def test_single_node_backends_equal_oracle(backend, cuda):
+    """REXAVM(backend="cuda"|"trace") on the card over the reference's
+    host-IO programs: an `out` mid-slice, a FIOS call, a spawned task with
+    sleep/await; byte-identical to the Oracle, with the kernel's counters."""
+    from repro_torch.core.vm import REXAVM
+
+    cfg = CFGS[0]
+    progs = [("0 30 0 do 1+ loop out halt", False), ("seven 1+ halt", True),
+             ("var flag : w 1 flag ! end ; 0 0 $ w task drop 100 1 flag await . flag @ . halt",
+              False)]
+    for prog, fios in progs:
+        vms_ = {}
+        for b in (backend, "oracle"):
+            vm = REXAVM(cfg, backend=b, device=cuda)
+            if fios:
+                vm.svc_add("seven", lambda: 7, args=0, ret=1)
+            launches = kmod.vmloop_call.launches
+            res = vm.run(vm.load(prog), max_slices=100)
+            vms_[b] = (vm, res, kmod.vmloop_call.launches - launches)
+        (vb, rb, lb), (vo, ro, _) = vms_[backend], vms_["oracle"]
+        assert (rb.status, rb.output, rb.steps) == (ro.status, ro.output, ro.steps), prog
+        assert vb.out_stream == vo.out_stream
+        assert check.max_abs_diff(vms.stack1(vb.state), vms.stack1(vo.state)) == (0, [])
+        assert lb >= rb.slices
+        ex = vb.executor
+        assert ex.h2d == ex.d2h == rb.slices
+        if backend == "cuda":
+            assert ex.kernel_steps > 0 and ex.kernel_steps + ex.fallback_steps == rb.steps
+            if fios:
+                assert ex.bailouts >= 1 and ex.bail_hist.get("fios/trap", 0) >= 1
+            if "task" in prog:
+                assert ex.bail_hist.get("task", 0) >= 1
+
+
 @pytest.mark.parametrize("M,K,N", [(8, 2560, 640), (1, 6912, 2560), (64, 2560, 6912),
                                    (3, 100, 37), (65, 257, 129)])
 def test_fixmatmul_bitwise_equals_plain_version(M, K, N, cuda):
@@ -491,7 +564,9 @@ def test_fixmatmul_stream_is_one_launch(cuda):
             fmod.fixmatmul(*ops)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(names) == 3 and all("fixmatmul_stream_kernel" in n for n in names), names
+    seen = dict(collections.Counter(names))
+    assert len(names) == 3 and all("fixmatmul_stream_kernel" in n for n in names), (
+        f"CUDA events torch.profiler saw (name: count): {seen}")
 
 
 @pytest.mark.parametrize("M,kernel,tile,splits,per", [

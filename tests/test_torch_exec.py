@@ -67,7 +67,7 @@ JCFG = JCfg(cs_size=2048, steps_per_slice=64, mbox_size=4)
 CFG = VMConfig(cs_size=2048, steps_per_slice=64, mbox_size=4)
 JECFG = JExecCfg(quantum=16, slices=4)
 ECFG = ExecutiveConfig(quantum=16, slices=4)
-EXECUTORS = ("batched", "cuda", "oracle")
+EXECUTORS = ("batched", "cuda", "oracle", "trace")
 
 
 # ---------------------------------------------------------------------------

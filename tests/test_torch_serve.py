@@ -156,15 +156,28 @@ def test_monitor_matches_jax_monitor(engines):
     assert stats["io_syscalls"] == stats["io_svc_batches"] == 0
 
 
-def test_monitor_options_not_ported():
-    """Node sharding and the trace executor's stats are not in the port
-    yet and raise; ``obs`` and ``metrics()`` are (tests/test_torch_obs.py)."""
+def test_monitor_options_not_ported(engines):
+    """Node sharding is not in the port yet and raises.  ``trace_stats()``
+    is the monitor fleet's, and a ``"trace"`` monitor (one program group)
+    reports as the ``"batched"`` one; ``obs`` and ``metrics()`` are in
+    tests/test_torch_obs.py."""
     with pytest.raises(NotImplementedError, match="mesh"):
         FleetServeMonitor(n=1, mesh=object(), device="cpu")
     mon = FleetServeMonitor(n=1, cfg=VMConfig(**VM_CFG), device="cpu", obs=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        mon.trace_stats()
+    assert mon.trace_stats() == mon.fleet.trace_stats()
     assert mon.metrics().as_dict()["counters"]["rounds_observed"] == 0
+    _, eng = engines["plain"]
+    reports = {}
+    for executor in ("trace", "batched"):
+        m = FleetServeMonitor(n=2, cfg=VMConfig(**VM_CFG), executor=executor, device="cpu")
+        ServeEngine(eng.model, eng.params, max_len=48, on_step=m).generate(
+            PROMPTS[:2], max_new_tokens=3)
+        reports[executor] = m.reports()
+        if executor == "trace":
+            stats = m.trace_stats()
+            assert stats == m.fleet.trace_stats() and stats["executor"] == "trace"
+            assert len(stats["groups"]) >= 1 and stats["spec_steps"] > 0
+    assert reports["trace"] == reports["batched"] == [[2, 2, 2]] * 2
 
 
 def test_cli_serves_smoke(capsys):
