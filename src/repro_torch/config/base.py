@@ -17,8 +17,10 @@ from typing import Any, Optional
 class ModelConfig:
     """Architecture description (the reference's ``ModelConfig``).
 
-    ``family`` selects the block layout; the port builds "dense" so far
-    (pre-norm decoder transformer, GQA + RoPE, optional sliding window).
+    ``family`` selects the block layout; the port builds "dense"
+    (pre-norm decoder transformer, GQA + RoPE, optional sliding window),
+    "moe" (dense attention + mixture-of-experts MLP) and "rwkv6"
+    (attention-free RWKV6 time/channel mix).
     """
 
     name: str

@@ -1,7 +1,7 @@
 """Architecture registry: configs register themselves on import
 (counterpart of ``repro.config.registry``).
 
-``get_arch("h2o-danube-1.8b")`` returns the full config and
+``get_arch("qwen2-moe-a2.7b")`` returns the full config and
 ``get_smoke(...)`` the reduced same-family config of the CPU tests.  The
 port registers the archs whose family it builds; the JAX package's other
 archs raise, naming what they wait for.
@@ -17,17 +17,17 @@ _ARCHS: dict[str, ModelConfig] = {}
 _SMOKE: dict[str, ModelConfig] = {}
 
 _ARCH_MODULES = {
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "granite-34b": "repro_torch.configs.granite_34b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 # The JAX package's other archs, with what the port still lacks for each.
 _NOT_PORTED = {
-    "starcoder2-7b": "the other dense configs",
-    "glm4-9b": "the other dense configs",
-    "granite-34b": "the other dense configs",
-    "qwen2-moe-a2.7b": "the moe family (moe_sorted)",
-    "qwen3-moe-30b-a3b": "the moe family (moe_sorted)",
     "internvl2-2b": "the vlm family",
     "whisper-tiny": "the encdec family",
     "zamba2-1.2b": "the hybrid family (mamba2)",

@@ -17,6 +17,9 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
+# Under jit XLA turns the reference's ``absmax / 127.0`` into a product with
+# the f32 reciprocal; the int8 cache's scales are that product.
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
 def softmax_scale(hd: int) -> float:
@@ -112,31 +115,51 @@ def blocked_attention(
 # -- decode attention (one new token vs a KV cache) ---------------------------------
 
 class KVCache(NamedTuple):
-    """Float KV cache.  ``k``/``v`` are (B, S, KV, hd), with a leading layer
-    axis at the model level; ``pos`` is the next absolute position (= tokens
-    seen).  ``decode_attention`` writes the new token into ``k``/``v`` in
+    """KV cache.  ``k``/``v`` are (B, S, KV, hd), with a leading layer
+    axis at the model level: float, or int8 codes (the paper's C4 cache)
+    with per-(token, head) f32 dequant scales ``ks``/``vs`` (B, S, KV, 1);
+    a float cache carries (1, 1, 1, 1) placeholders there, as the
+    reference does.  ``pos`` is the next absolute position (= tokens
+    seen).  ``decode_attention`` writes the new token into the tensors in
     place (the reference returns new arrays) and returns ``pos + 1``."""
 
     k: torch.Tensor
     v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
     pos: int
 
     @staticmethod
     def init(batch, length, kv_heads, head_dim, dtype, device, layers: int | None = None):
-        if not dtype.is_floating_point:
-            raise NotImplementedError(
-                "the int8 KV cache (kv_cache_dtype='int8') is not in the PyTorch port yet "
-                "(ROADMAP.md queue 1)")
-        shape = ((layers,) if layers is not None else ()) + (batch, length, kv_heads, head_dim)
+        """``dtype`` int8 gives the quantized cache."""
+        lead = (layers,) if layers is not None else ()
+        quant = not dtype.is_floating_point
+        scale_shape = lead + ((batch, length, kv_heads, 1) if quant else (1, 1, 1, 1))
+        shape = lead + (batch, length, kv_heads, head_dim)
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
+            ks=torch.ones(scale_shape, dtype=torch.float32, device=device),
+            vs=torch.ones(scale_shape, dtype=torch.float32, device=device),
             pos=0,
         )
 
+    @property
+    def quantized(self) -> bool:
+        return not self.k.dtype.is_floating_point
+
     def layer(self, i: int) -> "KVCache":
         """Layer ``i`` of a model-level cache (views: writes land in it)."""
-        return KVCache(self.k[i], self.v[i], self.pos)
+        return KVCache(self.k[i], self.v[i], self.ks[i], self.vs[i], self.pos)
+
+
+def _quantize_token(x: torch.Tensor):
+    """x: (B, 1, KV, hd) float -> (int8, f32 scale (B, 1, KV, 1))."""
+    x32 = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
+    scale = torch.clamp(absmax * _INV_127, min=1e-12)
+    q = torch.clamp(torch.round(x32 / scale), -128, 127).to(torch.int8)
+    return q, scale
 
 
 def decode_attention(
@@ -151,20 +174,33 @@ def decode_attention(
 
     Full cache: slot = pos.  Sliding window (cache length S <= window):
     ring-buffer slot = pos % S, and only slots written within the last
-    min(pos + 1, S) steps are visible."""
+    min(pos + 1, S) steps are visible.  An int8 cache stores the token's
+    codes and scales, dequantizes in bf16 and contracts bf16 q and p in
+    f32, as the reference does whatever the model's dtype."""
     B, _, H, hd = q.shape
     _, S, KV, _ = cache.k.shape
     G = H // KV
     scale = softmax_scale(hd)
     pos = cache.pos
     dev = q.device
+    bf16, f32 = torch.bfloat16, torch.float32
 
     slot = pos % S if window is not None else pos
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    quant = cache.quantized
+    if quant:
+        for codes, scales, new in ((cache.k, cache.ks, k_new), (cache.v, cache.vs, v_new)):
+            qx, sc = _quantize_token(new)
+            codes[:, slot] = qx[:, 0]
+            scales[:, slot] = sc[:, 0]
+        kk = (cache.k.to(bf16) * cache.ks.to(bf16)).to(f32)
+        qg = q.reshape(B, KV, G, hd).to(bf16).to(f32)
+    else:
+        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+        kk = cache.k.to(f32)
+        qg = q.reshape(B, KV, G, hd).to(f32)
 
-    qg = q.reshape(B, KV, G, hd).to(torch.float32)
-    s = torch.einsum("bngh,bsnh->bngs", qg, cache.k.to(torch.float32)) * scale
+    s = torch.einsum("bngh,bsnh->bngs", qg, kk) * scale
     idx = torch.arange(S, device=dev)
     if window is None:
         valid = idx <= pos
@@ -173,7 +209,12 @@ def decode_attention(
         valid = age < min(pos + 1, S)
     s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bngs,bsnh->bngh", p.to(cache.v.dtype).to(torch.float32),
-                     cache.v.to(torch.float32))
+    if quant:
+        vv = (cache.v.to(bf16) * cache.vs.to(bf16)).to(f32)
+        p = p.to(bf16).to(f32)
+    else:
+        vv = cache.v.to(f32)
+        p = p.to(cache.v.dtype).to(f32)
+    o = torch.einsum("bngs,bsnh->bngh", p, vv)
     out = o.reshape(B, 1, H, hd).to(q.dtype)
-    return out, KVCache(cache.k, cache.v, pos + 1)
+    return out, cache._replace(pos=pos + 1)

@@ -1,5 +1,6 @@
 """Model factory (counterpart of ``repro.models.model``) for the families
-the port builds: ``family="dense"`` (``Model``) and ``family="rwkv6"``
+the port builds: ``family="dense"`` and ``family="moe"`` (``Model``; moe
+swaps each layer's MLP for ``moe_sorted``) and ``family="rwkv6"``
 (``RWKV6Model``).
 
 ``build_model(cfg)`` returns a model with
@@ -7,12 +8,13 @@ the port builds: ``family="dense"`` (``Model``) and ``family="rwkv6"``
   * ``init(seed) -> params``                 nested dict; ``layers`` is a list
   * ``forward(params, batch) -> (logits, aux)``   prefill
   * ``init_cache(batch, cache_len) -> cache``    decode state (a
-    ``KVCache``, or an ``RWKVState`` stacked over layers)
+    ``KVCache``, float or int8 by ``cfg.kv_cache_dtype``, or an
+    ``RWKVState`` stacked over layers)
   * ``decode_step(params, cache, tokens) -> (logits, cache)``
 
 ``device=None`` builds on CUDA and raises when there is none;
 ``device="cpu"`` builds on the CPU.  The other families of the JAX package
-(moe, hybrid, encdec, vlm) raise: later slices of the port.
+(hybrid, encdec, vlm) raise: later slices of the port.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from repro_torch.models.quantized import qlinear
 
 
 class Model:
-    """A dense decoder LM: pre-norm layers, untied or tied unembedding."""
+    """A decoder LM of the dense or moe family: pre-norm layers, untied or
+    tied unembedding."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         self.cfg = cfg
@@ -54,7 +57,7 @@ class Model:
         return p
 
     def _init_layer(self, gen) -> dict:
-        return tf.init_decoder_layer(gen, self.cfg, self.dtype)
+        return tf.init_decoder_layer(gen, self.cfg, self.dtype, moe=self.cfg.family == "moe")
 
     def _embed(self, params, tokens):
         return params["embed"]["tokens"][tokens]
@@ -68,7 +71,8 @@ class Model:
 
     def forward(self, params, batch, *, attention=None):
         """Full-sequence forward over ``batch["tokens"]`` (B, S).  Returns
-        (logits (B, S, V), aux).  ``attention`` is passed to every layer
+        (logits (B, S, V), aux), aux the sum of the layers' MoE load-balance
+        losses (0 for dense).  ``attention`` is passed to every layer
         (see ``transformer.self_attention_full``)."""
         x = self._embed(params, batch["tokens"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -94,7 +98,7 @@ class Model:
         for i, lp in enumerate(params["layers"]):
             x, _ = tf.decoder_layer_decode(lp, self.cfg, x, cache.layer(i))
         x = tf.norm(self.cfg, x, params, "final")
-        return self._unembed(params, x), KVCache(cache.k, cache.v, cache.pos + 1)
+        return self._unembed(params, x), cache._replace(pos=cache.pos + 1)
 
 
 class RWKV6Model(Model):
@@ -160,7 +164,7 @@ class RWKV6Model(Model):
         return self._unembed(params, x), cache
 
 
-_FAMILIES = {"dense": Model, "rwkv6": RWKV6Model}
+_FAMILIES = {"dense": Model, "moe": Model, "rwkv6": RWKV6Model}
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

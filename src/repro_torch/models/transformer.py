@@ -1,8 +1,9 @@
-"""The dense decoder layer (counterpart of the dense parts of
-``repro.models.transformer``): pre-norm attention with GQA + RoPE and an
-optional sliding window, then a SwiGLU or plain MLP.  Projections go
-through ``qlinear``, so int8 ``{"q", "s"}`` weights take the fixmatmul
-kernel; full-sequence attention goes through the flash attention op.
+"""The decoder layer of the dense and moe families (counterpart of those
+parts of ``repro.models.transformer``): pre-norm attention with GQA + RoPE
+and an optional sliding window, then a SwiGLU or plain MLP, or the
+mixture of experts (``moe_sorted``).  Projections go through ``qlinear``,
+so int8 ``{"q", "s"}`` weights take the fixmatmul kernel; full-sequence
+attention goes through the flash attention op.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ from repro_torch.models.common import (
     layernorm,
     mlp_plain,
     mlp_swiglu,
+    normal_init,
     rmsnorm,
 )
+from repro_torch.models.moe import moe_sorted
 from repro_torch.models.quantized import qlinear
 
 
@@ -139,12 +142,40 @@ def apply_mlp(p, cfg: ModelConfig, x):
     return mlp_plain(x, p["w1"], p["w2"], act, cfg.use_bias, p.get("b1"), p.get("b2"))
 
 
-def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def init_moe_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d, fe, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    ep = cfg.num_expert_slots          # padded slots (e.g. 60 -> 64), never routed
+    p = {
+        "router": normal_init(gen, (d, e), torch.float32),
+        "w1": fanin_init(gen, (ep, d, fe), dtype),
+        "w3": fanin_init(gen, (ep, d, fe), dtype),
+        "w2": fanin_init(gen, (ep, fe, d), dtype),
+    }
+    if cfg.num_shared_experts > 0:
+        fs = fe * cfg.num_shared_experts
+        p["shared"] = {
+            "w1": fanin_init(gen, (d, fs), dtype),
+            "w3": fanin_init(gen, (d, fs), dtype),
+            "w2": fanin_init(gen, (fs, d), dtype),
+        }
+    return p
+
+
+def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig, dtype, moe: bool) -> dict:
     p = {"attn": init_attn_params(gen, cfg, dtype)}
     p |= init_norm(cfg, "ln1", cfg.d_model, dtype, gen.device)
     p |= init_norm(cfg, "ln2", cfg.d_model, dtype, gen.device)
-    p["mlp"] = init_mlp_params(gen, cfg, dtype)
+    if moe:
+        p["moe"] = init_moe_params(gen, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp_params(gen, cfg, dtype)
     return p
+
+
+def _moe(p, cfg: ModelConfig, h):
+    return moe_sorted(h, p, num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+                      act=act_fn(cfg.activation), capacity_factor=cfg.moe_capacity_factor,
+                      shared=p.get("shared"), groups=cfg.moe_groups)
 
 
 def decoder_layer_full(p, cfg: ModelConfig, x, *, attention=None):
@@ -153,15 +184,20 @@ def decoder_layer_full(p, cfg: ModelConfig, x, *, attention=None):
     x = x + self_attention_full(p["attn"], cfg, h, window=cfg.sliding_window,
                                 attention=attention)
     h = norm(cfg, x, p, "ln2")
+    if "moe" in p:
+        mo = _moe(p["moe"], cfg, h)
+        return x + mo.y, mo.aux_loss
     x = x + apply_mlp(p["mlp"], cfg, h)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def decoder_layer_decode(p, cfg: ModelConfig, x, cache: KVCache, *, window=None):
+    """Decode layer; the MoE aux loss is dropped, as in the reference."""
     h = norm(cfg, x, p, "ln1")
     attn, cache = self_attention_decode(p["attn"], cfg, h, cache,
                                         window=window or cfg.sliding_window)
     x = x + attn
     h = norm(cfg, x, p, "ln2")
-    x = x + apply_mlp(p["mlp"], cfg, h)
-    return x, cache
+    if "moe" in p:
+        return x + _moe(p["moe"], cfg, h).y, cache
+    return x + apply_mlp(p["mlp"], cfg, h), cache

@@ -5,7 +5,9 @@ fixmatmul bitwise equal (the streaming kernel at every decode batch
 M = 1..16 and shape, ragged, misaligned and at extreme codes, one launch
 a call; the tiled kernel above), flash attention within 1e-4 in f32 (the
 FP32 kernel) and 2e-2 in bf16 (the tensor-core kernel, one bf16 step of
-the output and of p), rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``)
+the output and of p; head_dim 128 causal without a window at query groups
+of 1, 9 and 48 among the shapes), a qwen2-moe SMOKE decode step on the
+int8 KV cache with int8 weights against the CPU, rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``)
 of the largest value on all three routes (the decode kernel at one step,
 also against its closed form and in an in-place chain, the one-block
 kernel at one chunk, the two passes at two or more, and the kernels held
@@ -649,6 +651,9 @@ def _flash_vs_plain(q, k, v, causal, window, tol):
     (1, 4, 1, 150, 150, 36, True, 70),          # hd 36: the padded copy (to 40)
     (2, 8, 2, 333, 333, 80, True, 200),         # B 2, GQA 4, a window of no multiple of 64
     (1, 8, 2, 100, 333, 80, False, None),       # non-causal ragged Sk
+    (1, 16, 16, 520, 520, 128, True, None),     # hd 128, causal, no window: G 1 (qwen2-moe)
+    (1, 36, 4, 300, 300, 128, True, None),      # G 9 (starcoder2-7b)
+    (1, 48, 1, 257, 257, 128, True, None),      # G 48, MQA (granite-34b)
 ])
 def test_flash_attention_matches_plain_version(B, H, KV, Sq, Sk, hd, causal, window, dtype,
                                                tol, cuda):
@@ -694,6 +699,32 @@ def test_flash_tc_entry_takes_only_the_routed_instance(hd, hd_pad, shift, cuda):
     torch.cuda.synchronize()
     valid = hd_pad == famod.route(q, k, v).hd_pad and shift == 0
     assert err == (0 if valid else 1)
+
+
+def test_moe_int8_kv_decode_matches_cpu(cuda):
+    """qwen2-moe SMOKE with int8 weights on the int8 KV cache: four decode
+    steps on the card (fixmatmul for the projections) against the CPU.
+    Last-bit differences of f32 sums can move an activation's int8 code or
+    a bf16-rounded value by one step; 2e-2 bounds what that does to a logit
+    (chip_smoke.py's SMOKE_TOL)."""
+    from repro_torch.config import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.models.quantized import quantize_params
+    from repro_torch.utils.tree import tree_map_with_names
+
+    cfg = get_smoke("qwen2-moe-a2.7b").replace(kv_cache_dtype="int8")
+    cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = quantize_params(cpu_model.init(0))
+    p_gpu = tree_map_with_names(lambda _, x: x.to(cuda), p_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (3, 4), generator=torch.Generator().manual_seed(0))
+    c_cpu, c_gpu = cpu_model.init_cache(3, 8), gpu_model.init_cache(3, 8)
+    before = fmod.fixmatmul.launches
+    for t in range(toks.shape[1]):
+        l_cpu, c_cpu = cpu_model.decode_step(p_cpu, c_cpu, toks[:, t:t + 1])
+        l_gpu, c_gpu = gpu_model.decode_step(p_gpu, c_gpu, toks[:, t:t + 1].to(cuda))
+        assert float((l_gpu.cpu() - l_cpu).abs().max()) <= 2e-2
+    assert fmod.fixmatmul.launches - before == 4 * (4 * cfg.num_layers + 1)
+    assert c_gpu.k.dtype == torch.int8 and c_gpu.pos == 4
 
 
 RWKV_TOL = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]

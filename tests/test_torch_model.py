@@ -1,12 +1,17 @@
-"""The PyTorch port's dense decoder LM against the JAX package, on the
+"""The PyTorch port's decoder LMs against the JAX package, with the JAX
+package's weights carried across by ``params_from_jax``: the
 h2o-danube-1.8b SMOKE config (2 layers, d 64, GQA 4/2, head_dim 16, a
-sliding window of 8, f32), with the JAX package's weights carried across
-by ``params_from_jax``.
+sliding window of 8, f32), and the SMOKE configs of starcoder2-7b,
+glm4-9b, granite-34b (dense) and qwen2-moe-a2.7b, qwen3-moe-30b-a3b
+(moe); and the int8 KV cache.
 
 Tolerances: float logits and caches at atol = rtol = 1e-5, since XLA and
 torch take the same f32 sums, roots, sines and cosines in another order
 or with another last-bit rounding.  Quantized codes and scales are exact.
-Quantized logits too (see ``test_quantized_decode_matches_jax``).
+Quantized logits too (see ``test_quantized_decode_matches_jax``).  The
+int8 KV cache dequantizes in bf16 and casts q and p to bf16 (as the
+reference does): from equal inputs its codes and scales are equal byte for
+byte; logits are held at INT8_KV_TOL (see ``test_int8_kv_cache_matches_jax``).
 """
 
 import dataclasses
@@ -22,12 +27,14 @@ from repro.config import get_arch as jget_arch
 from repro.config import get_smoke as jget_smoke
 from repro.kernels import set_kernels
 from repro.models import build_model as jbuild_model
+from repro.models.attention import KVCache as JKVCache
+from repro.models.attention import decode_attention as jdecode_attention
 from repro.models.quantized import quantization_error as jquantization_error
 from repro.models.quantized import quantize_params as jquantize_params
 
 from repro_torch.config import get_arch, get_smoke
 from repro_torch.models import build_model
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, decode_attention
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.models.quantized import quantization_error, quantize_params
 from repro_torch.utils.tree import tree_flatten_with_names
@@ -35,6 +42,7 @@ from repro_torch.utils.tree import tree_flatten_with_names
 torch.set_num_threads(1)
 
 ARCH = "h2o-danube-1.8b"
+NEW_ARCHS = ["starcoder2-7b", "glm4-9b", "granite-34b", "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"]
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
@@ -67,12 +75,14 @@ def test_config_equals_reference():
 
 
 def test_other_archs_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_arch("starcoder2-7b")
+    """The families the port does not build yet raise, naming the slice."""
+    for arch in ("zamba2-1.2b", "whisper-tiny", "internvl2-2b"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            get_arch(arch)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     with pytest.raises(NotImplementedError):
-        build_model(get_smoke(ARCH).replace(family="moe"), "cpu")
+        build_model(get_smoke(ARCH).replace(family="hybrid"), "cpu")
 
 
 def test_entry_points_default_to_cuda():
@@ -177,7 +187,163 @@ def test_init_draws_from_the_reference_distributions():
 
 
 def test_int8_kv_cache_not_ported():
-    cfg = get_smoke(ARCH).replace(kv_cache_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        build_model(cfg, "cpu").init_cache(1, 8)
+    """(The name is kept from when the port refused the int8 cache.)  The
+    int8 cache is built with the reference's shapes and dtypes: int8 codes,
+    f32 scales of ones (B, S, KV, 1) a layer; a float cache has (1, 1, 1,
+    1) placeholders; a window caps the length."""
+    for arch, kv in ((ARCH, "int8"), (ARCH, "auto"), ("qwen2-moe-a2.7b", "int8")):
+        jcfg, cfg = (g(arch).replace(kv_cache_dtype=kv) for g in (jget_smoke, get_smoke))
+        jc, c = jbuild_model(jcfg).init_cache(3, 12), build_model(cfg, "cpu").init_cache(3, 12)
+        for name in ("k", "v", "ks", "vs"):
+            a, b = np.asarray(getattr(jc, name)), getattr(c, name)
+            assert tuple(b.shape) == a.shape and str(b.dtype).split(".")[1] == a.dtype.name
+            assert np.array_equal(b.numpy(), a)
+        assert c.quantized == (kv == "int8") and c.pos == 0 == int(np.asarray(jc.pos)[0])
     assert KVCache.init(1, 4, 2, 8, torch.float32, "cpu").pos == 0
+
+
+# -- the int8 KV cache --------------------------------------------------------------
+
+# The logits of these SMOKE models stay below 0.75, where one bf16 step
+# (2**-8 of a value) is < 3e-3; INT8_KV_TOL is about two such steps.
+INT8_KV_TOL = dict(atol=5e-3, rtol=0)
+
+
+@pytest.mark.parametrize("window", [None, 4])
+def test_int8_decode_attention_matches_jax(window):
+    """decode_attention on the int8 cache from the same inputs: 10 steps
+    (a window of 4 wraps the ring), codes and scales byte for byte after
+    every step, the output within a bf16 step."""
+    B, S, H, KV, hd = 2, 10 if window is None else 4, 4, 2, 16
+    rng = np.random.default_rng(17)
+    jc = JKVCache.init(B, S, KV, hd, jnp.int8)
+    c = KVCache.init(B, S, KV, hd, torch.int8, "cpu")
+    step = jax.jit(jdecode_attention, static_argnames="window")
+    for t in range(10):
+        q, k, v = (rng.standard_normal((B, 1, n, hd)).astype(np.float32) for n in (H, KV, KV))
+        jout, jc = step(jnp.array(q), jnp.array(k), jnp.array(v), jc, window=window)
+        out, c = decode_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), c,
+                                  window=window)
+        assert c.pos == t + 1 == int(jc.pos)
+        for name in ("k", "v", "ks", "vs"):
+            a, b = np.asarray(getattr(jc, name)), getattr(c, name).numpy()
+            assert b.dtype == a.dtype and np.array_equal(b, a), (t, name)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), **INT8_KV_TOL)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "qwen2-moe-a2.7b"])
+def test_int8_kv_cache_matches_jax(arch):
+    """The whole model on the int8 cache, 10 steps (danube's window-8 ring
+    wraps; qwen2-moe's cache is full).  The cached k/v are computed by each
+    framework's own f32 sums, so a scale may differ in its last bit and a
+    code by one step where x / scale sits on a rounding edge; the logits
+    pass bf16-rounded q and p, where a last-bit difference moves a value by
+    one bf16 step (2**-8 of it): INT8_KV_TOL holds them.  (The scale is
+    the reference's as jitted: XLA turns ``absmax / 127.0`` into a product
+    with the f32 reciprocal, and so does the port.)"""
+    jcfg, cfg = (g(arch).replace(kv_cache_dtype="int8") for g in (jget_smoke, get_smoke))
+    jm, m = jbuild_model(jcfg), build_model(cfg, "cpu")
+    jp = jm.init(jax.random.key(1))
+    p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    toks = _tokens(21, (2, 10))
+    for t, jl, jc, logits, c in _decode_both(jm, jp, m, p, toks, cache_len=16):
+        assert c.k.dtype == torch.int8 and c.ks.dtype == torch.float32
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **INT8_KV_TOL)
+        np.testing.assert_allclose(c.ks.numpy(), np.asarray(jc.ks), **TOL)
+        np.testing.assert_allclose(c.vs.numpy(), np.asarray(jc.vs), **TOL)
+        for name in ("k", "v"):
+            d = np.abs(getattr(c, name).numpy().astype(np.int32) - np.asarray(getattr(jc, name)))
+            assert d.max() <= 1 and (d == 0).mean() > 0.99, (t, name)
+
+
+# -- the new configs: starcoder2-7b, glm4-9b, granite-34b, qwen2-moe, qwen3-moe -------
+
+@pytest.fixture(scope="module", params=NEW_ARCHS)
+def arch_pair(request):
+    arch = request.param
+    jcfg, cfg = jget_smoke(arch), get_smoke(arch)
+    jm = jbuild_model(jcfg)
+    jp = jm.init(jax.random.key(2))
+    m = build_model(cfg, "cpu")
+    return arch, jm, jp, m, params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_config_equals_reference(arch):
+    assert dataclasses.asdict(get_smoke(arch)) == dataclasses.asdict(jget_smoke(arch))
+    assert dataclasses.asdict(get_arch(arch)) == dataclasses.asdict(jget_arch(arch))
+    full = build_model(get_arch(arch), "cpu").cfg
+    assert full.head_dim == 128 and (full.family == "moe") == arch.startswith("qwen")
+
+
+def test_granite_keeps_the_gated_mlp():
+    """The reference's granite-34b config keeps the default gated MLP: 47.2 B
+    parameters, not the 34 B its name says; the port copies it as it is."""
+    c = get_arch("granite-34b")
+    assert c.mlp_gated and not c.use_bias and not c.tie_embeddings
+    layer = 2 * c.d_model * (c.q_dim + c.kv_dim) + 3 * c.d_model * c.d_ff + 2 * c.d_model
+    total = c.num_layers * layer + 2 * c.padded_vocab * c.d_model + c.d_model
+    assert round(total / 1e9, 1) == 47.2
+
+
+def test_new_params_round_trip(arch_pair):
+    arch, jm, jp, m, p = arch_pair
+    back = params_to_jax(p)
+    assert jax.tree.structure(back) == jax.tree.structure(jp)
+    for a, b in zip(jax.tree.leaves(jp), jax.tree.leaves(back)):
+        assert np.array_equal(np.asarray(a), b)
+    if "moe" in p["layers"][0]:
+        cfg = m.cfg
+        mp = p["layers"][1]["moe"]
+        assert mp["w1"].shape == (cfg.num_expert_slots, cfg.d_model, cfg.moe_d_ff)
+        assert mp["router"].dtype == torch.float32
+        assert ("shared" in mp) == (cfg.num_shared_experts > 0)
+
+
+def test_new_forward_matches_jax(arch_pair):
+    arch, jm, jp, m, p = arch_pair
+    toks = _tokens(5, (2, 12))
+    jl, jaux = jax.jit(jm.forward)(jp, {"tokens": jnp.array(toks)})
+    logits, aux = m.forward(p, {"tokens": torch.tensor(toks, dtype=torch.int64)})
+    assert logits.shape == (2, 12, 512)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
+    assert (float(aux) > 0) == arch.startswith("qwen")
+
+
+def test_new_decode_steps_match_jax(arch_pair):
+    arch, jm, jp, m, p = arch_pair
+    toks = _tokens(6, (2, 8))
+    for t, jl, jc, logits, c in _decode_both(jm, jp, m, p, toks, cache_len=12):
+        assert c.pos == t + 1 and c.k.shape == np.asarray(jc.k).shape
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+        np.testing.assert_allclose(c.k.numpy(), np.asarray(jc.k), **TOL)
+
+
+def test_new_quantized_leaves_match_jax(arch_pair):
+    """quantize_params quantizes exactly the reference's leaves: attention
+    and dense MLP projections and lm_head; never the experts, the shared
+    experts or the router, which stay float on both sides."""
+    arch, jm, jp, m, p = arch_pair
+    jq, q = jquantize_params(jp), quantize_params(p)
+    back = params_to_jax(q)
+    assert jax.tree.structure(back) == jax.tree.structure(jq)
+    for a, b in zip(jax.tree.leaves(jq), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype and np.array_equal(np.asarray(a), b)
+    names = {re.sub(r"^layers/\d+/", "layers/", n) for n in quantization_error(p, q)}
+    assert names == set(jquantization_error(jp, jq))
+    if arch.startswith("qwen"):
+        assert names == {f"layers/attn/{w}" for w in ("wq", "wk", "wv", "wo")} | {"lm_head"}
+        assert torch.equal(q["layers"][0]["moe"]["w1"], p["layers"][0]["moe"]["w1"])
+
+
+def test_new_quantized_int8_kv_decode_matches_jax(arch_pair):
+    """The serving path: int8 weights and the int8 KV cache together."""
+    arch, jm, jp, m, p = arch_pair
+    jcfg, cfg = (g(arch).replace(kv_cache_dtype="int8") for g in (jget_smoke, get_smoke))
+    jm8, m8 = jbuild_model(jcfg), build_model(cfg, "cpu")
+    toks = _tokens(8, (2, 6))
+    for _, jl, jc, logits, c in _decode_both(jm8, jquantize_params(jp), m8, quantize_params(p),
+                                             toks, cache_len=8):
+        assert c.k.dtype == torch.int8
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **INT8_KV_TOL)

@@ -1,6 +1,6 @@
 """The PyTorch port's serve engine and VM measuring job against the JAX
 package, on the h2o-danube-1.8b SMOKE config with the JAX weights carried
-across.  Greedy tokens must be equal (plain and int8-quantized weights);
+across, and on qwen2-moe-a2.7b's SMOKE config with the int8 KV cache.  Greedy tokens must be equal (plain and int8-quantized weights);
 the engine's quirks (prefill over the right-padded rectangle, ``on_step``
 after decode steps only, decode tokens counted per live row) are the
 reference's and are kept.  Sampling with a temperature draws from a
@@ -33,6 +33,7 @@ from repro_torch.serve import FleetServeMonitor, ServeEngine
 torch.set_num_threads(1)
 
 ARCH = "h2o-danube-1.8b"
+MOE_ARCH = "qwen2-moe-a2.7b"
 # The VMConfig of tests/test_serve.py and tests/test_vm_fleet.py.
 VM_CFG = dict(cs_size=2048, steps_per_slice=64, mbox_size=4)
 PROMPTS = [[3, 14, 15, 9, 26, 5, 35, 8, 97, 9, 32], [1, 2, 3, 4], [400, 12, 7, 511, 0, 44, 2]]
@@ -182,6 +183,48 @@ def test_monitor_options_not_ported(engines):
 
 def test_cli_serves_smoke(capsys):
     assert serve_cli.main(["--arch", ARCH, "--smoke", "--batch", "2", "--prompt-len", "5",
+                           "--new-tokens", "3"], device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "[serve] 6 new tokens" in out and "on cpu" in out
+
+
+@pytest.fixture(scope="module")
+def moe_engines():
+    """qwen2-moe SMOKE (8 experts in 10 slots, 2 shared) on the int8 KV
+    cache, as the reference reaches it: through the config."""
+    jcfg, cfg = (g(MOE_ARCH).replace(kv_cache_dtype="int8") for g in (jget_smoke, get_smoke))
+    jm = jbuild_model(jcfg)
+    jp = jm.init(jax.random.key(4))
+    m = build_model(cfg, "cpu")
+    p = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return {
+        "plain": (JServeEngine(jm, jp, JServeConfig(), max_len=48),
+                  ServeEngine(m, p, ServeConfig(), max_len=48)),
+        "quantized": (JServeEngine(jm, jquantize_params(jp), JServeConfig(), max_len=48),
+                      ServeEngine(m, quantize_params(p), ServeConfig(), max_len=48)),
+    }
+
+
+@pytest.mark.parametrize("weights", ["plain", "quantized"])
+def test_moe_int8_kv_greedy_tokens_equal_jax(moe_engines, weights):
+    jeng, eng = moe_engines[weights]
+    ref = jeng.generate(PROMPTS, max_new_tokens=16)
+    out = eng.generate(PROMPTS, max_new_tokens=16)
+    assert out == ref
+    assert [len(o) - len(p) for o, p in zip(out, PROMPTS)] == [16] * 3
+
+
+def test_moe_engine_with_monitor(moe_engines):
+    """The measuring job observes the moe engine as it does danube's."""
+    _, eng = moe_engines["quantized"]
+    monitor = FleetServeMonitor(n=2, cfg=VMConfig(**VM_CFG), executor="cuda", device="cpu")
+    engine = ServeEngine(eng.model, eng.params, ServeConfig(), max_len=48, on_step=monitor)
+    engine.generate(PROMPTS[:2], max_new_tokens=3)
+    assert monitor.reports() == [[2, 2, 2]] * 2
+
+
+def test_cli_serves_moe_smoke(capsys):
+    assert serve_cli.main(["--arch", MOE_ARCH, "--smoke", "--batch", "2", "--prompt-len", "4",
                            "--new-tokens", "3"], device="cpu") == 0
     out = capsys.readouterr().out
     assert "[serve] 6 new tokens" in out and "on cpu" in out
