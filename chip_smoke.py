@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: the REXAVM fleet, and
-h2o-danube-1.8b, rwkv6-7b, qwen2-moe-a2.7b (on the int8 KV cache) and the
-repo's other moe and dense configs served with the VM fleet as their
-measuring job.
+h2o-danube-1.8b, rwkv6-7b, qwen2-moe-a2.7b (on the int8 KV cache), the
+repo's other moe and dense configs, and zamba2-1.2b, whisper-tiny and
+internvl2-2b (the hybrid, encdec and vlm families) served with the VM
+fleet as their measuring job.
 
     python3 chip_smoke.py [--nodes N]
 
@@ -97,7 +98,7 @@ each printing its results on a line of its own:
      serve monitor runs three steps with obs on the counting instance;
   6. fixmatmul bitwise against its plain version at danube's decode shapes
      (M = 1, 2, 4, 8, 16 on the streaming kernel, 17 and 64 on the tiled
-     one), rwkv6's lm_head, the decode shapes of phases 7g and 7h at
+     one), rwkv6's lm_head, the decode shapes of phases 7g, 7h and 7i at
      M = 8, ragged shapes, operands misaligned by a byte
      and extreme codes; flash attention
      against its plain version in bf16 and f32 over causal / non-causal,
@@ -156,12 +157,27 @@ each printing its results on a line of its own:
      through flash against the plain attention as in (g) (and on every
      layer's own inputs), then 16 greedy
      tokens for 8 prompts of 32 on the quantized engine with the int8
-     cache; each of (g) and (h) prints its wall time;
+     cache; (i) zamba2-1.2b (38 Mamba2 layers, the shared attention
+     block every 6), whisper-tiny (4 + 4 layers) and internvl2-2b (24
+     layers) at full width and depth, bf16, seed 0, one at a time:
+     prefill through flash against the plain attention as in (h), and
+     flash against its plain version on each call's own q, k, v, the
+     calls counted by mask, key length and instance (zamba2: B 1, S 8192,
+     6 causal calls on HD_PAD 64; whisper: B 8, 1500 stub frames, 448
+     tokens, 4 non-causal calls at Sk 1500 and 4 causal ones on HD_PAD
+     64; internvl2: 256 stub patch embeddings + 7936 tokens, 24 causal
+     calls on HD_PAD 128); zamba2's Mamba layers' device ms in a profiled
+     prefill; then 16 greedy tokens for 8 prompts of 32 on the quantized
+     engine with the monitor (43 / 33 / 169 fixmatmul launches a step);
+     the SMOKE config's quantized engine on the card gives the CPU's
+     tokens; each of (g), (h) and (i) prints its wall time;
   8. each kernel's time per launch at the main path's shapes, its plain
      version's, one PyTorch library call's where there is one, and its
-     bound; fixmatmul per decode shape (danube's, rwkv6's lm_head and
-     qwen2-moe's), beside its tiled kernel's time; flash at danube's
-     prefill shape and at qwen2-moe's (the HD_PAD 128 instance);
+     bound; fixmatmul per decode shape (danube's, rwkv6's lm_head,
+     qwen2-moe's and internvl2's lm_head), beside its tiled kernel's
+     time; flash at danube's prefill shape, at qwen2-moe's (the HD_PAD
+     128 instance), at zamba2's shared block and at whisper's encoder
+     (B 8, Sk 1500, non-causal; both on the HD_PAD 64 instance);
      rwkv6_scan's two passes at the prefill shape in turns with its
      one-block kernel, and each pass's device time; its decode kernel at
      the decode shape in turns with the one-block kernel.
@@ -172,6 +188,7 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -202,7 +219,12 @@ MOE_ARCH = "qwen2-moe-a2.7b"    # phase 7g, full width and depth, int8 KV cache
 # its int8 copies on the 80 GB card
 OTHER_ARCHS = (("qwen3-moe-30b-a3b", 24), ("starcoder2-7b", None), ("glm4-9b", None),
                ("granite-34b", 24))
-SHORT_LEN, SHORT_PROMPT, SHORT_NEW = 4096, 32, 16   # phase 7h: prefill, prompts, new tokens
+SHORT_LEN, SHORT_PROMPT, SHORT_NEW = 4096, 32, 16   # phase 7h (and 7i): prefill, prompts, new tokens
+# phase 7i: the hybrid, encdec and vlm families at full width and depth,
+# with the fixmatmul launches a decode step each must give at M 8
+FAMILY_ARCHS = ("zamba2-1.2b", "whisper-tiny", "internvl2-2b")
+FAMILY_FIX_PER_STEP = {"zamba2-1.2b": 43, "whisper-tiny": 33, "internvl2-2b": 169}
+WHISPER_BATCH, WHISPER_TEXT = 8, 448    # phase 7i: whisper's prefill batch and text context
 RWKV_TOL = {"bfloat16": 1e-2, "float32": 1e-4}    # out: max abs err / max(1, max |plain|)
 RWKV_STATE_TOL = 1e-4           # the state (f32 in both), the same measure
 LUT_SIZES = (1024, 8192)        # fixed_sigmoid inputs: bench_kernels.py's size, one past L2
@@ -590,7 +612,7 @@ def main() -> int:
 
     # 7. the serve paths at full width, then the lutact path; (g) qwen2-moe
     # on the int8 KV cache, (h) the other four configs of the moe and dense
-    # families
+    # families, (i) the hybrid, encdec and vlm families
     launches_fix, launches_flash = serve_danube(torch, dev, fix_mod, flash_mod, kmod)
     torch.cuda.empty_cache()
     launches_rwkv, launches_fix_rwkv = serve_rwkv6(torch, dev, fix_mod, rwkv_mod, kmod)
@@ -600,13 +622,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_fix_other, launches_flash_other = serve_others(torch, dev, fix_mod, flash_mod, kmod)
     torch.cuda.empty_cache()
+    launches_fix_fam, launches_flash_fam = serve_families(torch, dev, fix_mod, flash_mod, kmod)
+    torch.cuda.empty_cache()
 
     # 8. time per launch at the main path's shapes
     records.append(dict(time_fixmatmul(torch, fix_mod, dev), max_abs_err=fix_err,
                         launches=launches_fix + launches_fix_rwkv + launches_fix_moe
-                        + launches_fix_other))
+                        + launches_fix_other + launches_fix_fam))
     records.append(dict(time_flash(torch, flash_mod, dev), max_abs_err=flash_err,
-                        launches=launches_flash + launches_flash_moe + launches_flash_other))
+                        launches=launches_flash + launches_flash_moe + launches_flash_other
+                        + launches_flash_fam))
     records.append(dict(time_rwkv6_scan(torch, rwkv_mod, dev, launches_rwkv),
                         launches=sum(launches_rwkv.values()), max_abs_err=rwkv_err))
     records.append(dict(time_lut_sigmoid(torch, lut_mod, dev), launches=launches_lut,
@@ -1733,16 +1758,17 @@ def danube_gemms():
 
 
 def new_arch_gemms():
-    """(K, N) of every quantized projection of the configs of phases 7g and
-    7h, each once: what their decode steps give fixmatmul at M 8."""
+    """(K, N) of every quantized projection of the configs of phases 7g,
+    7h and 7i, each once: what their decode steps give fixmatmul at M 8
+    (whisper's cross attention has its self attention's shapes)."""
     from repro_torch.config import get_arch
 
     shapes = set()
-    for arch in (MOE_ARCH,) + tuple(a for a, _ in OTHER_ARCHS):
+    for arch in (MOE_ARCH,) + tuple(a for a, _ in OTHER_ARCHS) + FAMILY_ARCHS:
         c = get_arch(arch)
         shapes |= {(c.d_model, c.q_dim), (c.d_model, c.kv_dim), (c.q_dim, c.d_model),
                    (c.d_model, c.padded_vocab)}
-        if c.family == "dense":
+        if c.family != "moe":
             shapes |= {(c.d_model, c.d_ff), (c.d_ff, c.d_model)}
     return sorted(shapes)
 
@@ -1756,11 +1782,12 @@ def moe_gemms():
     return [(c.d_model, c.q_dim, 4 * c.num_layers), (c.d_model, c.padded_vocab, 1)]
 
 
-def rwkv6_lm_head():
-    """(K, N) of rwkv6-7b's quantized lm_head, its one fixmatmul a step."""
+def lm_head(arch):
+    """(K, N) of ``arch``'s quantized lm_head (rwkv6-7b's is its one
+    fixmatmul a decode step)."""
     from repro_torch.config import get_arch
 
-    c = get_arch(RWKV_ARCH)
+    c = get_arch(arch)
     return c.d_model, c.padded_vocab
 
 
@@ -1790,7 +1817,7 @@ def check_fixmatmul(torch, fix_mod, dev) -> float:
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = [(M, K, N, None, 0) for M in (1, 2, 4, 8, 16, 17, 64) for K, N, _ in danube_gemms()]
-    cases += [(SERVE_BATCH, *rwkv6_lm_head(), None, 0)]
+    cases += [(SERVE_BATCH, *lm_head(RWKV_ARCH), None, 0)]
     cases += [(SERVE_BATCH, K, N, None, 0) for K, N in new_arch_gemms()]
     cases += [(M, K, N, None, 0) for M in (3, 16) for K, N in ((100, 37), (2560, 641), (6913, 640))]
     cases += [(65, 257, 129, None, 0), (1, 1, 1, None, 0), (17, 6912, 2560, None, 0)]
@@ -1812,9 +1839,9 @@ def check_fixmatmul(torch, fix_mod, dev) -> float:
     if kinds != {"stream", "tiled"}:
         fail(f"check fixmatmul reached only the {kinds} kernel(s)")
     print(f"check fixmatmul: {len(cases)} shapes (danube decode at M = 1/2/4/8/16/17/64, rwkv6 "
-          f"lm_head and the decode shapes of qwen2-moe, qwen3-moe, starcoder2, glm4 and "
-          f"granite at M = 8, ragged, misaligned by a byte, extreme codes at K = 6912; both "
-          f"kernels): bitwise equal", flush=True)
+          f"lm_head and the decode shapes of qwen2-moe, qwen3-moe, starcoder2, glm4, granite, "
+          f"zamba2, whisper and internvl2 at M = 8, ragged, misaligned by a byte, extreme "
+          f"codes at K = 6912; both kernels): bitwise equal", flush=True)
     return 0.0
 
 
@@ -2086,7 +2113,8 @@ def prefill_tokens(torch, cfg, dev, seq=PREFILL_LEN):
 
 def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
             plain_alt: list | None = None, counters: tuple = ("launches",),
-            seq: int = PREFILL_LEN) -> int:
+            seq: int = PREFILL_LEN, batch: dict | None = None,
+            expected: int | None = None) -> int:
     """(a) Model.forward at B 1, S ``seq`` through ``kernel`` (one
     launch per layer), timed after a warm-up at 1024 tokens and again at
     the same length (then the allocator and the libraries have met every
@@ -2099,21 +2127,27 @@ def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
     it, and its argmax agreement at most ALT_AGREE_TOL below the least
     of the reorderings'.  Each of the kernel's
     ``counters`` (``launches``, and per route where it has one) must count
-    one launch per layer.  The forward's aux loss (the MoE layers' load
-    balance) is printed.  Returns the kernel's launches."""
-    tokens = prefill_tokens(torch, cfg, dev, seq)
-    model.forward(params, {"tokens": tokens[:, :1024]})           # warm-up
+    ``expected`` launches (default: one per layer).  ``batch`` replaces
+    the B 1 x ``seq`` random tokens (with a ``frontend`` for the encdec
+    and vlm families; the warm-up keeps its first 1024 tokens).  The
+    forward's aux loss (the MoE layers' load balance) is printed.  Returns
+    the kernel's launches."""
+    batch = batch or {"tokens": prefill_tokens(torch, cfg, dev, seq)}
+    expected = cfg.num_layers if expected is None else expected
+    B, seq = batch["tokens"].shape
+    positions = B * (seq + (batch["frontend"].shape[1] if "frontend" in batch else 0))
+    model.forward(params, {**batch, "tokens": batch["tokens"][:, :1024]})     # warm-up
     for c in counters:
         setattr(kernel, c, 0)
-    (logits, aux), prefill_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}))
+    (logits, aux), prefill_ms = timed(torch, lambda: model.forward(params, batch))
     counts = {f"{kernel.__name__}_{c}": getattr(kernel, c) for c in counters}
     launches = kernel.launches
     for name, n in counts.items():
-        if n != cfg.num_layers:
-            fail(f"{cfg.name} prefill: {name} = {n}, not one per layer ({cfg.num_layers})")
-    _, again_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}))
-    (ref, _), plain_ms = timed(torch, lambda: model.forward(params, {"tokens": tokens}, **plain))
-    if logits.shape != (1, seq, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+        if n != expected:
+            fail(f"{cfg.name} prefill: {name} = {n}, not {expected}")
+    _, again_ms = timed(torch, lambda: model.forward(params, batch))
+    (ref, _), plain_ms = timed(torch, lambda: model.forward(params, batch, **plain))
+    if logits.shape != (B, seq, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
         fail(f"{cfg.name} prefill logits: shape {tuple(logits.shape)}, "
              f"finite {bool(torch.isfinite(logits).all())}")
     def compare(a):
@@ -2134,7 +2168,7 @@ def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
         del logits
         alts = []
         for alt in plain_alt:
-            alt_logits, _ = model.forward(params, {"tokens": tokens}, **alt)
+            alt_logits, _ = model.forward(params, batch, **alt)
             alts.append(compare(alt_logits))
             del alt_logits
         a_diff, a_at, a_mean, a_agree = ([a[i] for a in alts] for i in range(4))
@@ -2143,14 +2177,14 @@ def prefill(torch, model, params, cfg, dev, kernel, plain: dict, extra: dict,
                 "tolerance_mean": ALT_MEAN_TOL * max(a_mean),
                 "tolerance_agreement": min(a_agree) - ALT_AGREE_TOL}
         ok = mean <= res["tolerance_mean"] and agree >= res["tolerance_agreement"]
-    print(json.dumps({"phase": "prefill", "arch": cfg.name, "layers": cfg.num_layers, "batch": 1,
-                      "seq": seq, **extra, **counts, "ms": prefill_ms,
-                      "tokens_per_s": seq / (prefill_ms / 1e3), "ms_again": again_ms,
-                      "tokens_per_s_again": seq / (again_ms / 1e3),
+    print(json.dumps({"phase": "prefill", "arch": cfg.name, "layers": cfg.num_layers, "batch": B,
+                      "seq": seq, "positions": positions, **extra, **counts, "ms": prefill_ms,
+                      "tokens_per_s": positions / (prefill_ms / 1e3), "ms_again": again_ms,
+                      "tokens_per_s_again": positions / (again_ms / 1e3),
                       f"plain_{next(iter(plain))}_ms": plain_ms, **res}), flush=True)
-    print(f"serve: {cfg.name} prefill {seq / (prefill_ms / 1e3):.1f} tokens/s, again "
-          f"{seq / (again_ms / 1e3):.1f} (Model.forward, B 1, S {seq}); argmax "
-          f"agreement with the plain forward "
+    print(f"serve: {cfg.name} prefill {positions / (prefill_ms / 1e3):.1f} tokens/s, again "
+          f"{positions / (again_ms / 1e3):.1f} (Model.forward, B {B}, S {seq}, {positions} "
+          f"positions); argmax agreement with the plain forward "
           f"{100 * agree:.2f}%", flush=True)
     if not ok:
         fail(f"{cfg.name} prefill logits: kernel vs plain {res}")
@@ -2365,12 +2399,24 @@ def check_wkv_layers(torch, model, params, cfg, dev) -> None:
         fail(f"rwkv6_scan on the prefill's inputs: out {out_rel}, state {s_rel}")
 
 
-def quantized_leaves(qparams) -> int:
-    """How many ``{"q", "s"}`` leaves ``quantize_params`` made: each is one
-    fixmatmul launch a decode step (``qlinear``)."""
+def decode_launches(cfg, qparams) -> tuple:
+    """(the ``{"q", "s"}`` leaves ``quantize_params`` made, the fixmatmul
+    launches of one decode step): one launch a quantized leaf the step
+    reaches (``qlinear``).  The hybrid family's shared block runs
+    num_layers // attn_every times a step; whisper's decode never runs
+    the encoder, and its cross attention's wk/wv project the encoder's
+    output only, so those leaves are quantized but idle."""
     from repro_torch.utils.tree import tree_flatten_with_names
 
-    return sum(name.endswith("/q") for name, _ in tree_flatten_with_names(qparams))
+    names = [n[:-2] for n, _ in tree_flatten_with_names(qparams) if n.endswith("/q")]
+    if cfg.family == "hybrid":
+        apps = cfg.num_layers // (cfg.attn_every or 6)
+        return len(names), sum(apps if n.startswith("shared/") else 1 for n in names)
+    if cfg.family == "encdec":
+        idle = ("xattn/wk", "xattn/wv")
+        return len(names), sum(not (n.startswith("enc_layers/") or n.endswith(idle))
+                               for n in names)
+    return len(names), len(names)
 
 
 def plain_attention_pair():
@@ -2387,31 +2433,47 @@ def plain_attention_pair():
              for b in (512, 256)])
 
 
-def check_attention_layers(torch, model, params, cfg, dev, seq) -> None:
-    """Flash against its plain version on the prefill's own inputs, layer
-    by layer (each layer's q, k, v come from the kernel's path): the max
-    abs error over max(1, the layer's largest |output|) within FLASH_TOL
+def hd_pad(cfg) -> int:
+    """The bf16 flash instance a model's attention takes: head_dim rounded
+    up to 16 (``flashattn.route`` on aligned operands)."""
+    return -(-cfg.head_dim // 16) * 16
+
+
+def check_attention_layers(torch, model, params, cfg, dev, seq, batch=None,
+                           calls: dict | None = None) -> None:
+    """Flash against its plain version on the prefill's own inputs, call
+    by call (each call's q, k, v come from the kernel's path): the max
+    abs error over max(1, the call's largest |output|) within FLASH_TOL
     in bf16, whose step is relative (qk-normed layers give outputs past 4,
-    where one bf16 step is 0.03)."""
+    where one bf16 step is 0.03).  The calls, by (causal, Sk, the
+    instance's HD_PAD), must be ``calls`` (default: one causal call a
+    layer at S ``seq``); ``batch`` replaces the random tokens."""
+    from repro_torch.kernels.flashattn.flashattn import route
     from repro_torch.kernels.flashattn.ops import attention
     from repro_torch.models.attention import blocked_attention
 
-    errs = []
+    errs, seen = [], {}
 
     def checking(q, k, v, *, causal, window):
         out = attention(q, k, v, causal=causal, window=window)
         ref = blocked_attention(q, k, v, causal=causal, window=window)
         errs.append((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp(min=1))
+        key = (causal, k.shape[1], route(*(t.movedim(1, 2) for t in (q, k, v))).hd_pad)
+        seen[key] = seen.get(key, 0) + 1
         return out
 
-    model.forward(params, {"tokens": prefill_tokens(torch, cfg, dev, seq)}, attention=checking)
+    batch = batch or {"tokens": prefill_tokens(torch, cfg, dev, seq)}
+    model.forward(params, batch, attention=checking)
     err = float(torch.stack(errs).max())
     tol = FLASH_TOL["bfloat16"]
-    print(f"check flash on {cfg.name}'s prefill inputs (S {seq}), {len(errs)} layers: max abs err "
+    named = {f"{'causal' if c else 'non-causal'} Sk {sk} HD_PAD {pad}": n
+             for (c, sk, pad), n in sorted(seen.items())}
+    print(f"check flash on {cfg.name}'s prefill inputs, calls {named}: max abs err "
           f"{err:.3g} of the largest output (tolerance {tol})", flush=True)
-    if len(errs) != cfg.num_layers or not err <= tol:
-        fail(f"flash on {cfg.name}'s prefill inputs: max abs err {err} of the largest output over "
-             f"{len(errs)} layers")
+    want = calls or {(True, seq, hd_pad(cfg)): cfg.num_layers}
+    if seen != want or not err <= tol:
+        fail(f"flash on {cfg.name}'s prefill inputs: calls {seen}, not {want}; max abs err {err} "
+             f"of the largest output")
 
 
 def serve_moe(torch, dev, fix_mod, flash_mod, kmod):
@@ -2444,7 +2506,7 @@ def serve_moe(torch, dev, fix_mod, flash_mod, kmod):
     qparams = quantize_params(params)
     del params
     torch.cuda.empty_cache()
-    per_step = quantized_leaves(qparams)
+    _, per_step = decode_launches(cfg, qparams)
     print(f"serve: {cfg.name} {per_step} quantized projections, so {per_step} fixmatmul launches "
           f"a decode step", flush=True)
     launches_fix = serve_engine(torch, model, qparams, cfg, dev, kmod,
@@ -2520,13 +2582,197 @@ def serve_others(torch, dev, fix_mod, flash_mod, kmod):
         del params
         torch.cuda.empty_cache()
         launches_fix += serve_engine(torch, model, qparams, cfg, dev, kmod,
-                                     {fix_mod.fixmatmul: quantized_leaves(qparams)},
+                                     {fix_mod.fixmatmul: decode_launches(cfg, qparams)[1]},
                                      prompt_len=SHORT_PROMPT, new_tokens=SHORT_NEW)["fixmatmul"]
         del qparams, model
         torch.cuda.empty_cache()
         print(json.dumps({"phase": "other_serve_wall", "arch": arch, "layers": cfg.num_layers,
                           "wall_s": time.perf_counter() - t}), flush=True)
     print(json.dumps({"phase": "other_serve_wall", "arch": "all four",
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    return launches_fix, launches_flash
+
+
+def family_batch(torch, cfg, dev) -> dict:
+    """Phase 7i's prefill input, drawn on the card from the seed: B 1 x
+    PREFILL_LEN tokens for the hybrid family; for vlm the stub's
+    ``vision_tokens`` patch embeddings and PREFILL_LEN - vision_tokens
+    tokens; for encdec B WHISPER_BATCH x ``encoder_ctx`` stub frames and
+    WHISPER_TEXT tokens (whisper's text context)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    B, S, front = 1, PREFILL_LEN, None
+    if cfg.family == "vlm":
+        S -= cfg.vision_tokens
+        front = (cfg.vision_tokens, cfg.vision_dim)
+    elif cfg.family == "encdec":
+        B, S, front = WHISPER_BATCH, WHISPER_TEXT, (cfg.encoder_ctx, cfg.d_model)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)}
+    if front is not None:
+        batch["frontend"] = torch.randn((B, *front), generator=g, device=dev).to(torch.bfloat16)
+    return batch
+
+
+def family_flash_calls(cfg, batch) -> dict:
+    """The flash calls of phase 7i's prefill by (causal, Sk, HD_PAD): the
+    shared block's applications (hybrid), the encoder's non-causal calls
+    over every frame and the decoder's causal ones (encdec), one a layer
+    over patches and text (vlm)."""
+    S = batch["tokens"].shape[1]
+    if cfg.family == "hybrid":
+        return {(True, S, hd_pad(cfg)): cfg.num_layers // (cfg.attn_every or 6)}
+    if cfg.family == "encdec":
+        return {(False, batch["frontend"].shape[1], hd_pad(cfg)): cfg.num_encoder_layers,
+                (True, S, hd_pad(cfg)): cfg.num_layers}
+    return {(True, S + cfg.vision_tokens, hd_pad(cfg)): cfg.num_layers}
+
+
+def profile_prefill_ranges(torch, model, params, batch, ranges: dict) -> dict:
+    """Device ms of one forward inside each ``ranges`` ({label: (module,
+    function name)}) profiler range, beside the forward's device and wall
+    ms; "not measured" where the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with in_ranges(ranges), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    out = dict.fromkeys(ranges, 0.0)
+    device = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        kind = getattr(ev, "device_type", None)
+        if ev.key in ranges and kind == DeviceType.CPU:
+            out[ev.key] += us / 1e3
+        elif kind == DeviceType.CUDA and ev.key not in ranges:
+            device += us / 1e3
+    res = {k: (v if v > 0 else "not measured") for k, v in out.items()}
+    return {**res, "forward_device_ms": device if device > 0 else "not measured",
+            "forward_wall_ms_profiled": wall_ms}
+
+
+class LogitSpy:
+    """The model as the engine sees it, keeping each decode step's last
+    logits on the host."""
+
+    def __init__(self, model):
+        self._model, self.logits = model, []
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def decode_step(self, *args):
+        logits, cache = self._model.decode_step(*args)
+        self.logits.append(logits[:, 0].float().cpu())
+        return logits, cache
+
+
+def smoke_engine_vs_cpu(torch, arch, dev, fix_mod) -> None:
+    """Phase 7i (c): the SMOKE config's quantized engine, 3 prompts of 12
+    and 20 greedy tokens, on the card and on the CPU.  The tokens must be
+    equal, or equal up to one argmax where the CPU's two largest logits
+    lie within SMOKE_TOL of each other (a near-tie: last-bit differences
+    of f32 sums can move an activation's int8 code by one step, which
+    moves a logit by up to SMOKE_TOL), with every logit of the steps
+    before it within SMOKE_TOL of the CPU's."""
+    from repro_torch.config import ServeConfig, get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.models.quantized import quantize_params
+    from repro_torch.serve import ServeEngine
+    from repro_torch.utils.tree import tree_map_with_names
+
+    small = get_smoke(arch)
+    cpu_model, gpu_model = LogitSpy(build_model(small, "cpu")), LogitSpy(build_model(small, dev))
+    p_cpu = quantize_params(cpu_model.init(SEED))
+    p_gpu = tree_map_with_names(lambda _, x: x.to(dev), p_cpu)
+    prompts = torch.randint(0, small.vocab_size, (3, 12),
+                            generator=torch.Generator().manual_seed(SEED)).tolist()
+    before = fix_mod.fixmatmul.launches
+    on_cpu = ServeEngine(cpu_model, p_cpu, ServeConfig(), max_len=40).generate(prompts, 20)
+    on_gpu = ServeEngine(gpu_model, p_gpu, ServeConfig(), max_len=40).generate(prompts, 20)
+    if fix_mod.fixmatmul.launches == before:
+        fail(f"the SMOKE {arch} engine on the card did not launch fixmatmul")
+    what = "card tokens equal the CPU's"
+    if on_gpu != on_cpu:
+        first = min(next(k for k, (a, b) in enumerate(zip(g, c)) if a != b)
+                    for g, c in zip(on_gpu, on_cpu) if g != c)
+        step = first - 1                  # the step whose logits chose token ``first``
+        row = next(r for r, (g, c) in enumerate(zip(on_gpu, on_cpu)) if g[first] != c[first])
+        top2 = cpu_model.logits[step][row].topk(2).values
+        gap = float(top2[0] - top2[1])
+        drift = max(float((g - c).abs().max())
+                    for g, c in zip(gpu_model.logits[:step + 1], cpu_model.logits[:step + 1]))
+        if gap > SMOKE_TOL or drift > SMOKE_TOL:
+            fail(f"SMOKE {arch} quantized engine: card tokens {on_gpu} != CPU tokens {on_cpu} "
+                 f"(first at row {row} position {first}: CPU top-2 gap {gap}, logits up to "
+                 f"it within {drift})")
+        what = (f"card tokens equal the CPU's up to a near-tie at row {row} position {first} "
+                f"(the CPU's top-2 logit gap {gap:.3g}; logits up to it within {drift:.3g}; "
+                f"tolerance {SMOKE_TOL})")
+    print(f"serve: SMOKE {arch} quantized engine, 3 prompts of 12, 20 greedy tokens: {what}",
+          flush=True)
+
+
+def serve_families(torch, dev, fix_mod, flash_mod, kmod):
+    """Phase 7i: zamba2-1.2b (hybrid), whisper-tiny (encdec) and
+    internvl2-2b (vlm) at full width and depth, one at a time: (a) the
+    prefill (family_batch) through flash against the plain attention, and
+    flash against its plain version on each call's own q, k, v (the calls
+    of family_flash_calls); (b) quantize_params, then SHORT_NEW greedy
+    tokens for 8 prompts of SHORT_PROMPT on the quantized engine with the
+    64-node monitor, FAMILY_FIX_PER_STEP fixmatmul launches a step; (c)
+    the SMOKE config's quantized engine on the card gives the CPU's
+    tokens (smoke_engine_vs_cpu); (d) the wall time, and zamba2's Mamba layers' device ms in
+    one prefill.  Returns the fixmatmul and flash launches."""
+    from repro_torch.models import mamba2
+    from repro_torch.models.quantized import quantize_params
+
+    t0 = time.perf_counter()
+    launches_fix = launches_flash = 0
+    plain, alt = plain_attention_pair()
+    for arch in FAMILY_ARCHS:
+        t = time.perf_counter()
+        cfg, model, params = build_full(torch, arch, dev)
+        batch = family_batch(torch, cfg, dev)
+        calls = family_flash_calls(cfg, batch)
+        extra = {"family": cfg.family, "head_dim": cfg.head_dim, "flash_calls": {
+            f"{'causal' if c else 'non-causal'} Sk {sk} HD_PAD {pad}": n
+            for (c, sk, pad), n in calls.items()}}
+        if "frontend" in batch:
+            extra["frontend"] = list(batch["frontend"].shape)
+        launches_flash += prefill(torch, model, params, cfg, dev, flash_mod.flash_attention,
+                                  plain, extra, alt, counters=("launches", "tc_launches"),
+                                  batch=batch, expected=sum(calls.values()))
+        torch.cuda.empty_cache()
+        check_attention_layers(torch, model, params, cfg, dev, None, batch=batch, calls=calls)
+        if cfg.family == "hybrid":
+            prof = profile_prefill_ranges(torch, model, params, batch,
+                                          {"mamba layers": (mamba2, "mamba_block")})
+            print(json.dumps({"phase": "prefill_profile", "arch": arch,
+                              "device_ms": prof}), flush=True)
+        del batch
+        torch.cuda.empty_cache()
+        qparams = quantize_params(params)
+        del params
+        torch.cuda.empty_cache()
+        leaves, per_step = decode_launches(cfg, qparams)
+        print(f"serve: {arch} {leaves} quantized leaves, {per_step} fixmatmul launches a decode "
+              f"step", flush=True)
+        if per_step != FAMILY_FIX_PER_STEP[arch]:
+            fail(f"{arch}: {per_step} fixmatmul launches a decode step by the tree, not "
+                 f"{FAMILY_FIX_PER_STEP[arch]}")
+        launches_fix += serve_engine(torch, model, qparams, cfg, dev, kmod,
+                                     {fix_mod.fixmatmul: per_step},
+                                     prompt_len=SHORT_PROMPT, new_tokens=SHORT_NEW)["fixmatmul"]
+        del qparams, model
+        torch.cuda.empty_cache()
+
+        smoke_engine_vs_cpu(torch, arch, dev, fix_mod)              # (c)
+        print(json.dumps({"phase": "family_serve_wall", "arch": arch, "layers": cfg.num_layers,
+                          "wall_s": time.perf_counter() - t}), flush=True)
+    print(json.dumps({"phase": "family_serve_wall", "arch": "all three",
                       "wall_s": time.perf_counter() - t0}), flush=True)
     return launches_fix, launches_flash
 
@@ -2559,13 +2805,11 @@ def lutact_path(torch, dev, lut_mod) -> int:
     return launches
 
 
-def profile_decode(torch, model, qparams, cfg, dev, ranges: dict | None = None) -> None:
-    """Device time of three quantized decode steps by kernel, from
-    torch.profiler; the device's busy share of the steps' wall time.
-    ``ranges`` ({label: (module, function name)}) wraps each function in a
-    ``record_function`` range for the profile only; each range's device
-    time (the kernels launched inside it) is printed beside the groups."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+@contextlib.contextmanager
+def in_ranges(ranges: dict):
+    """Wrap each function of ``ranges`` ({label: (module, function name)})
+    in a ``record_function`` range named by its label while the block runs."""
+    from torch.profiler import record_function
 
     def ranged(label, fn):
         def call(*args, **kwargs):
@@ -2573,25 +2817,37 @@ def profile_decode(torch, model, qparams, cfg, dev, ranges: dict | None = None) 
                 return fn(*args, **kwargs)
         return call
 
-    ranges = ranges or {}
     saved = {label: getattr(mod, name) for label, (mod, name) in ranges.items()}
+    try:
+        for label, (mod, name) in ranges.items():
+            setattr(mod, name, ranged(label, saved[label]))
+        yield
+    finally:
+        for label, (mod, name) in ranges.items():
+            setattr(mod, name, saved[label])
+
+
+def profile_decode(torch, model, qparams, cfg, dev, ranges: dict | None = None) -> None:
+    """Device time of three quantized decode steps by kernel, from
+    torch.profiler; the device's busy share of the steps' wall time.
+    ``ranges`` ({label: (module, function name)}) wraps each function in a
+    ``record_function`` range for the profile only; each range's device
+    time (the kernels launched inside it) is printed beside the groups."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ranges = ranges or {}
     cache = model.init_cache(SERVE_BATCH, PROMPT_LEN + NEW_TOKENS)
     tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int64, device=dev)
     for _ in range(2):
         _, cache = model.decode_step(qparams, cache, tok)
     torch.cuda.synchronize()
-    try:
-        for label, (mod, name) in ranges.items():
-            setattr(mod, name, ranged(label, saved[label]))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for _ in range(3):
-                _, cache = model.decode_step(qparams, cache, tok)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t)
-    finally:
-        for label, (mod, name) in ranges.items():
-            setattr(mod, name, saved[label])
+    with in_ranges(ranges), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(3):
+            _, cache = model.decode_step(qparams, cache, tok)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
     from torch.autograd import DeviceType
 
     groups: dict = {}
@@ -2639,8 +2895,9 @@ def time_fixmatmul(torch, fix_mod, dev) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     M, sms = SERVE_BATCH, sm_count(dev)
-    shapes = [("danube", K, N, n) for K, N, n in danube_gemms()] + [("rwkv6", *rwkv6_lm_head(), 1)]
+    shapes = [("danube", K, N, n) for K, N, n in danube_gemms()] + [("rwkv6", *lm_head(RWKV_ARCH), 1)]
     shapes += [("qwen2-moe", K, N, n) for K, N, n in moe_gemms()]
+    shapes += [("internvl2", *lm_head("internvl2-2b"), 1)]
     per_shape = []
     for arch, K, N, per_step in shapes:
         xq, wq, sx, sw = fix_operands(torch, M, K, N, dev, g)
@@ -2669,7 +2926,7 @@ def time_fixmatmul(torch, fix_mod, dev) -> dict:
         per_shape.append(rec)
         del ws, xq, wq
     mix = {}
-    for arch in ("danube", "rwkv6", "qwen2-moe"):
+    for arch in ("danube", "rwkv6", "qwen2-moe", "internvl2"):
         rows = [r for r in per_shape if r["arch"] == arch]
         n = sum(r["per_step"] for r in rows)
         mix[arch] = {"launches_per_step": n, **{
@@ -2690,7 +2947,8 @@ def time_fixmatmul(torch, fix_mod, dev) -> dict:
           f"({d['ms'] / d['bound_ms']:.2f}x the {1e3 * d['bound_ms']:.3f} us bound), the tiled "
           f"kernel {1e3 * d['tiled_ms']:.3f} us; rwkv6 lm_head {1e3 * mix['rwkv6']['ms']:.3f} us; "
           f"qwen2-moe's mix {1e3 * q['ms']:.3f} us/launch ({q['ms'] / q['bound_ms']:.2f}x the "
-          f"{1e3 * q['bound_ms']:.3f} us bound)", flush=True)
+          f"{1e3 * q['bound_ms']:.3f} us bound); internvl2's lm_head {1e3 * mix['internvl2']['ms']:.3f}"
+          f" us (torch._int_mm: {mix['internvl2']['library_ms']} ms)", flush=True)
     return {
         "name": "fixmatmul", "route": "cuda",
         "source": "src/repro_torch/kernels/fixmatmul/csrc/fixmatmul.cu",
@@ -2717,29 +2975,30 @@ def library_int_mm(torch, K, N, ws, sx, sw, dev, g):
     return None, None
 
 
-def time_flash_shape(torch, flash_mod, dev, arch) -> dict:
+def time_flash_shape(torch, flash_mod, dev, arch, B=1, S=PREFILL_LEN, causal=True) -> dict:
     """One prefill shape of ``arch``: B 1, S PREFILL_LEN, causal (with the
-    arch's window as a mask, if it has one), bf16 (the tensor-core
-    kernel): the kernel, its plain version, SDPA and the bound."""
+    arch's window as a mask, if it has one) unless given, bf16 (the
+    tensor-core kernel): the kernel, its plain version, SDPA and the
+    bound."""
     import torch.nn.functional as F
 
     from repro_torch.config import get_arch
     from repro_torch.kernels.flashattn.ref import flash_attention_ref
 
     c = get_arch(arch)
-    B, S, H, KV, hd, W = 1, PREFILL_LEN, c.num_heads, c.num_kv_heads, c.head_dim, c.sliding_window
+    H, KV, hd, W = c.num_heads, c.num_kv_heads, c.head_dim, c.sliding_window
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     q, k, v = (torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
                for sh in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)))
     fa = flash_mod.flash_attention
     n, tc = fa.launches, fa.tc_launches
-    ms = cuda_ms(torch, lambda i: fa(q, k, v, causal=True, window=W))
+    ms = cuda_ms(torch, lambda i: fa(q, k, v, causal=causal, window=W))
     if fa.tc_launches - tc != fa.launches - n or fa.launches == n:
         fail("flash timing: the bf16 launches did not all take the tensor-core kernel")
-    plain = cuda_ms(torch, lambda i: flash_attention_ref(q, k, v, causal=True, window=W),
+    plain = cuda_ms(torch, lambda i: flash_attention_ref(q, k, v, causal=causal, window=W),
                     reps=3, warmup=1)
     if W is None:
-        sdpa = dict(is_causal=True)
+        sdpa = dict(is_causal=causal)
     else:
         pos = torch.arange(S, device=dev)
         sdpa = dict(attn_mask=(pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W))
@@ -2750,18 +3009,20 @@ def time_flash_shape(torch, flash_mod, dev, arch) -> dict:
         ke, ve = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
         lib_fn = lambda i: F.scaled_dot_product_attention(q, ke, ve, **sdpa)
     lib = cuda_ms(torch, lib_fn, reps=5, warmup=1)
-    visible = sum(min(i + 1, W or S) for i in range(S))
+    visible = sum(min(i + 1, W or S) for i in range(S)) if causal else S * S
     flops = 4 * hd * H * B * visible
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     t_ops = 1e3 * flops / BF16_FLOPS
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     tflops = flops / (ms * 1e-3) / 1e12
-    print(f"flash timing {arch} B={B} S={S} H={H} KV={KV} hd={hd} W={W} bf16: {ms:.4f} ms/launch "
-          f"({tflops:.1f} TFLOP/s, {ms / max(t_ops, t_bytes):.2f}x the bound), "
-          f"plain {plain:.4f} ms, SDPA ({'causal' if W is None else 'the window as a mask'}) "
+    mask = "causal" if causal else "non-causal"
+    print(f"flash timing {arch} B={B} S={S} H={H} KV={KV} hd={hd} W={W} {mask} bf16: {ms:.4f} "
+          f"ms/launch ({tflops:.1f} TFLOP/s, {ms / max(t_ops, t_bytes):.2f}x the bound), "
+          f"plain {plain:.4f} ms, SDPA ({mask if W is None else 'the window as a mask'}) "
           f"{lib:.4f} ms, bound {max(t_ops, t_bytes):.6f} ms ({flops / 1e9:.1f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB)", flush=True)
-    return {"arch": arch, "B": B, "S": S, "H": H, "KV": KV, "hd": hd, "window": W, "ms": ms,
+    return {"arch": arch, "B": B, "S": S, "H": H, "KV": KV, "hd": hd, "window": W,
+            "causal": causal, "hd_pad": flash_mod.route(q, k, v).hd_pad, "ms": ms,
             "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib,
             "flops": flops, "tflops": tflops}
@@ -2769,17 +3030,22 @@ def time_flash_shape(torch, flash_mod, dev, arch) -> dict:
 
 def time_flash(torch, flash_mod, dev) -> dict:
     """The danube prefill's shape (hd 80, 32 heads over 8, a 4096 window;
-    the kernels line keeps its numbers) and qwen2-moe's (hd 128, the
-    HD_PAD 128 instance, 16 heads over 16, causal without a window)."""
+    the kernels line keeps its numbers), qwen2-moe's (hd 128, the HD_PAD
+    128 instance, 16 heads over 16, causal without a window), and the
+    HD_PAD 64 instance at zamba2's shared block (32 over 32, causal) and
+    whisper's encoder (B 8, 6 heads, 1500 frames, non-causal)."""
     danube = time_flash_shape(torch, flash_mod, dev, ARCH)
     moe = time_flash_shape(torch, flash_mod, dev, MOE_ARCH)
+    zamba = time_flash_shape(torch, flash_mod, dev, "zamba2-1.2b")
+    whisper = time_flash_shape(torch, flash_mod, dev, "whisper-tiny", B=WHISPER_BATCH, S=1500,
+                               causal=False)
     return {
         "name": "flash_attention", "route": "cuda", "path": "cuda-mma",
         "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_tc.cu",
         "replaces": "src/repro/kernels/flashattn/flashattn.py:97",
         **{k: danube[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                   "flops", "tflops")},
-        "per_shape": [danube, moe],
+        "per_shape": [danube, moe, zamba, whisper],
     }
 
 

@@ -17,10 +17,12 @@ from typing import Any, Optional
 class ModelConfig:
     """Architecture description (the reference's ``ModelConfig``).
 
-    ``family`` selects the block layout; the port builds "dense"
-    (pre-norm decoder transformer, GQA + RoPE, optional sliding window),
-    "moe" (dense attention + mixture-of-experts MLP) and "rwkv6"
-    (attention-free RWKV6 time/channel mix).
+    ``family`` selects the block layout: "dense" (pre-norm decoder
+    transformer, GQA + RoPE, optional sliding window), "moe" (dense
+    attention + mixture-of-experts MLP), "vlm" (dense, with stub patch
+    embeddings prepended), "rwkv6" (attention-free RWKV6 time/channel mix),
+    "hybrid" (zamba2: Mamba2 layers + a weight-shared attention block) and
+    "encdec" (whisper).
     """
 
     name: str

@@ -3,8 +3,7 @@
 
 ``get_arch("qwen2-moe-a2.7b")`` returns the full config and
 ``get_smoke(...)`` the reduced same-family config of the CPU tests.  The
-port registers the archs whose family it builds; the JAX package's other
-archs raise, naming what they wait for.
+port registers all ten archs of the JAX package.
 """
 
 from __future__ import annotations
@@ -24,13 +23,9 @@ _ARCH_MODULES = {
     "granite-34b": "repro_torch.configs.granite_34b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
-}
-
-# The JAX package's other archs, with what the port still lacks for each.
-_NOT_PORTED = {
-    "internvl2-2b": "the vlm family",
-    "whisper-tiny": "the encdec family",
-    "zamba2-1.2b": "the hybrid family (mamba2)",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
 }
 
 
@@ -45,12 +40,7 @@ def _ensure(name: str) -> None:
     if name in _ARCH_MODULES:
         importlib.import_module(_ARCH_MODULES[name])
         return
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not in the PyTorch port yet: it comes with "
-            f"{_NOT_PORTED[name]}, a later slice of the port (ROADMAP.md queue 1)"
-        )
-    raise KeyError(f"unknown arch {name!r}; ported: {sorted(_ARCH_MODULES)}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -87,3 +87,26 @@ def mlp_plain(x, w1, w2, act, use_bias=False, b1=None, b2=None):
     if use_bias:
         o = o + b2
     return o
+
+
+# -- absolute positions (whisper) ----------------------------------------------------
+
+def sinusoidal_positions(seq_len: int, dim: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute position embeddings (seq_len, dim):
+    built in numpy f64 into an f32 table, then cast, as the reference does."""
+    pos = np.arange(seq_len)[:, None]
+    div = np.exp(-np.log(10000.0) * np.arange(0, dim, 2) / dim)
+    pe = np.zeros((seq_len, dim), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(pe).to(device=device, dtype=dtype)
+
+
+def sinusoidal_at(pos: int, dim: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The sinusoidal row (dim,) at position ``pos`` (a Python int), computed
+    on ``device`` in f32 as the reference computes its decode row."""
+    log_base = float(np.log(np.float32(10000.0)))            # f32, as jnp.log(10000.0)
+    div = torch.exp(-log_base * torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim)
+    ang = float(pos) * div
+    pe = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(dim)
+    return pe.to(dtype)

@@ -1,38 +1,53 @@
-"""Model factory (counterpart of ``repro.models.model``) for the families
-the port builds: ``family="dense"`` and ``family="moe"`` (``Model``; moe
-swaps each layer's MLP for ``moe_sorted``) and ``family="rwkv6"``
-(``RWKV6Model``).
+"""Model factory (counterpart of ``repro.models.model``) for every family
+of the JAX package: ``family="dense"``, ``"moe"`` (each layer's MLP
+swapped for ``moe_sorted``) and ``"vlm"`` (stub patch embeddings
+projected and prepended) build ``Model``; ``"rwkv6"`` builds
+``RWKV6Model``, ``"hybrid"`` ``Zamba2Model`` (Mamba2 layers and a
+weight-shared attention block) and ``"encdec"`` ``WhisperModel``.
 
 ``build_model(cfg)`` returns a model with
 
   * ``init(seed) -> params``                 nested dict; ``layers`` is a list
   * ``forward(params, batch) -> (logits, aux)``   prefill
   * ``init_cache(batch, cache_len) -> cache``    decode state (a
-    ``KVCache``, float or int8 by ``cfg.kv_cache_dtype``, or an
-    ``RWKVState`` stacked over layers)
+    ``KVCache``, float or int8 by ``cfg.kv_cache_dtype``, an
+    ``RWKVState`` stacked over layers, a ``ZambaCache`` or a
+    ``WhisperCache``)
   * ``decode_step(params, cache, tokens) -> (logits, cache)``
 
 ``device=None`` builds on CUDA and raises when there is none;
-``device="cpu"`` builds on the CPU.  The other families of the JAX package
-(hybrid, encdec, vlm) raise: later slices of the port.
+``device="cpu"`` builds on the CPU.  The frontends of the encdec and vlm
+families are stubs, as in the reference: ``batch["frontend"]`` holds
+precomputed frame or patch embeddings.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.vm.machine import resolve_device
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import dtype_of, normal_init
+from repro_torch.models.common import (
+    act_fn,
+    dtype_of,
+    fanin_init,
+    normal_init,
+    sinusoidal_at,
+    sinusoidal_positions,
+)
 from repro_torch.models.quantized import qlinear
 
 
 class Model:
-    """A decoder LM of the dense or moe family: pre-norm layers, untied or
-    tied unembedding."""
+    """A decoder LM of the dense, moe or vlm family: pre-norm layers, untied
+    or tied unembedding; the vlm family prepends the projected
+    ``batch["frontend"]`` patch embeddings in prefill."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         self.cfg = cfg
@@ -52,8 +67,16 @@ class Model:
         p = {"embed": {"tokens": normal_init(gen, (v, cfg.d_model), dt)}}
         if not cfg.tie_embeddings:
             p["lm_head"] = normal_init(gen, (cfg.d_model, v), dt)
-        p["layers"] = [self._init_layer(gen) for _ in range(cfg.num_layers)]
+        return p | self._init_body(gen)
+
+    def _init_body(self, gen) -> dict:
+        """Everything after the embedding, in the reference's order."""
+        cfg, dt = self.cfg, self.dtype
+        p = {"layers": [self._init_layer(gen) for _ in range(cfg.num_layers)]}
         p |= tf.init_norm(cfg, "final", cfg.d_model, dt, self.device)
+        if cfg.family == "vlm":
+            p["vision_proj"] = {"w1": fanin_init(gen, (cfg.vision_dim, cfg.d_model), dt),
+                                "w2": fanin_init(gen, (cfg.d_model, cfg.d_model), dt)}
         return p
 
     def _init_layer(self, gen) -> dict:
@@ -73,14 +96,27 @@ class Model:
         """Full-sequence forward over ``batch["tokens"]`` (B, S).  Returns
         (logits (B, S, V), aux), aux the sum of the layers' MoE load-balance
         losses (0 for dense).  ``attention`` is passed to every layer
-        (see ``transformer.self_attention_full``)."""
+        (see ``transformer.self_attention_full``).  For the vlm family a
+        ``batch["frontend"]`` (B, T, vision_dim) goes through
+        ``vision_proj`` in front of the tokens, and its T positions are
+        dropped before the unembedding."""
         x = self._embed(params, batch["tokens"])
+        front = batch.get("frontend") if self.cfg.family == "vlm" else None
+        if front is not None:
+            x = torch.cat([self._prefix(params, front), x], dim=1)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
             x, a = tf.decoder_layer_full(lp, self.cfg, x, attention=attention)
             aux = aux + a
         x = tf.norm(self.cfg, x, params, "final")
+        if front is not None:
+            x = x[:, front.shape[1]:]
         return self._unembed(params, x), aux
+
+    def _prefix(self, params, front):
+        """vlm: the stub patch embeddings, projected to d_model."""
+        vp = params["vision_proj"]
+        return act_fn("gelu")(front.to(self.dtype) @ vp["w1"]) @ vp["w2"]
 
     # -- decode ------------------------------------------------------------------------
 
@@ -164,12 +200,213 @@ class RWKV6Model(Model):
         return self._unembed(params, x), cache
 
 
-_FAMILIES = {"dense": Model, "moe": Model, "rwkv6": RWKV6Model}
+class ZambaCache(NamedTuple):
+    mamba: list             # one MambaState a layer
+    attn: list              # one KVCache an application of the shared block
+
+
+class Zamba2Model(Model):
+    """zamba2 (hybrid): pre-normed Mamba2 layers; after every
+    ``attn_every``-th layer the weight-shared attention block runs over
+    ``concat[x, x0]`` (x0 the embeddings) and adds its output to x.  As in
+    the reference, ``params["layers"]`` is a list in both packages."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.every = cfg.attn_every or 6
+
+    def _init_body(self, gen) -> dict:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        layers = []
+        for _ in range(cfg.num_layers):
+            lp = {"mamba": m2.init_mamba_params(gen, cfg, dt)}
+            lp |= tf.init_norm(cfg, "ln1", cfg.d_model, dt, dev)
+            layers.append(lp)
+        shared = {"proj_in": fanin_init(gen, (2 * cfg.d_model, cfg.d_model), dt),
+                  "attn": tf.init_attn_params(gen, cfg, dt),
+                  "mlp": tf.init_mlp_params(gen, cfg, dt)}
+        shared |= tf.init_norm(cfg, "lna", cfg.d_model, dt, dev)
+        shared |= tf.init_norm(cfg, "lnm", cfg.d_model, dt, dev)
+        return {"layers": layers, "shared": shared,
+                **tf.init_norm(cfg, "final", cfg.d_model, dt, dev)}
+
+    def _zero_state(self, batch: int) -> m2.MambaState:
+        cfg = self.cfg
+        inner, nheads = m2.dims(cfg)
+        return m2.MambaState(
+            ssd=torch.zeros((batch, nheads, cfg.ssm_head_dim, cfg.ssm_state),
+                            dtype=torch.float32, device=self.device),
+            conv=torch.zeros((batch, cfg.ssm_conv_width - 1, inner + 2 * cfg.ssm_state),
+                             dtype=self.dtype, device=self.device))
+
+    def _mamba_layer(self, lp, x, state):
+        out, state = m2.mamba_block(lp["mamba"], self.cfg, tf.norm(self.cfg, x, lp, "ln1"), state)
+        return x + out, state
+
+    def _shared_in(self, sp, x, x0):
+        xin = torch.cat([x, x0], dim=-1) @ sp["proj_in"]
+        return xin, tf.norm(self.cfg, xin, sp, "lna")
+
+    def _shared_out(self, sp, x, xin, a):
+        xin = xin + a
+        xin = xin + tf.apply_mlp(sp["mlp"], self.cfg, tf.norm(self.cfg, xin, sp, "lnm"))
+        return x + xin
+
+    def forward(self, params, batch, *, attention=None):
+        """Prefill from zero states; the shared block's attention (flash
+        unless ``attention`` replaces it) takes ``cfg.sliding_window``."""
+        cfg, sp = self.cfg, params["shared"]
+        x = x0 = self._embed(params, batch["tokens"])
+        zero = self._zero_state(x.shape[0])
+        for i, lp in enumerate(params["layers"]):
+            x, _ = self._mamba_layer(lp, x, zero)
+            if (i + 1) % self.every == 0:
+                xin, h = self._shared_in(sp, x, x0)
+                a = tf.self_attention_full(sp["attn"], cfg, h, window=cfg.sliding_window,
+                                           attention=attention)
+                x = self._shared_out(sp, x, xin, a)
+        x = tf.norm(cfg, x, params, "final")
+        return self._unembed(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def init_cache(self, batch: int, cache_len: int) -> ZambaCache:
+        cfg = self.cfg
+        attn_len = min(cache_len, cfg.sliding_window or cache_len)
+        cdt = torch.int8 if cfg.kv_cache_dtype == "int8" else self.dtype
+        return ZambaCache(
+            mamba=[self._zero_state(batch) for _ in range(cfg.num_layers)],
+            attn=[KVCache.init(batch, attn_len, cfg.num_kv_heads, cfg.head_dim, cdt, self.device)
+                  for _ in range(cfg.num_layers // self.every)])
+
+    def decode_step(self, params, cache: ZambaCache, tokens):
+        """One token per row; the shared block's window is
+        ``cfg.sliding_window`` or its cache's length, as in the reference.
+        Returns new Mamba states; the KV caches are written in place."""
+        cfg, sp = self.cfg, params["shared"]
+        x = x0 = self._embed(params, tokens)
+        mamba, attn = [], list(cache.attn)
+        app = 0
+        for i, lp in enumerate(params["layers"]):
+            x, state = self._mamba_layer(lp, x, cache.mamba[i])
+            mamba.append(state)
+            if (i + 1) % self.every == 0:
+                c = attn[app]
+                xin, h = self._shared_in(sp, x, x0)
+                a, attn[app] = tf.self_attention_decode(sp["attn"], cfg, h, c,
+                                                        window=cfg.sliding_window or c.k.shape[1])
+                x = self._shared_out(sp, x, xin, a)
+                app += 1
+        x = tf.norm(cfg, x, params, "final")
+        return self._unembed(params, x), ZambaCache(mamba=mamba, attn=attn)
+
+
+class WhisperCache(NamedTuple):
+    self_kv: KVCache        # over the decoder layers
+    cross_k: torch.Tensor   # (L_dec, B, T_enc, KV, hd)
+    cross_v: torch.Tensor
+
+
+class WhisperModel(Model):
+    """whisper (encdec): an encoder over the stub frame embeddings
+    (``batch["frontend"]`` (B, T_enc, d_model)) with sinusoidal positions
+    and non-causal self attention, and a decoder of causal self attention,
+    cross attention over the encoder's output and the MLP; no RoPE.
+
+    As in the reference, decoding never runs the encoder: ``init_cache``'s
+    cross K/V are zeros and nothing writes them, so decode attends to
+    zeros."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.n_enc = cfg.num_encoder_layers or cfg.num_layers
+        self.t_enc = cfg.encoder_ctx or 1500
+
+    def _init_body(self, gen) -> dict:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+
+        def layer(*attn, norms):
+            p = {name: tf.init_attn_params(gen, cfg, dt) for name in attn}
+            p["mlp"] = tf.init_mlp_params(gen, cfg, dt)
+            for n in norms:
+                p |= tf.init_norm(cfg, n, cfg.d_model, dt, dev)
+            return p
+
+        p = {"enc_layers": [layer("attn", norms=("ln1", "ln2")) for _ in range(self.n_enc)],
+             "layers": [layer("attn", "xattn", norms=("ln1", "lnx", "ln2"))
+                        for _ in range(cfg.num_layers)]}
+        p |= tf.init_norm(cfg, "enc_final", cfg.d_model, dt, dev)
+        return p | tf.init_norm(cfg, "final", cfg.d_model, dt, dev)
+
+    def encode(self, params, frontend, *, attention=None):
+        """frontend: (B, T_enc, d_model) stub frame embeddings."""
+        cfg = self.cfg
+        x = frontend.to(self.dtype) + sinusoidal_positions(
+            frontend.shape[1], cfg.d_model, self.dtype, self.device)
+        for lp in params["enc_layers"]:
+            h = tf.norm(cfg, x, lp, "ln1")
+            x = x + tf.self_attention_full(lp["attn"], cfg, h, causal=False, use_rope=False,
+                                           attention=attention)
+            x = x + tf.apply_mlp(lp["mlp"], cfg, tf.norm(cfg, x, lp, "ln2"))
+        return tf.norm(cfg, x, params, "enc_final")
+
+    def _dec_tail(self, lp, x, ek, ev):
+        """The decoder layer after its self attention: cross attention over
+        the encoder's K/V, then the MLP."""
+        cfg = self.cfg
+        x = x + tf.cross_attention(lp["xattn"], cfg, tf.norm(cfg, x, lp, "lnx"), ek, ev)
+        return x + tf.apply_mlp(lp["mlp"], cfg, tf.norm(cfg, x, lp, "ln2"))
+
+    def forward(self, params, batch, *, attention=None):
+        """``batch["frontend"]`` (B, T_enc, d_model) and ``batch["tokens"]``
+        (B, S).  The encoder's and the decoder's self attention take flash
+        unless ``attention`` replaces it; cross attention stays plain.  As
+        in the reference, the cross K/V carry no ``bk``/``bv``."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        enc = self.encode(params, batch["frontend"], attention=attention)
+        x = self._embed(params, tokens) + sinusoidal_positions(S, cfg.d_model, self.dtype,
+                                                               self.device)
+        kv = (B, -1, cfg.num_kv_heads, cfg.head_dim)
+        for lp in params["layers"]:
+            h = tf.norm(cfg, x, lp, "ln1")
+            x = x + tf.self_attention_full(lp["attn"], cfg, h, causal=True, use_rope=False,
+                                           attention=attention)
+            ek = qlinear(enc, lp["xattn"]["wk"]).reshape(kv)
+            ev = qlinear(enc, lp["xattn"]["wv"]).reshape(kv)
+            x = self._dec_tail(lp, x, ek, ev)
+        x = tf.norm(cfg, x, params, "final")
+        return self._unembed(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def init_cache(self, batch: int, cache_len: int) -> WhisperCache:
+        cfg = self.cfg
+        cdt = torch.int8 if cfg.kv_cache_dtype == "int8" else self.dtype
+        self_kv = KVCache.init(batch, cache_len, cfg.num_kv_heads, cfg.head_dim, cdt,
+                               self.device, layers=cfg.num_layers)
+        cross = torch.zeros((cfg.num_layers, batch, self.t_enc, cfg.num_kv_heads, cfg.head_dim),
+                            dtype=self.dtype, device=self.device)
+        return WhisperCache(self_kv=self_kv, cross_k=cross, cross_v=cross)
+
+    def decode_step(self, params, cache: WhisperCache, tokens):
+        """One token per row at absolute position ``cache.self_kv.pos``;
+        the self cache is written in place."""
+        cfg = self.cfg
+        pos = cache.self_kv.pos
+        x = self._embed(params, tokens) + sinusoidal_at(pos, cfg.d_model, self.dtype, self.device)
+        for i, lp in enumerate(params["layers"]):
+            h = tf.norm(cfg, x, lp, "ln1")
+            a, _ = tf.self_attention_decode(lp["attn"], cfg, h, cache.self_kv.layer(i),
+                                            use_rope=False, window=None)
+            x = self._dec_tail(lp, x + a, cache.cross_k[i], cache.cross_v[i])
+        x = tf.norm(cfg, x, params, "final")
+        return self._unembed(params, x), cache._replace(
+            self_kv=cache.self_kv._replace(pos=pos + 1))
+
+
+_FAMILIES = {"dense": Model, "moe": Model, "vlm": Model, "rwkv6": RWKV6Model,
+             "hybrid": Zamba2Model, "encdec": WhisperModel}
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not in the PyTorch port yet; it builds "
-            f"{sorted(_FAMILIES)} (ROADMAP.md queue 1)")
+        raise ValueError(f"unknown family {cfg.family!r}; the port builds {sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family](cfg, device)

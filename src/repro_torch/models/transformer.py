@@ -1,9 +1,11 @@
-"""The decoder layer of the dense and moe families (counterpart of those
-parts of ``repro.models.transformer``): pre-norm attention with GQA + RoPE
-and an optional sliding window, then a SwiGLU or plain MLP, or the
-mixture of experts (``moe_sorted``).  Projections go through ``qlinear``,
-so int8 ``{"q", "s"}`` weights take the fixmatmul kernel; full-sequence
-attention goes through the flash attention op.
+"""The transformer blocks (counterpart of ``repro.models.transformer``):
+pre-norm attention with GQA + RoPE and an optional sliding window, then a
+SwiGLU or plain MLP, or the mixture of experts (``moe_sorted``); and the
+decoder's cross attention over encoder K/V (whisper).  Projections go
+through ``qlinear``, so int8 ``{"q", "s"}`` weights take the fixmatmul
+kernel; full-sequence self attention goes through the flash attention op,
+cross attention through the plain ``blocked_attention``, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flashattn.ops import attention as flash_attention_op
-from repro_torch.models.attention import KVCache, apply_rope, decode_attention
+from repro_torch.models.attention import KVCache, apply_rope, blocked_attention, decode_attention
 from repro_torch.models.common import (
     act_fn,
     fanin_init,
@@ -41,7 +43,9 @@ def init_norm(cfg: ModelConfig, prefix: str, d: int, dtype, device) -> dict:
 
 # -- attention sub-block -------------------------------------------------------------
 
-def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype, cross: bool = False) -> dict:
+    """``cross`` is ignored: a cross-attention block has the same leaves,
+    as in the reference."""
     d, dev = cfg.d_model, gen.device
     p = {
         "wq": fanin_init(gen, (d, cfg.q_dim), dtype),
@@ -107,6 +111,19 @@ def self_attention_decode(p, cfg: ModelConfig, x, cache: KVCache, *, use_rope=Tr
         k = apply_rope(k, pos, cfg.rope_theta)
     out, cache = decode_attention(q, k, v, cache, window=window)
     return attn_out(p, out), cache
+
+
+def cross_attention(p, cfg: ModelConfig, x, enc_k, enc_v):
+    """Decoder cross attention over precomputed encoder K/V (B, T, KV, hd):
+    plain attention, no mask, one query block and one key block."""
+    B, S, _ = x.shape
+    q = qlinear(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    out = blocked_attention(q, enc_k, enc_v, causal=False, q_block=min(1024, S),
+                            k_block=enc_k.shape[1])
+    return attn_out(p, out)
 
 
 # -- MLP and the layer ------------------------------------------------------------------

@@ -7,7 +7,11 @@ a call; the tiled kernel above), flash attention within 1e-4 in f32 (the
 FP32 kernel) and 2e-2 in bf16 (the tensor-core kernel, one bf16 step of
 the output and of p; head_dim 128 causal without a window at query groups
 of 1, 9 and 48 among the shapes), a qwen2-moe SMOKE decode step on the
-int8 KV cache with int8 weights against the CPU, rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``)
+int8 KV cache with int8 weights against the CPU, flash's HD_PAD 64
+instance at zamba2's shared block and whisper's encoder (Sk 1500,
+non-causal) and decoder, fixmatmul at the decode shapes of zamba2,
+whisper and internvl2, and those three SMOKE configs' quantized decode
+against the CPU, rwkv6_scan within 1e-4 (f32) and 1e-2 (bf16 ``out``)
 of the largest value on all three routes (the decode kernel at one step,
 also against its closed form and in an in-place chain, the one-block
 kernel at one chunk, the two passes at two or more, and the kernels held
@@ -725,6 +729,61 @@ def test_moe_int8_kv_decode_matches_cpu(cuda):
         assert float((l_gpu.cpu() - l_cpu).abs().max()) <= 2e-2
     assert fmod.fixmatmul.launches - before == 4 * (4 * cfg.num_layers + 1)
     assert c_gpu.k.dtype == torch.int8 and c_gpu.pos == 4
+
+
+# The hybrid, encdec and vlm families: flash's HD_PAD 64 instance at
+# zamba2's shared block (32/32 heads, cut to S 2048 here; chip_smoke.py
+# runs S 8192) and whisper's encoder (B 8, 1500 frames, non-causal: a
+# ragged Sk) and decoder (448 tokens, causal).
+@pytest.mark.parametrize("dtype,tol", FLASH_TOL)
+@pytest.mark.parametrize("B,H,Sq,Sk,causal", [(1, 32, 2048, 2048, True),
+                                              (8, 6, 1500, 1500, False),
+                                              (8, 6, 448, 448, True)],
+                         ids=["zamba2", "whisper_encoder", "whisper_decoder"])
+def test_flash_attention_new_family_shapes(B, H, Sq, Sk, causal, dtype, tol, cuda):
+    g = torch.Generator(device=cuda).manual_seed(Sq + H)
+    q, k, v = (torch.randn((B, Sq, H, 64), generator=g, device=cuda).to(dtype).movedim(1, 2)
+               for _ in range(3))
+    famod = importlib.import_module("repro_torch.kernels.flashattn.flashattn")
+    assert dtype == torch.float32 or famod.route(q, k, v).hd_pad == 64
+    _flash_vs_plain(q, k, v, causal, None, tol)
+
+
+# (K, N) of every quantized projection the three families' decode steps run
+FAMILY_KN = [(2048, 2048), (2048, 8192), (8192, 2048), (2048, 32000),       # zamba2
+             (384, 384), (384, 1536), (1536, 384), (384, 51872),            # whisper
+             (2048, 1024), (2048, 92560)]                                   # internvl2
+
+
+@pytest.mark.parametrize("K,N", FAMILY_KN)
+def test_fixmatmul_family_decode_shapes(K, N, cuda):
+    """Bitwise at M 8, the decode batch of chip_smoke.py's phase 7i."""
+    _fix_vs_plain(_fix_operands(8, K, N, cuda, seed=K + N))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-tiny", "internvl2-2b"])
+def test_family_quantized_decode_matches_cpu(arch, cuda):
+    """The SMOKE config with int8 weights: six decode steps on the card
+    against the CPU, within test_moe_int8_kv_decode_matches_cpu's 2e-2;
+    one fixmatmul launch a quantized leaf a step reaches."""
+    from repro_torch.config import get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.models.quantized import quantize_params
+    from repro_torch.utils.tree import tree_map_with_names
+
+    cfg = get_smoke(arch)
+    cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = quantize_params(cpu_model.init(0))
+    p_gpu = tree_map_with_names(lambda _, x: x.to(cuda), p_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (3, 6), generator=torch.Generator().manual_seed(0))
+    c_cpu, c_gpu = cpu_model.init_cache(3, 8), gpu_model.init_cache(3, 8)
+    before = fmod.fixmatmul.launches
+    for t in range(toks.shape[1]):
+        l_cpu, c_cpu = cpu_model.decode_step(p_cpu, c_cpu, toks[:, t:t + 1])
+        l_gpu, c_gpu = gpu_model.decode_step(p_gpu, c_gpu, toks[:, t:t + 1].to(cuda))
+        assert float((l_gpu.cpu() - l_cpu).abs().max()) <= 2e-2
+    per_step = {"zamba2-1.2b": 7 * 2 + 1, "whisper-tiny": 8 * 2 + 1, "internvl2-2b": 7 * 2 + 1}
+    assert fmod.fixmatmul.launches - before == 6 * per_step[arch]
 
 
 RWKV_TOL = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]

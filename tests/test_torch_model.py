@@ -25,6 +25,7 @@ import torch
 
 from repro.config import get_arch as jget_arch
 from repro.config import get_smoke as jget_smoke
+from repro.config.registry import list_archs
 from repro.kernels import set_kernels
 from repro.models import build_model as jbuild_model
 from repro.models.attention import KVCache as JKVCache
@@ -75,14 +76,23 @@ def test_config_equals_reference():
 
 
 def test_other_archs_raise():
-    """The families the port does not build yet raise, naming the slice."""
-    for arch in ("zamba2-1.2b", "whisper-tiny", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            get_arch(arch)
+    """(The name is kept from when the port refused three of the JAX
+    package's archs; all ten build now, see below.)  An unknown arch and
+    an unknown family still raise."""
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-    with pytest.raises(NotImplementedError):
-        build_model(get_smoke(ARCH).replace(family="hybrid"), "cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(get_smoke(ARCH).replace(family="no-such-family"), "cpu")
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_reference_arch_builds(arch):
+    """Every arch of the JAX registry resolves in the port and builds at
+    SMOKE on the CPU."""
+    cfg = get_smoke(arch)
+    assert get_arch(arch).family == cfg.family == jget_smoke(arch).family
+    p = build_model(cfg, "cpu").init(0)
+    assert p["embed"]["tokens"].shape == (cfg.padded_vocab, cfg.d_model)
 
 
 def test_entry_points_default_to_cuda():
