@@ -2,7 +2,8 @@
 h2o-danube-1.8b, rwkv6-7b, qwen2-moe-a2.7b (on the int8 KV cache), the
 repo's other moe and dense configs, and zamba2-1.2b, whisper-tiny and
 internvl2-2b (the hybrid, encdec and vlm families) served with the VM
-fleet as their measuring job.
+fleet as their measuring job; and h2o-danube-1.8b trained at full width
+and depth, through flash attention's backward kernel.
 
     python3 chip_smoke.py [--nodes N]
 
@@ -12,8 +13,9 @@ each printing its results on a line of its own:
   1. the card's name and power limit (nvidia-smi);
   2. build the five CUDA kernels (vmloop, fixmatmul, flash attention,
      rwkv6_scan, lut_sigmoid) from the sources in the checkout, one nvcc
-     per source (flash attention has two: bf16 on the tensor cores, f32 on
-     the FP32 pipes), all started together, and print each one's ptxas
+     per source (flash attention has three: the bf16 forward on the tensor
+     cores, the f32 forward on the FP32 pipes, the backward), all started
+     together, and print each one's ptxas
      register and spill lines (rwkv6_scan's decode kernel and flash
      attention's HD_PAD 128 instance on lines of their own);
   3. hold vmloop against its plain PyTorch version on the card: the
@@ -180,7 +182,24 @@ each printing its results on a line of its own:
      (B 8, Sk 1500, non-causal; both on the HD_PAD 64 instance);
      rwkv6_scan's two passes at the prefill shape in turns with its
      one-block kernel, and each pass's device time; its decode kernel at
-     the decode shape in turns with the one-block kernel.
+     the decode shape in turns with the one-block kernel;
+  9. training: (a) flash attention's backward kernel against its plain
+     version (``ref.flash_attention_bwd_ref``, from the forward kernel's
+     output and log-sum-exp, both held against
+     ``ref.flash_attention_lse_ref``) in bf16 at danube's shape (B 1, H
+     32/8, S 4096, hd 80, window 4096), a window shorter than S (S 8192),
+     qwen2-moe's hd 128 causal, zamba2's HD_PAD 64 causal and whisper's
+     non-causal encoder (B 8, S 1500), and in f32 at danube's heads (S
+     2048), each timed beside the plain version, SDPA's backward through
+     autograd and the bound; (b) h2o-danube-1.8b whole (24 layers, bf16,
+     AdamW, remat) through ``Trainer.run_slice``: 5 steps at seq 4096 and
+     global batch 4 (train_4k's 256 cut to fit one card) on the synthetic
+     pipeline, per step loss, grad_norm, ms, tokens/s, peak memory and the
+     flash launches (48 forward: 24 layers, twice under remat; 72
+     backward: 24 calls of three kernels); (c) one train step of danube at full width and 4 layers
+     through the kernels against the same step from the same state with
+     the plain attention (autograd through ``blocked_attention``): loss,
+     grad_norm and updated leaves agree.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -191,6 +210,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -225,6 +245,11 @@ SHORT_LEN, SHORT_PROMPT, SHORT_NEW = 4096, 32, 16   # phase 7h (and 7i): prefill
 FAMILY_ARCHS = ("zamba2-1.2b", "whisper-tiny", "internvl2-2b")
 FAMILY_FIX_PER_STEP = {"zamba2-1.2b": 43, "whisper-tiny": 33, "internvl2-2b": 169}
 WHISPER_BATCH, WHISPER_TEXT = 8, 448    # phase 7i: whisper's prefill batch and text context
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 4, 5   # phase 9 (b): train_4k, its batch cut to 4
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH = 4, 1       # phase 9 (c): kernel step vs plain step
+FLASH_BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # max |dq, dk, dv diff| / max |plain|
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 1e-2, 5e-2       # phase 9 (c): relative, bf16 over 4 layers
+TRAIN_LEAF_CLOSE = 0.95        # phase 9 (c): share of a leaf within its bf16 rounding
 RWKV_TOL = {"bfloat16": 1e-2, "float32": 1e-4}    # out: max abs err / max(1, max |plain|)
 RWKV_STATE_TOL = 1e-4           # the state (f32 in both), the same measure
 LUT_SIZES = (1024, 8192)        # fixed_sigmoid inputs: bench_kernels.py's size, one past L2
@@ -328,7 +353,7 @@ def main() -> int:
     # 2. build: one nvcc per kernel, all started together
     t0 = time.perf_counter()
     libs = (kmod.LIBRARY, fix_mod.LIBRARY, flash_mod.LIBRARY, flash_mod.TC_LIBRARY,
-            rwkv_mod.LIBRARY, lut_mod.LIBRARY)
+            flash_mod.BWD_LIBRARY, rwkv_mod.LIBRARY, lut_mod.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:
         for lib, fut in [(lib, pool.submit(lib.build)) for lib in libs]:
             try:
@@ -341,9 +366,14 @@ def main() -> int:
         print(f"ptxas {lib.name}: " + " | ".join(lib.ptxas_lines()), flush=True)
     print("ptxas rwkv6_decode_kernel: " + " | ".join(
         ptxas_of(rwkv_mod.LIBRARY, "rwkv6_decode_kernel") or ["not in the report"]), flush=True)
-    print("ptxas flash_tc_kernel<128> (HD_PAD 128, the head_dim-128 archs): " + " | ".join(
-        ptxas_of(flash_mod.TC_LIBRARY, "flash_tc_kernelILi128E")[1:] or ["not in the report"]),
-        flush=True)
+    for hd_pad in (80, 128):
+        for lse, path in ((0, "serve"), (1, "training, with lse")):
+            print(f"ptxas flash_tc_kernel<{hd_pad}> ({path}): " + " | ".join(
+                ptxas_of(flash_mod.TC_LIBRARY, f"flash_tc_kernelILi{hd_pad}ELb{lse}E")[1:]
+                or ["not in the report"]), flush=True)
+    print("ptxas flashattn_bwd dkdv/dq bf16 <80>, <128>: " + " | ".join(
+        (ptxas_of(flash_mod.BWD_LIBRARY, f"{k}_kernelI13__nv_bfloat16Li{p}E") or ["none"])[-1]
+        for p in (80, 128) for k in ("dkdv", "dq")), flush=True)
     print(f"build: all {len(libs)} sources {time.perf_counter() - t0:.2f} s with loading",
           flush=True)
     # 3. kernel vs plain version on the card
@@ -636,6 +666,19 @@ def main() -> int:
                         launches=sum(launches_rwkv.values()), max_abs_err=rwkv_err))
     records.append(dict(time_lut_sigmoid(torch, lut_mod, dev), launches=launches_lut,
                         max_abs_err=0))
+    torch.cuda.empty_cache()
+
+    # 9. training: the backward kernel against its plain version, danube's
+    # train steps at full width and depth, and a kernel step against a
+    # plain-attention step
+    bwd_record = check_flash_bwd(torch, flash_mod, dev)
+    torch.cuda.empty_cache()
+    launches_train_fwd, launches_train_bwd = train_danube(torch, dev, flash_mod)
+    torch.cuda.empty_cache()
+    train_kernel_vs_plain(torch, dev, flash_mod)
+    torch.cuda.empty_cache()
+    next(r for r in records if r["name"] == "flash_attention")["launches"] += launches_train_fwd
+    records.append(dict(bwd_record, launches=launches_train_bwd))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3177,6 +3220,261 @@ def time_lut_sigmoid(torch, lut_mod, dev) -> dict:
         "replaces": "src/repro/kernels/lutact/lutact.py:58",
         **big, "bound_by": "bytes", "library_ms": None, "per_shape": per,
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: training
+# ---------------------------------------------------------------------------
+
+def check_flash_bwd(torch, flash_mod, dev) -> dict:
+    """Phase 9 (a): the backward kernel at the main paths' shapes against
+    its plain version (held to FLASH_BWD_TOL of the plain version's largest
+    value), from the forward kernel's output and lse, which are held
+    against the plain forward first (the output, from the training
+    instance of the forward, to FLASH_TOL of max(1, its largest |value|),
+    as phase 7 holds the serve instance; lse to 1e-3); each shape's kernel
+    ms (CUDA events), plain ms, SDPA's backward ms through autograd (with
+    enable_gqa, the window as a mask) and its bound: 2.5 times the
+    forward's visible-pair FLOPs at the bf16 tensor-core or the FP32
+    rate, against the bytes it must move.  Returns the kernels-line record
+    (danube's shape, without launches)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flashattn.ref import flash_attention_bwd_ref, flash_attention_lse_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = [  # (label, B, H, KV, S, hd, causal, window, dtype)
+        ("danube", 1, 32, 8, TRAIN_SEQ, 80, True, 4096, bf16),
+        ("danube_s8192_w4096", 1, 32, 8, 8192, 80, True, 4096, bf16),
+        ("qwen2-moe_hd128", 1, 16, 16, TRAIN_SEQ, 128, True, None, bf16),
+        ("zamba2_hd64", 1, 32, 32, TRAIN_SEQ, 64, True, None, bf16),
+        ("whisper_encoder", WHISPER_BATCH, 6, 6, 1500, 64, False, None, bf16),
+        ("danube_f32", 1, 32, 8, 2048, 80, True, 4096, f32),
+    ]
+    fa = flash_mod.flash_attention
+    per, worst = [], 0.0
+    for label, B, H, KV, S, hd, causal, window, dt in shapes:
+        g = torch.Generator(device=dev).manual_seed(SEED + S + hd)
+        q, k, v, dout = (torch.randn(sh, generator=g, device=dev).to(dt)
+                         for sh in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd), (B, H, S, hd)))
+        out, lse = flash_mod.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        out_ref, lse_ref = flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+        out_err = float((out.float() - out_ref.float()).abs().max()
+                        / out_ref.float().abs().max().clamp(min=1))
+        lse_err = float((lse - lse_ref).abs().max())
+        del out_ref
+        n = fa.bwd_launches
+        grads = flash_mod.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+        refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if fa.bwd_launches != n + flash_mod.BWD_KERNELS:
+            fail(f"flash backward {label}: launched {fa.bwd_launches - n} kernels")
+        fwd_tol = FLASH_TOL[str(dt).split(".")[1]]
+        if out.dtype != dt or out.shape != q.shape or not out_err <= fwd_tol:
+            fail(f"flash forward with lse {label}: output max abs err {out_err} of max(1, the "
+                 f"largest |output|) (tolerance {fwd_tol})")
+        rel = {name: float((a.float() - b.float()).abs().max() / b.float().abs().max())
+               for name, a, b in zip(("dq", "dk", "dv"), grads, refs)}
+        abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(grads, refs))
+        tol = FLASH_BWD_TOL[str(dt).split(".")[1]]
+        if max(rel.values()) > tol or lse_err > 1e-3 or any(
+                a.dtype != dt or a.shape != t.shape for a, t in zip(grads, (q, k, v))):
+            fail(f"flash backward {label}: relative errors {rel} (tolerance {tol}), lse {lse_err}")
+        if dt == bf16:
+            worst = max(worst, abs_err)
+        del grads, refs
+        ms = cuda_ms(torch, lambda i: flash_mod.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                                    causal=causal, window=window))
+        plain = cuda_ms(torch, lambda i: flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                                 causal=causal, window=window),
+                        reps=2, warmup=1)
+        if window is None or window >= S:
+            sdpa = dict(is_causal=causal)
+        else:
+            pos = torch.arange(S, device=dev)
+            sdpa = dict(attn_mask=(pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window))
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        try:
+            o = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **sdpa)
+        except TypeError:                   # a torch without enable_gqa: expand the KV heads
+            o = F.scaled_dot_product_attention(
+                leaves[0], *(t.repeat_interleave(H // KV, dim=1) for t in leaves[1:]), **sdpa)
+        lib = cuda_ms(torch, lambda i: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+                      reps=5, warmup=1)
+        del o, leaves
+        visible = sum(min(i + 1, window or S) for i in range(S)) if causal else S * S
+        flops = 2.5 * 4 * hd * H * B * visible
+        esize = q.element_size()
+        nbytes = esize * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()   # q out dout dq; k v dk dv
+        t_ops = 1e3 * flops / (BF16_FLOPS if dt == bf16 else FP32_FLOPS)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes)
+        row = {"shape": label, "B": B, "H": H, "KV": KV, "S": S, "hd": hd, "causal": causal,
+               "window": window, "dtype": str(dt).split(".")[1], "ms": ms, "plain_ms": plain,
+               "library_ms": lib, "bound_ms": bound,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops,
+               "rel_err": rel, "max_abs_err": abs_err, "fwd_out_err": out_err,
+               "lse_max_abs_err": lse_err}
+        per.append(row)
+        print(json.dumps({"phase": "flash_bwd", **row, "x_bound": ms / bound}), flush=True)
+        del q, k, v, dout, out, lse, lse_ref
+        torch.cuda.empty_cache()
+    d = per[0]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flashattn/csrc/flashattn_bwd.cu",
+            "replaces": "src/repro/models/attention.py:42",
+            "max_abs_err": worst,
+            **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "per_shape": per}
+
+
+def _train_parts(torch, cfg, dev, tcfg):
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import init_train_state
+
+    model = build_model(cfg, dev)
+    t = time.perf_counter()
+    state = init_train_state(model, tcfg, SEED)
+    torch.cuda.synchronize()
+    return model, state, time.perf_counter() - t
+
+
+def train_danube(torch, dev, flash_mod) -> tuple:
+    """Phase 9 (b): h2o-danube-1.8b whole in bf16 with AdamW through
+    ``Trainer.run_slice`` on the synthetic pipeline (the launcher's
+    ``TrainConfig``: warmup max(steps // 20, 1)), every step timed and
+    counted.  Returns (forward, backward) flash launches of the run."""
+    from repro_torch.config import SHAPES, RunConfig, TrainConfig, get_arch
+    from repro_torch.resilience.voting import ReplicaVoter
+    from repro_torch.train.data import pipeline_for
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_arch(ARCH)
+    full = SHAPES["train_4k"]
+    shape = full.replace(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    print(f"train: {ARCH} {cfg.num_layers} layers d {cfg.d_model}, {cfg.param_count():,} params "
+          f"in {cfg.dtype}, AdamW, remat={cfg.remat}; {full.name} cut from global batch "
+          f"{full.global_batch} to {TRAIN_BATCH} (seq {TRAIN_SEQ}) to fit one card", flush=True)
+    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 20, 1))
+    model, state, init_s = _train_parts(torch, cfg, dev, tcfg)
+    step_fn = make_train_step(model, tcfg)
+    fa = flash_mod.flash_attention
+    steps = []
+
+    def stepped(state, batch):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n, nb, tc = fa.launches, fa.bwd_launches, fa.tc_launches
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        steps.append({"step": int(state.step), "loss": loss, "grad_norm": gnorm, "ms": 1e3 * dt,
+                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "flash_fwd": fa.launches - n, "flash_bwd": fa.bwd_launches - nb,
+                      "flash_fwd_tc": fa.tc_launches - tc})
+        print(json.dumps({"phase": "train_step", "arch": ARCH, **steps[-1]}), flush=True)
+        return state, m
+
+    pipeline = pipeline_for(cfg, shape, seed=SEED)
+    trainer = Trainer(RunConfig(model=cfg, shape=shape, train=tcfg), stepped, state, pipeline,
+                      voter=ReplicaVoter(n_replicas=1),
+                      put_batch=lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+    fa.launches = fa.tc_launches = fa.bwd_launches = 0
+    t = time.perf_counter()
+    last = trainer.run_slice(TRAIN_STEPS)
+    wall = time.perf_counter() - t
+    fwd, bwd = fa.launches, fa.bwd_launches
+    pipeline.close()
+    L, nbk = cfg.num_layers, flash_mod.BWD_KERNELS
+    for st in steps:
+        if (st["flash_fwd"], st["flash_bwd"], st["flash_fwd_tc"]) != (2 * L, nbk * L, 2 * L):
+            fail(f"train step {st['step']}: flash launched {st['flash_fwd']} forward "
+                 f"({st['flash_fwd_tc']} on the tensor cores) and {st['flash_bwd']} backward "
+                 f"kernels, expected {2 * L} and {nbk * L} ({L} calls of {nbk})")
+        if not all(map(math.isfinite, (st["loss"], st["grad_norm"]))):
+            fail(f"train step {st['step']}: loss {st['loss']}, grad_norm {st['grad_norm']}")
+    if len(steps) != TRAIN_STEPS or trainer.current_step() != TRAIN_STEPS or \
+            trainer.log.losses[-1] != last["loss"]:
+        fail(f"train: {len(steps)} steps, at step {trainer.current_step()}")
+    if abs(steps[0]["loss"] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"train: first loss {steps[0]['loss']} is not near ln(vocab) {math.log(cfg.vocab_size)}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    warm = steps[1:]
+    print(json.dumps({
+        "phase": "train", "arch": ARCH, "layers": L, "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+        "cut_from": {"shape": full.name, "global_batch": full.global_batch}, "steps": TRAIN_STEPS,
+        "optimizer": tcfg.optimizer, "remat": cfg.remat, "init_s": init_s, "wall_s": wall,
+        "step_ms_mean_after_first": sum(x["ms"] for x in warm) / len(warm),
+        "tokens_per_s_after_first": TRAIN_BATCH * TRAIN_SEQ * len(warm) / sum(x["ms"] / 1e3 for x in warm),
+        "peak_gb": max(x["peak_gb"] for x in steps), "losses": [x["loss"] for x in steps],
+        "flash_fwd_launches": fwd, "flash_bwd_launches": bwd, "card": smi,
+    }), flush=True)
+    del trainer, state, model, step_fn
+    return fwd, bwd
+
+
+def train_kernel_vs_plain(torch, dev, flash_mod) -> None:
+    """Phase 9 (c): one AdamW step of danube at full width and
+    TRAIN_CHECK_LAYERS layers through the kernels, and the same step from a
+    copy of the same state with the plain attention (autograd through
+    ``blocked_attention``, no flash launch).  The loss within
+    TRAIN_LOSS_TOL and grad_norm within TRAIN_GNORM_TOL relative; a
+    step-1 update is lr * g / (|g| + eps), so every element of the updated
+    leaves within 2 lr plus the bf16 rounding of both results, and
+    TRAIN_LEAF_CLOSE of each leaf within that rounding alone."""
+    from repro_torch.config import ShapeConfig, TrainConfig, get_arch
+    from repro_torch.models.attention import blocked_attention
+    from repro_torch.train.data import pipeline_for
+    from repro_torch.train.train_step import TrainState, make_train_step
+    from repro_torch.utils.tree import tree_flatten_with_names, tree_map
+
+    cfg = get_arch(ARCH).replace(num_layers=TRAIN_CHECK_LAYERS)
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    model, state, _ = _train_parts(torch, cfg, dev, tcfg)
+    copy = lambda t: t.detach().clone()
+    plain_state = TrainState(tree_map(copy, state.params), tree_map(copy, state.opt), state.rng,
+                             state.step.clone())
+    shape = ShapeConfig("check", seq_len=TRAIN_SEQ, global_batch=TRAIN_CHECK_BATCH, kind="train")
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipeline_for(cfg, shape, seed=SEED + 1).source.batch_at(0).items()}
+    fa = flash_mod.flash_attention
+    runs = {}
+    for name, st, kw in (("kernel", state, {}), ("plain", plain_state, {"attention": blocked_attention})):
+        n, nb = fa.launches, fa.bwd_launches
+        (new, m), ms = timed(torch, lambda: make_train_step(model, tcfg, **kw)(st, batch))
+        runs[name] = (new, float(m["loss"]), float(m["grad_norm"]), ms,
+                      (fa.launches - n, fa.bwd_launches - nb))
+    (ks, kl, kg, kms, kn), (ps, pl, pg, pms, pn) = runs["kernel"], runs["plain"]
+    L = TRAIN_CHECK_LAYERS
+    if kn != (2 * L, flash_mod.BWD_KERNELS * L) or pn != (0, 0):
+        fail(f"train check: flash launches kernel {kn}, plain {pn}")
+    loss_rel, gnorm_rel = abs(kl - pl) / abs(pl), abs(kg - pg) / abs(pg)
+    if loss_rel > TRAIN_LOSS_TOL or gnorm_rel > TRAIN_GNORM_TOL:
+        fail(f"train check: loss {kl} vs {pl} ({loss_rel:.3g}), grad_norm {kg} vs {pg} ({gnorm_rel:.3g})")
+    plain_leaves = dict(tree_flatten_with_names(ps.params))
+    leaves = {}
+    for name, a in tree_flatten_with_names(ks.params):
+        if name not in ("embed/tokens", "layers/0/attn/wq", f"layers/{L - 1}/attn/wk",
+                        f"layers/{L - 1}/mlp/w2", "lm_head"):
+            continue
+        a, b = a.detach().float(), plain_leaves[name].detach().float()
+        diff, rounding = (a - b).abs(), 2.0 ** -8 * (a.abs() + b.abs())
+        close = float((diff <= rounding + 1e-12).float().mean())
+        worst_lr = float(diff.max()) / tcfg.lr
+        if not bool((diff <= 2 * tcfg.lr + rounding + 1e-12).all()) or close < TRAIN_LEAF_CLOSE:
+            fail(f"train check: leaf {name}: {close:.4f} within bf16 rounding, "
+                 f"max diff {worst_lr:.3f} lr")
+        leaves[name] = {"within_rounding": close, "max_diff_lr": worst_lr}
+    print(json.dumps({"phase": "train_check", "arch": ARCH, "layers": L, "batch": TRAIN_CHECK_BATCH,
+                      "seq": TRAIN_SEQ, "loss": [kl, pl], "loss_rel": loss_rel,
+                      "grad_norm": [kg, pg], "grad_norm_rel": gnorm_rel,
+                      "step_ms": {"kernel": kms, "plain": pms}, "leaves": leaves,
+                      "flash_launches_kernel_step": kn}), flush=True)
 
 
 if __name__ == "__main__":

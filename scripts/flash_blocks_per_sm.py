@@ -27,9 +27,11 @@ WARMUP, REPS = 3, 20
 
 
 def ptxas_hd80(lib) -> str:
-    """The register, stack and spill lines that follow the hd 80 instance."""
+    """The register, stack and spill lines that follow the hd 80 instance
+    (the serve path's, without the lse output)."""
     lines = lib.ptxas_lines()
-    at = next((i for i, ln in enumerate(lines) if "flash_tc_kernelILi80E" in ln), None)
+    at = next((i for i, ln in enumerate(lines)
+               if "flash_tc_kernelILi80E" in ln and "Lb1E" not in ln), None)
     if at is None:
         return "no report (the library was built by an earlier process)"
     return " | ".join(lines[at + 1:at + 3])

@@ -1,9 +1,19 @@
 """Configuration of the PyTorch port (counterpart of ``repro.config``)."""
 
-from repro_torch.config.base import ModelConfig, ServeConfig, VMConfig
+from repro_torch.config.base import (
+    SHAPES,
+    MeshConfig,
+    ModelConfig,
+    RunConfig,
+    ServeConfig,
+    ShapeConfig,
+    TrainConfig,
+    VMConfig,
+    shape_runs_for,
+)
 from repro_torch.config.registry import get_arch, get_smoke, register_arch
 
 __all__ = [
-    "ModelConfig", "ServeConfig", "VMConfig",
-    "register_arch", "get_arch", "get_smoke",
+    "ModelConfig", "ShapeConfig", "SHAPES", "shape_runs_for", "MeshConfig", "TrainConfig",
+    "ServeConfig", "VMConfig", "RunConfig", "register_arch", "get_arch", "get_smoke",
 ]

@@ -1,15 +1,18 @@
-"""Configuration of the PyTorch port: ``ModelConfig``, ``ServeConfig`` and
-the REXA VM's ``VMConfig``.
+"""Configuration of the PyTorch port: ``ModelConfig``, ``ShapeConfig``
+(and the assigned ``SHAPES``), ``MeshConfig``, ``TrainConfig``,
+``ServeConfig``, the REXA VM's ``VMConfig`` and the ``RunConfig`` bundle.
 
 Copies of the classes of ``repro.config.base`` with the same fields and
 defaults (the port imports nothing of the JAX package).  Frozen, so a
 config can key the per-config interpreter and kernel caches.
+``MeshConfig`` is plain data here: ``RunConfig`` holds one, and the mesh
+logic that reads it comes with the port's sharding.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 
@@ -110,6 +113,16 @@ class ModelConfig:
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
 
+    def param_count(self) -> int:
+        """Total parameter count N (all experts for MoE)."""
+        from repro_torch.models.counting import param_count
+        return param_count(self)
+
+    def active_param_count(self) -> int:
+        """Active-per-token parameter count (MoE: top-k experts)."""
+        from repro_torch.models.counting import active_param_count
+        return active_param_count(self)
+
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
 
@@ -119,6 +132,91 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (seq_len, global_batch) cell.  ``kind``: "train",
+    "prefill" or "decode" (one new token against a KV cache of
+    ``seq_len``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    def replace(self, **kw) -> "ShapeConfig":
+        return dataclasses.replace(self, **kw)
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": ShapeConfig("decode_32k", seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": ShapeConfig("long_500k", seq_len=524288, global_batch=1, kind="decode"),
+}
+
+
+def shape_runs_for(model: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k needs sub-quadratic attention: SSM / hybrid / SWA only."""
+    if shape.name != "long_500k":
+        return True
+    if model.family in ("rwkv6", "hybrid"):
+        return True
+    return model.sliding_window is not None
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Production mesh description (plain data; ``multi_pod`` adds the
+    outer "pod" axis)."""
+
+    multi_pod: bool = False
+    pods: int = 2
+    data: int = 16
+    model: int = 16
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (self.pods, self.data, self.model) if self.multi_pod else (self.data, self.model)
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = self.data * self.model
+        return n * self.pods if self.multi_pod else n
+
+    @property
+    def dp_axes(self) -> tuple[str, ...]:
+        """Axes carrying batch data-parallelism."""
+        return ("pod", "data") if self.multi_pod else ("data",)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    lr_schedule: str = "cosine"       # constant | linear | cosine
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"          # adamw | lion | sgd
+    microbatches: int = 1             # gradient accumulation
+    seed: int = 0
+    z_loss: float = 1e-4
+    # Distributed-optimization tricks (paper C4 applied to gradients).
+    grad_compression: str = "none"    # none | int8_ef  (error-feedback int8)
+    # Resilience (paper C7/C8).
+    slice_steps: int = 10             # steps per LSA-scheduled slice
+    slice_deadline_s: float = 0.0     # 0 = no deadline (watchdog off)
+    ckpt_every_slices: int = 5
+    replica_vote: bool = False        # per-pod loss voting (SDC detection)
 
 
 @dataclass(frozen=True)
@@ -146,3 +244,19 @@ class VMConfig:
     max_vec: int = 64                 # vector-op window (paper ANNs <= 64/layer)
     us_per_instr: int = 10            # calibrated instr time for virtual clock
     mbox_size: int = 32               # per-node mailbox ring entries (fleet send/receive)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    vm: VMConfig = field(default_factory=VMConfig)
+    # Parallelism preset: "tp_sp" (TP over "model" + sequence-parallel
+    # activations), "tp" (TP without SP) or "dp" (pure (FS)DP).
+    parallelism: str = "tp_sp"
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

@@ -23,7 +23,10 @@
 // l and the row's output slice) stays in f32 registers.  GQA reads KV head
 // h / (H / KV) in place, and ragged edges of Sq and Sk are masked rather
 // than padded.  A row that sees no key at all (it cannot occur in causal
-// self-attention) gets an unspecified value, as in the reference.
+// self-attention) gets an unspecified value, as in the reference.  When the
+// caller passes `lse` (the training path's forward), each row's
+// log-sum-exp of its scaled scores, m + log l, is written for the backward
+// of flashattn_bwd.cu.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -58,7 +61,8 @@ __host__ __device__ constexpr size_t smem_floats(int hd) {
 template <typename T, int DPT>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, Strides sq, Strides sk, Strides sv, Strides so,
+             T* __restrict__ out, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+             Strides so,
              int H, int KV, int Sq, int Sk, int hd, int causal, int window, float scale) {
     extern __shared__ float smem[];
     const int ld = odd(hd);
@@ -160,12 +164,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
             const int d = t + TPR * i;
             if (d < hd) ob[d] = from_f<T>(acc[i] / lc);
         }
+        // The row's log-sum-exp of its scaled scores, for the backward.
+        if (lse != nullptr && t == 0)
+            lse[(static_cast<long long>(b) * H + h) * Sq + q_pos] = m + logf(lc);
     }
 }
 
 template <typename T, int DPT>
-int go(const void* q, const void* k, const void* v, void* out, const Strides* st, int B, int H,
-       int KV, int Sq, int Sk, int hd, int causal, int window, float scale, cudaStream_t stream) {
+int go(const void* q, const void* k, const void* v, void* out, float* lse, const Strides* st,
+       int B, int H, int KV, int Sq, int Sk, int hd, int causal, int window, float scale,
+       cudaStream_t stream) {
     auto kern = flash_kernel<T, DPT>;
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem_floats(4 * DPT) * sizeof(float)));
@@ -173,16 +181,18 @@ int go(const void* q, const void* k, const void* v, void* out, const Strides* st
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     kern<<<grid, THREADS, smem_floats(hd) * sizeof(float), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), st[0], st[1], st[2], st[3], H, KV, Sq, Sk, hd, causal, window, scale);
+        static_cast<T*>(out), lse, st[0], st[1], st[2], st[3], H, KV, Sq, Sk, hd, causal, window,
+        scale);
     return 0;
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, const Strides* st, int B,
-             int H, int KV, int Sq, int Sk, int hd, int causal, int window, float scale,
-             cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
+             const Strides* st, int B, int H, int KV, int Sq, int Sk, int hd, int causal,
+             int window, float scale, cudaStream_t stream) {
     const int dpt = (hd + TPR - 1) / TPR;
-#define FLASH_GO(N) go<T, N>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, causal, window, scale, stream)
+#define FLASH_GO(N) go<T, N>(q, k, v, out, lse, st, B, H, KV, Sq, Sk, hd, causal, window, scale, \
+                             stream)
     if (dpt <= 8) return FLASH_GO(8);
     if (dpt <= 16) return FLASH_GO(16);
     if (dpt <= 20) return FLASH_GO(20);
@@ -196,11 +206,12 @@ int dispatch(const void* q, const void* k, const void* v, void* out, const Strid
 // Plain C interface for ctypes.  float32 q (B, H, Sq, hd), k and v (B, KV,
 // Sk, hd), out like q, each with its last dimension contiguous; `strides`
 // holds the b, h, s element strides of q, k, v and out (12 values).
+// `lse`, when not NULL, receives each row's log-sum-exp (B, H, Sq) f32.
 // hd <= 128, H % KV == 0, window <= 0 for none.  Launches on `stream` and
 // returns the CUDA error (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      const long long* strides, int B, int H, int KV, int Sq,
-                                      int Sk, int hd, int causal, int window, float scale,
+                                      void* lse, const long long* strides, int B, int H, int KV,
+                                      int Sq, int Sk, int hd, int causal, int window, float scale,
                                       void* stream) {
     if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
     Strides st[4];
@@ -208,7 +219,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     int err = 0;
     if (B > 0 && H > 0 && Sq > 0)
-        err = dispatch<float>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
+        err = dispatch<float>(q, k, v, out, static_cast<float*>(lse), st, B, H, KV, Sq, Sk, hd,
+                              causal, window, scale, s);
     if (err != 0) return err;
     return static_cast<int>(cudaGetLastError());
 }

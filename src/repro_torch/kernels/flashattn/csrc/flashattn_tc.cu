@@ -41,7 +41,13 @@
 //     as the reference does.  V's B fragments come by ldmatrix.trans, and
 //     O accumulates in f32 registers;
 //   * the epilogue divides by max(l, 1e-30), rounds to bf16 and writes
-//     through the caller's strides.
+//     through the caller's strides.  The training path's forward (the
+//     caller passes `lse`) runs a second instance of each HD_PAD, LSE =
+//     true, which also writes each row's log-sum-exp of its scaled scores,
+//     (m + log2 l) ln 2, for the backward of flashattn_bwd.cu.  The serve
+//     path's instance (LSE = false) has no such code: compiled into the
+//     one kernel, the epilogue's few extra registers made ptxas spill more
+//     at HD_PAD 80 and the serve forward ran 15% slower there.
 // As in the reference, a row whose first visited tile holds no key it may
 // see takes p = 1 on every masked key there and washes that out at its
 // next tile (alpha = exp(-1e30 - m) = 0); a row that sees no key at all
@@ -64,6 +70,7 @@ constexpr int NT = BKV / 8;            // n8 tiles of S per key tile
 constexpr int STAGES = 2;              // K/V ring
 constexpr float NEG_INF = -1e30f;      // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
     long long b, h, s;                 // element strides; head_dim is contiguous
@@ -141,12 +148,32 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, long lo
     }
 }
 
+// Each row's log-sum-exp of its scaled scores, (m + log2 l) ln 2, by the
+// quad's first lane.
+__device__ __forceinline__ void write_lse(float* lse, int b, int h, int H, int Sq, int row0,
+                                          int row1, int tig, float m0, float m1, float lc0,
+                                          float lc1) {
+    if (tig == 0) {
+        float* lb = lse + (static_cast<long long>(b) * H + h) * Sq;
+        if (row0 < Sq) lb[row0] = (m0 + log2f(lc0)) * LN2;
+        if (row1 < Sq) lb[row1] = (m1 + log2f(lc1)) * LN2;
+    }
+}
+
+// Where the LSE instance writes lse: after the O store, when O's registers
+// are free, at HD_PAD 80 (before it ptxas spilled 88 B there against the
+// serve instance's 12 B, and the forward ran 1.16x the serve one's time);
+// before it at HD_PAD 64 and below, where the other order spilled more
+// and ran slower (measured with scripts/flash_fwd_lse_check.py).
 template <int HD_PAD>
+constexpr bool LSE_AFTER_O = HD_PAD > 64;
+
+template <int HD_PAD, bool LSE>
 __global__ void __launch_bounds__(THREADS, HD_PAD <= 80 ? 2 : 1)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, Strides sq, Strides sk,
-                Strides sv, Strides so, int B, int H, int KV, int Sq, int Sk, int hd, int causal,
-                int window, float scale_log2) {
+                const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                Strides sq, Strides sk, Strides sv, Strides so, int B, int H, int KV, int Sq, int Sk,
+                int hd, int causal, int window, float scale_log2) {
     using T = Tile<HD_PAD>;
     constexpr int LD = T::LD, KS = T::KS;
     constexpr uint32_t STAGE_BYTES = BKV * LD * sizeof(bf16);
@@ -308,6 +335,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
+    if constexpr (LSE && !LSE_AFTER_O<HD_PAD>)
+        write_lse(lse, b, h, H, Sq, row0, row1, tig, m0, m1, lc0, lc1);
     bf16* ob = out + b * so.b + h * so.h;
 #pragma unroll
     for (int n = 0; n < 2 * KS; ++n) {
@@ -321,13 +350,15 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     __floats2bfloat162_rn(o[n][2] / lc1, o[n][3] / lc1);
         }
     }
+    if constexpr (LSE && LSE_AFTER_O<HD_PAD>)
+        write_lse(lse, b, h, H, Sq, row0, row1, tig, m0, m1, lc0, lc1);
 }
 
-template <int HD_PAD>
-int go(const void* q, const void* k, const void* v, void* out, const Strides* st, int B, int H,
-       int KV, int Sq, int Sk, int hd, int causal, int window, float scale_log2,
+template <int HD_PAD, bool LSE>
+int go(const void* q, const void* k, const void* v, void* out, float* lse, const Strides* st,
+       int B, int H, int KV, int Sq, int Sk, int hd, int causal, int window, float scale_log2,
        cudaStream_t stream) {
-    auto kern = flash_tc_kernel<HD_PAD>;
+    auto kern = flash_tc_kernel<HD_PAD, LSE>;
     constexpr size_t smem = Tile<HD_PAD>::SMEM;
     static unsigned long long opted_in = 0;        // one bit a device, once per instance
     int dev = 0;
@@ -347,7 +378,7 @@ int go(const void* q, const void* k, const void* v, void* out, const Strides* st
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
     kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), st[0], st[1], st[2], st[3], B, H, KV, Sq, Sk, hd, causal,
+        static_cast<bf16*>(out), lse, st[0], st[1], st[2], st[3], B, H, KV, Sq, Sk, hd, causal,
         window, scale_log2);
     return 0;
 }
@@ -361,12 +392,13 @@ int go(const void* q, const void* k, const void* v, void* out, const Strides* st
 // a multiple of 8 (the 16-byte copies need it: the wrapper pads and copies
 // operands that are not); `hd_pad` the instance the caller chose, which
 // must be roundup(hd, 16); H % KV == 0; window <= 0 for none; `scale` is
-// 1/sqrt of the true head_dim.  Launches on `stream` and returns the CUDA
+// 1/sqrt of the true head_dim; `lse`, when not NULL, receives each row's
+// log-sum-exp (B, H, Sq) f32.  Launches on `stream` and returns the CUDA
 // error (0 = launched); cudaErrorInvalidValue for operands it does not take.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
-                                         const long long* strides, int B, int H, int KV, int Sq,
-                                         int Sk, int hd, int hd_pad, int causal, int window,
-                                         float scale, void* stream) {
+                                         void* lse, const long long* strides, int B, int H,
+                                         int KV, int Sq, int Sk, int hd, int hd_pad, int causal,
+                                         int window, float scale, void* stream) {
     const int invalid = static_cast<int>(cudaErrorInvalidValue);
     if (hd < 8 || hd > 128 || hd % 8 != 0 || KV < 1 || H % KV != 0) return invalid;
     if (hd_pad != (hd + 15) / 16 * 16) return invalid;
@@ -380,7 +412,11 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k, const voi
     int err = 0;
     if (B > 0 && H > 0 && Sq > 0) {
         const float c = scale * LOG2E;
-#define FLASH_TC_GO(P) go<P>(q, k, v, out, st, B, H, KV, Sq, Sk, hd, causal, window, c, s)
+#define FLASH_TC_GO(P)                                                                      \
+    (lse != nullptr ? go<P, true>(q, k, v, out, static_cast<float*>(lse), st, B, H, KV, Sq, Sk, \
+                                  hd, causal, window, c, s)                                     \
+                    : go<P, false>(q, k, v, out, nullptr, st, B, H, KV, Sq, Sk, hd, causal,    \
+                                   window, c, s))
         switch (hd_pad) {
             case 16: err = FLASH_TC_GO(16); break;
             case 32: err = FLASH_TC_GO(32); break;

@@ -15,6 +15,14 @@ launches a kernel, and a failed build or launch raises; only CPU tensors
 take the plain version (``ref.flash_attention_ref``).
 ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.tc_launches`` those of the tensor-core kernel.
+
+The backward (``csrc/flashattn_bwd.cu``, built by ``BWD_LIBRARY``) is
+``flash_attention_bwd``; ``FlashAttention`` is the autograd function that
+runs the forward kernel with its log-sum-exp output and the backward
+kernel, and ``ops.attention`` takes it on CUDA when an input requires
+grad.  ``flash_attention`` itself still refuses such inputs.
+``flash_attention.bwd_launches`` counts the backward's kernel launches,
+``BWD_KERNELS`` (D, dK/dV, dQ) a call.
 """
 
 from __future__ import annotations
@@ -25,7 +33,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.flashattn.ref import flash_attention_ref
+from repro_torch.kernels.flashattn.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+)
 from repro_torch.kernels.grad import refuse_grad
 from repro_torch.kernels.nvcc import CudaLibrary, check_launch
 from repro_torch.models.attention import softmax_scale
@@ -34,21 +46,27 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 MAX_HEAD_DIM = 128
 
 
-def _binder(name: str, n_ints: int):
-    """Binds the launch function ``name``: four pointers, the strides,
-    ``n_ints`` ints, the scale and the stream."""
+def _binder(name: str, n_ptrs: int, n_ints: int):
+    """Binds the launch function ``name``: ``n_ptrs`` pointers, the
+    strides, ``n_ints`` ints, the scale and the stream."""
     def bind(lib) -> None:
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_longlong)] + [
             ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return bind
 
 
-LIBRARY = CudaLibrary("flashattn", CSRC, "flashattn.cu", (), _binder("flash_attention_launch", 8))
+# The forward entries take q, k, v, out and lse (NULL: not written).
+LIBRARY = CudaLibrary("flashattn", CSRC, "flashattn.cu", (),
+                      _binder("flash_attention_launch", 5, 8))
 # The tensor-core entry also takes hd_pad, the instance ``route`` chose.
 TC_LIBRARY = CudaLibrary("flashattn_tc", CSRC, "flashattn_tc.cu", (),
-                         _binder("flash_attention_tc_launch", 9))
+                         _binder("flash_attention_tc_launch", 5, 9))
+BWD_KERNELS = 3                    # rowdot (D), dkdv, dq: the launches of one backward call
+# q, k, v, out, dout, lse, D, dq, dk, dv; B, H, KV, S, hd, causal, window, dtype.
+BWD_LIBRARY = CudaLibrary("flashattn_bwd", CSRC, "flashattn_bwd.cu", (),
+                          _binder("flash_attention_bwd_launch", 10, 8))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -83,12 +101,7 @@ def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
     return buf
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None) -> torch.Tensor:
-    """Forward attention, q (B, H, Sq, hd), k/v (B, KV, Sk, hd) -> like q.
-    GQA by ``h // (H // KV)``; causal and sliding-window masks; bf16 or
-    f32.  Any strides.  CUDA tensors launch a kernel (or raise); CPU
-    tensors take the plain version."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window) -> None:
     B, H, Sq, hd = q.shape
     Bk, KV, Sk, hdk = k.shape
     if tuple(v.shape) != tuple(k.shape) or Bk != B or hdk != hd or KV < 1 or H % KV:
@@ -98,14 +111,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k and v must share one dtype")
-    dev = q.device
-    if k.device != dev or v.device != dev:
+    if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: operands on different devices")
-    if dev.type == "cpu":
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """Forward attention, q (B, H, Sq, hd), k/v (B, KV, Sk, hd) -> like q.
+    GQA by ``h // (H // KV)``; causal and sliding-window masks; bf16 or
+    f32.  Any strides.  CUDA tensors launch a kernel (or raise); CPU
+    tensors take the plain version."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
     refuse_grad("flash_attention", q, k, v)
+    return _launch(q, k, v, causal, window, None)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None):
+    """(out, lse): the forward and each row's log-sum-exp (B, H, Sq) f32,
+    which the backward takes.  CUDA tensors launch the forward kernel with
+    its lse output; CPU tensors take ``ref.flash_attention_lse_ref``."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+    B, H, Sq, _ = q.shape
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window, lse), lse
+
+
+def _launch(q, k, v, causal, window, lse):
+    """One forward launch on the kernel ``route`` picks; writes ``lse``
+    (B, H, Sq) f32 when it is given."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    dev = q.device
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention kernel takes head_dim <= {MAX_HEAD_DIM}, got {hd}")
     r = route(q, k, v)
@@ -115,7 +158,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)               # q's layout, so a BSHD view stays one
     strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, out) for s in t.stride()[:3]])
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), strides)
     mask = (int(causal), window or 0, softmax_scale(hd), torch.cuda.current_stream(dev).cuda_stream)
     if r.kernel == "mma":
         err = TC_LIBRARY.load().flash_attention_tc_launch(
@@ -129,5 +173,67 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[..., :hd] if r.padded_copy else out
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None):
+    """(dq, dk, dv) like q, k and v: the backward of ``flash_attention``
+    from its output, its lse (``flash_attention_fwd``) and the output's
+    gradient.  CUDA tensors launch ``csrc/flashattn_bwd.cu`` (Sq == Sk,
+    f32 or bf16, any strides with head_dim contiguous) or raise; CPU
+    tensors take ``ref.flash_attention_bwd_ref``."""
+    _check(q, k, v, window)
+    B, H, S, hd = q.shape
+    if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape) \
+            or tuple(lse.shape) != (B, H, S):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)} or lse {tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+    if k.shape[2] != S:
+        raise ValueError(f"flash_attention_bwd kernel takes Sq == Sk, got {S} and {k.shape[2]}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd kernel takes head_dim <= {MAX_HEAD_DIM}, got {hd}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention_bwd kernel takes float32 or bfloat16, got {q.dtype}")
+    dev = q.device
+    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
+                          for t in (q, k, v, out, dout.to(q.dtype)))
+    lse = lse.to(torch.float32).contiguous()
+    D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    tensors = (q, k, v, out, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*[s for t in tensors for s in t.stride()[:3]])
+    err = BWD_LIBRARY.load().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
+        B, H, k.shape[1], S, hd, int(causal), window or 0, int(q.dtype == torch.bfloat16),
+        softmax_scale(hd), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "flash_attention_bwd")
+    flash_attention.bwd_launches += BWD_KERNELS
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward, BHSD: the forward kernel writes
+    each row's lse, and q, k, v, the output and lse are saved for the
+    backward kernel.  ``FlashAttention.apply(q, k, v, causal, window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+        return dq, dk, dv, None, None
+
+
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
+flash_attention.bwd_launches = 0

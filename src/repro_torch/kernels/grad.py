@@ -1,8 +1,12 @@
-"""The CUDA kernels have no backward pass yet: refuse inputs that ask for one.
+"""Refuse inputs that ask for a backward pass at a CUDA kernel that has none.
 
 A kernel's output is allocated fresh, so without this check ``backward()``
 would treat it as a constant and raise nothing.  The plain versions, which
-the CPU takes, stay differentiable.
+the CPU takes, stay differentiable.  Flash attention's backward is a
+kernel of its own: the training path reaches it through ``ops.attention``
+(the ``FlashAttention`` autograd function), while the raw
+``flash_attention`` still refuses.  fixmatmul (the int8 serve path) and
+rwkv6_scan have none yet.
 """
 
 from __future__ import annotations
@@ -17,5 +21,5 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward pass, and an input requires grad.  "
             "Call it under torch.no_grad(), or on CPU tensors, whose plain version is "
-            "differentiable; its backward kernel comes with the training slice "
-            "(ROADMAP.md queue 1, item 9).")
+            "differentiable; flash attention trains through ops.attention, and rwkv6_scan's "
+            "backward kernel is still to come (ROADMAP.md queue 1).")

@@ -16,7 +16,12 @@ weight-shared attention block) and ``"encdec"`` ``WhisperModel``.
   * ``decode_step(params, cache, tokens) -> (logits, cache)``
 
 ``device=None`` builds on CUDA and raises when there is none;
-``device="cpu"`` builds on the CPU.  The frontends of the encdec and vlm
+``device="cpu"`` builds on the CPU.  With ``cfg.remat`` (the default) a
+forward over params that require grad (training) checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant) where the reference wraps its
+layer in ``jax.checkpoint``: the layer's activations are recomputed in the
+backward instead of kept; serving, whose params carry no grad, runs the
+layers as they are.  The frontends of the encdec and vlm
 families are stubs, as in the reference: ``batch["frontend"]`` holds
 precomputed frame or patch embeddings.
 """
@@ -26,6 +31,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.vm.machine import resolve_device
@@ -42,6 +48,16 @@ from repro_torch.models.common import (
     sinusoidal_positions,
 )
 from repro_torch.models.quantized import qlinear
+from repro_torch.utils.tree import tree_leaves
+
+
+def _remat(cfg: ModelConfig, fn, layers):
+    """``fn``, checkpointed per call when ``cfg.remat`` and the ``layers``'
+    params require grad (the layer's forward is recomputed in the
+    backward; it draws no random numbers, so the RNG state is not kept)."""
+    if cfg.remat and torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(layers)):
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn
 
 
 class Model:
@@ -105,8 +121,11 @@ class Model:
         if front is not None:
             x = torch.cat([self._prefix(params, front), x], dim=1)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        layer = _remat(self.cfg, lambda lp, x: tf.decoder_layer_full(lp, self.cfg, x,
+                                                                     attention=attention),
+                       params["layers"])
         for lp in params["layers"]:
-            x, a = tf.decoder_layer_full(lp, self.cfg, x, attention=attention)
+            x, a = layer(lp, x)
             aux = aux + a
         x = tf.norm(self.cfg, x, params, "final")
         if front is not None:
@@ -176,8 +195,10 @@ class RWKV6Model(Model):
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         state0 = self._zero_state(tokens.shape[0])
+        layer = _remat(self.cfg, lambda lp, x: self._layer(lp, x, state0, wkv=wkv)[0],
+                       params["layers"])
         for lp in params["layers"]:
-            x, _ = self._layer(lp, x, state0, wkv=wkv)
+            x = layer(lp, x)
         x = tf.norm(self.cfg, x, params, "final")
         return self._unembed(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -258,8 +279,9 @@ class Zamba2Model(Model):
         cfg, sp = self.cfg, params["shared"]
         x = x0 = self._embed(params, batch["tokens"])
         zero = self._zero_state(x.shape[0])
+        mamba = _remat(cfg, lambda lp, x: self._mamba_layer(lp, x, zero)[0], params["layers"])
         for i, lp in enumerate(params["layers"]):
-            x, _ = self._mamba_layer(lp, x, zero)
+            x = mamba(lp, x)
             if (i + 1) % self.every == 0:
                 xin, h = self._shared_in(sp, x, x0)
                 a = tf.self_attention_full(sp["attn"], cfg, h, window=cfg.sliding_window,
@@ -341,11 +363,16 @@ class WhisperModel(Model):
         cfg = self.cfg
         x = frontend.to(self.dtype) + sinusoidal_positions(
             frontend.shape[1], cfg.d_model, self.dtype, self.device)
-        for lp in params["enc_layers"]:
+
+        def body(lp, x):
             h = tf.norm(cfg, x, lp, "ln1")
             x = x + tf.self_attention_full(lp["attn"], cfg, h, causal=False, use_rope=False,
                                            attention=attention)
-            x = x + tf.apply_mlp(lp["mlp"], cfg, tf.norm(cfg, x, lp, "ln2"))
+            return x + tf.apply_mlp(lp["mlp"], cfg, tf.norm(cfg, x, lp, "ln2"))
+
+        body = _remat(cfg, body, params["enc_layers"])
+        for lp in params["enc_layers"]:
+            x = body(lp, x)
         return tf.norm(cfg, x, params, "enc_final")
 
     def _dec_tail(self, lp, x, ek, ev):
@@ -367,13 +394,18 @@ class WhisperModel(Model):
         x = self._embed(params, tokens) + sinusoidal_positions(S, cfg.d_model, self.dtype,
                                                                self.device)
         kv = (B, -1, cfg.num_kv_heads, cfg.head_dim)
-        for lp in params["layers"]:
+
+        def body(lp, x, enc):
             h = tf.norm(cfg, x, lp, "ln1")
             x = x + tf.self_attention_full(lp["attn"], cfg, h, causal=True, use_rope=False,
                                            attention=attention)
             ek = qlinear(enc, lp["xattn"]["wk"]).reshape(kv)
             ev = qlinear(enc, lp["xattn"]["wv"]).reshape(kv)
-            x = self._dec_tail(lp, x, ek, ev)
+            return self._dec_tail(lp, x, ek, ev)
+
+        body = _remat(cfg, body, params["layers"])
+        for lp in params["layers"]:
+            x = body(lp, x, enc)
         x = tf.norm(cfg, x, params, "final")
         return self._unembed(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 

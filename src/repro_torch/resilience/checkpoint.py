@@ -34,9 +34,14 @@ from repro_torch.utils.tree import tree_flatten_with_names, tree_map_with_names
 
 def _host(leaf) -> np.ndarray:
     """A host copy of one leaf (never a view of memory the caller keeps
-    writing)."""
+    writing).  bf16 tensors are saved as f32, which holds them exactly
+    (numpy has no bfloat16); ``restore`` casts back to the template's
+    dtype."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.to(torch.float32)
+        return leaf.cpu().numpy().copy()
     return np.array(leaf)
 
 

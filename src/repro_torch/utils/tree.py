@@ -2,11 +2,14 @@
 ``repro.utils.tree`` that quantization and checkpointing need).  A tree is
 nested dicts, lists, tuples and NamedTuples with tensor leaves; a leaf's
 name joins its keys, list indices and NamedTuple field names with "/"
-(e.g. ``layers/0/attn/wq``), as the reference names them."""
+(e.g. ``layers/0/attn/wq``), as the reference names them; and the global
+norm that gradient clipping takes."""
 
 from __future__ import annotations
 
 from typing import Any, Callable
+
+import torch
 
 
 def tree_flatten_with_names(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -37,3 +40,27 @@ def tree_map_with_names(fn: Callable[[str, Any], Any], tree: Any, prefix: str = 
         return type(tree)(tree_map_with_names(fn, v, f"{prefix}/{i}" if prefix else str(i))
                           for i, v in enumerate(tree))
     return fn(prefix, tree)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Map ``fn(leaf, *leaves)`` over ``tree`` and trees of its structure,
+    keeping the structure (dicts, lists, tuples, NamedTuples)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[tree_map(fn, *xs) for xs in zip(tree, *rest)])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree, in the order of ``tree_flatten_with_names``."""
+    return [leaf for _, leaf in tree_flatten_with_names(tree)]
+
+
+def tree_global_norm(tree: Any) -> torch.Tensor:
+    """Global L2 norm over all leaves (f32 accumulation): the square root
+    of the sum of each leaf's sum of squares, as the reference's."""
+    sums = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sums)))

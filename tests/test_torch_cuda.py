@@ -29,10 +29,16 @@ verified ``FleetVM(executor="auto")`` on it, byte-identical to the checked
 the kernel and under "auto", byte-identical to the batched Executive
 fleet with equal counters; the trace-JIT fleet (the kernel as its tail
 at per-node budgets) byte-identical to ``executor="cuda"``, and the
-single-node ``"cuda"`` and ``"trace"`` backends to the Oracle; a CUDA
+single-node ``"cuda"`` and ``"trace"`` backends to the Oracle; flash
+attention's backward kernel within 1e-4 (f32) and 1e-2 (bf16) of its plain
+version relative to the plain version's largest value, at the shapes of
+``chip_smoke.py`` phase 9 (a) and on strided views, the forward's
+log-sum-exp against its plain version, and ``ops.attention``'s
+``FlashAttention`` against autograd through the plain attention; a CUDA
 tensor never takes the
-plain version (each launch counter grows), and no kernel runs on inputs
-that require grad.  Needs an
+plain version (each launch counter grows), and no kernel without a
+backward runs on inputs that require grad (an rwkv6 train step raises in
+rwkv6_scan).  Needs an
 NVIDIA GPU with nvcc; every test here skips without one.
 
 Run on the card with ``python -m pytest tests/test_torch_cuda.py``.
@@ -49,6 +55,7 @@ from repro_torch.core.vm import FleetVM, vmstate as vms
 from repro_torch.kernels.vmloop import check, vmloop as kmod
 from repro_torch.kernels.fixmatmul.ref import fixmatmul_ref
 from repro_torch.kernels.flashattn import flash_attention
+from repro_torch.kernels.flashattn.flashattn import BWD_KERNELS
 from repro_torch.kernels.flashattn.ref import flash_attention_ref
 from repro_torch.kernels.lutact.ref import lut_sigmoid_ref
 from repro_torch.kernels.rwkv6_scan.ref import decode_ref, rwkv6_scan_ref
@@ -698,11 +705,151 @@ def test_flash_tc_entry_takes_only_the_routed_instance(hd, hd_pad, shift, cuda):
     q, k, v, out = (buf[i, shift:shift + B * H * S * hd].view(B, H, S, hd) for i in range(4))
     strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, out) for s in t.stride()[:3]])
     err = famod.TC_LIBRARY.load().flash_attention_tc_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides, B, H, H, S, S, hd,
-        hd_pad, 1, 0, 1.0, torch.cuda.current_stream(cuda).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, strides, B, H, H, S, S,
+        hd, hd_pad, 1, 0, 1.0, torch.cuda.current_stream(cuda).cuda_stream)
     torch.cuda.synchronize()
     valid = hd_pad == famod.route(q, k, v).hd_pad and shift == 0
     assert err == (0 if valid else 1)
+
+
+# The backward kernel (csrc/flashattn_bwd.cu) at the shapes of chip_smoke.py
+# phase 9 (a), cut in S where the plain version would take long: danube's
+# (32 heads over 8, hd 80, a window, and a window shorter than S),
+# qwen2-moe's hd 128 causal, zamba2's HD_PAD 64 causal and whisper's
+# non-causal encoder at S 1500, plus ragged S and the small head_dims.
+# Tolerance: max |kernel - plain| over max |plain|, 1e-4 in f32 (sums in
+# another order) and 1e-2 in bf16 (dq, dk, dv are rounded to bf16: one
+# step is 2^-8 of a value).  The forward's output, from the instance that
+# writes lse, is held first at the forward's tolerance (FLASH_TOL) over
+# max(1, max |plain|).
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+FLASH_FWD_TOL = dict(FLASH_TOL)
+
+
+def _fwd_err(out, ref):
+    return float((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp(min=1))
+
+
+def _flash_bwd_vs_plain(q, k, v, causal, window):
+    from repro_torch.kernels.flashattn import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flashattn.ref import flash_attention_bwd_ref, flash_attention_lse_ref
+
+    g = torch.Generator(device=q.device).manual_seed(q.shape[2])
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    out_r, lse_r = flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert _fwd_err(out, out_r) <= FLASH_FWD_TOL[q.dtype]
+    assert float((lse - lse_r).abs().max()) <= 1e-4 * max(1.0, float(lse_r.abs().max()))
+    dout = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    n = flash_attention.bwd_launches
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == n + BWD_KERNELS
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+    for name, a, b, t in zip(("dq", "dk", "dv"), grads, refs, (q, k, v)):
+        assert a.dtype == t.dtype and a.shape == t.shape, name
+        rel = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert rel <= FLASH_BWD_TOL[q.dtype], (name, rel)
+    return grads
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window,dtype", [
+    (1, 32, 8, 4096, 80, True, 4096, torch.bfloat16),       # danube
+    (1, 32, 8, 2048, 80, True, 1000, torch.bfloat16),       # a window shorter than S
+    (1, 16, 16, 2048, 128, True, None, torch.bfloat16),     # qwen2-moe: hd 128
+    (1, 32, 32, 2048, 64, True, None, torch.bfloat16),      # zamba2: HD_PAD 64
+    (2, 6, 6, 1500, 64, False, None, torch.bfloat16),       # whisper's encoder
+    (1, 8, 2, 333, 80, True, 100, torch.float32),           # f32, ragged S
+    (1, 4, 2, 130, 16, True, None, torch.bfloat16),         # hd 16 (SMOKE)
+    (1, 4, 1, 150, 36, True, 70, torch.float32),            # hd 36, MQA
+    (1, 8, 2, 200, 72, False, None, torch.float32),         # hd 72 non-causal
+])
+def test_flash_attention_bwd_matches_plain_version(B, H, KV, S, hd, causal, window, dtype, cuda):
+    g = torch.Generator(device=cuda).manual_seed(S + hd)
+    q, k, v = (torch.randn(sh, generator=g, device=cuda).to(dtype)
+               for sh in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)))
+    _flash_bwd_vs_plain(q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_strided_views(dtype, cuda):
+    """The BSHD views the model passes through ops.attention, and a row
+    stride of 84 values; the gradients keep their operand's layout."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, H, KV, S, hd = 2, 8, 2, 257, 80
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=cuda).to(dtype).movedim(1, 2)
+               for n in (H, KV, KV))
+    dq, dk, _ = _flash_bwd_vs_plain(q, k, v, True, 100)
+    assert dq.stride() == q.stride() and dk.stride() == k.stride()
+    wide = torch.randn((B, H, S, 84), generator=g, device=cuda).to(dtype)[..., :hd]
+    _flash_bwd_vs_plain(wide, k, v, True, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_matches_plain_autograd(dtype, cuda):
+    """``ops.attention`` with inputs that require grad takes FlashAttention
+    (one forward launch and one backward call of three kernels) and gives
+    the output and the gradients that autograd takes through the plain
+    version, at the tolerances of the forward and the backward kernel's
+    test."""
+    from repro_torch.kernels.flashattn.ops import attention
+    from repro_torch.models.attention import blocked_attention
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, S, H, KV, hd = 2, 300, 8, 2, 80
+    base = [torch.randn((B, S, n, hd), generator=g, device=cuda).to(dtype) for n in (H, KV, KV)]
+    dout = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+    grads, outs = {}, {}
+    for name, fn in (("kernel", attention), ("plain", blocked_attention)):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        n, nb = flash_attention.launches, flash_attention.bwd_launches
+        out = fn(*leaves, causal=True, window=64)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        if name == "kernel":
+            assert (flash_attention.launches, flash_attention.bwd_launches) == \
+                (n + 1, nb + BWD_KERNELS)
+        grads[name], outs[name] = [t.grad for t in leaves], out.detach()
+    assert outs["kernel"].dtype == dtype and outs["kernel"].shape == outs["plain"].shape
+    assert _fwd_err(outs["kernel"], outs["plain"]) <= FLASH_FWD_TOL[dtype]
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        rel = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert rel <= 2 * FLASH_BWD_TOL[dtype], rel
+
+
+def test_bench_cuda_events_times_the_card(cuda):
+    """``bench(..., cuda_events=True)`` times a spin kernel of a few ms on
+    the card: more than 1 ms, and no more than the host clock's time of
+    the same calls (which also holds the launch and the synchronization)."""
+    from repro_torch.utils.timing import bench
+
+    host = bench(torch.cuda._sleep, 10_000_000, iters=3)
+    card = bench(torch.cuda._sleep, 10_000_000, iters=3, cuda_events=True)
+    assert 1e-3 < card <= 1.1 * host
+
+
+def test_other_kernels_still_refuse_grad(cuda):
+    """rwkv6 has no backward kernel yet: a train step of the rwkv6 SMOKE
+    model on the card raises refuse_grad's error in rwkv6_scan and never
+    takes the plain scan; fixmatmul keeps refusing (see
+    test_kernels_refuse_autograd), and lut_sigmoid takes only int32, which
+    cannot require grad (a float input raises)."""
+    from repro_torch.config import TrainConfig, get_smoke
+    from repro_torch.models import build_model
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_smoke("rwkv6-7b")
+    model = build_model(cfg, cuda)
+    tcfg = TrainConfig(warmup_steps=1, total_steps=4)
+    state = init_train_state(model, tcfg, 0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(0))
+    n = rmod.rwkv6_scan.launches
+    with pytest.raises(RuntimeError, match="rwkv6_scan.*no backward"):
+        make_train_step(model, tcfg)(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert rmod.rwkv6_scan.launches == n
+    with pytest.raises(ValueError, match="int32"):
+        lmod.lut_sigmoid(torch.zeros(8, device=cuda, requires_grad=True))
 
 
 def test_moe_int8_kv_decode_matches_cpu(cuda):
