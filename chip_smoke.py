@@ -14,10 +14,12 @@ each printing its results on a line of its own:
   2. build the five CUDA kernels (vmloop, fixmatmul, flash attention,
      rwkv6_scan, lut_sigmoid) from the sources in the checkout, one nvcc
      per source (flash attention has three: the bf16 forward on the tensor
-     cores, the f32 forward on the FP32 pipes, the backward), all started
-     together, and print each one's ptxas
-     register and spill lines (rwkv6_scan's decode kernel and flash
-     attention's HD_PAD 128 instance on lines of their own);
+     cores, the f32 forward on the FP32 pipes, the backward, bf16 on the
+     tensor cores and f32 on the FP32 pipes), all started together, and
+     print each one's ptxas
+     register and spill lines (rwkv6_scan's decode kernel, flash
+     attention's forward instances at HD_PAD 80 and 128 and its backward's
+     tensor-core kernels at HD_PAD 64, 80 and 128 on lines of their own);
   3. hold vmloop against its plain PyTorch version on the card: the
      per-opcode sweep and a batch of random node states, byte for byte on
      every field and on n_exec/bailed/bail_op, over every node and over a
@@ -196,7 +198,8 @@ each printing its results on a line of its own:
      global batch 4 (train_4k's 256 cut to fit one card) on the synthetic
      pipeline, per step loss, grad_norm, ms, tokens/s, peak memory and the
      flash launches (48 forward: 24 layers, twice under remat; 72
-     backward: 24 calls of three kernels); (c) one train step of danube at full width and 4 layers
+     backward: 24 calls of three kernels, 48 of them on the tensor cores);
+     (c) one train step of danube at full width and 4 layers
      through the kernels against the same step from the same state with
      the plain attention (autograd through ``blocked_attention``): loss,
      grad_norm and updated leaves agree.
@@ -371,8 +374,13 @@ def main() -> int:
             print(f"ptxas flash_tc_kernel<{hd_pad}> ({path}): " + " | ".join(
                 ptxas_of(flash_mod.TC_LIBRARY, f"flash_tc_kernelILi{hd_pad}ELb{lse}E")[1:]
                 or ["not in the report"]), flush=True)
-    print("ptxas flashattn_bwd dkdv/dq bf16 <80>, <128>: " + " | ".join(
-        (ptxas_of(flash_mod.BWD_LIBRARY, f"{k}_kernelI13__nv_bfloat16Li{p}E") or ["none"])[-1]
+    for p in (64, 80, 128):
+        for k in ("dkdv_tc", "dq_tc"):
+            print(f"ptxas flashattn_bwd {k}_kernel<{p}> (bf16, tensor cores): " + " | ".join(
+                ptxas_of(flash_mod.BWD_LIBRARY, f"{k}_kernelILi{p}E")[1:]
+                or ["not in the report"]), flush=True)
+    print("ptxas flashattn_bwd dkdv/dq f32 <80>, <128>: " + " | ".join(
+        (ptxas_of(flash_mod.BWD_LIBRARY, f"{k}_kernelILi{p}E") or ["none"])[-1]
         for p in (80, 128) for k in ("dkdv", "dq")), flush=True)
     print(f"build: all {len(libs)} sources {time.perf_counter() - t0:.2f} s with loading",
           flush=True)
@@ -3263,12 +3271,14 @@ def check_flash_bwd(torch, flash_mod, dev) -> dict:
                         / out_ref.float().abs().max().clamp(min=1))
         lse_err = float((lse - lse_ref).abs().max())
         del out_ref
-        n = fa.bwd_launches
+        n, ntc = fa.bwd_launches, fa.bwd_tc_launches
         grads = flash_mod.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
         refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
         torch.cuda.synchronize()
-        if fa.bwd_launches != n + flash_mod.BWD_KERNELS:
-            fail(f"flash backward {label}: launched {fa.bwd_launches - n} kernels")
+        want_tc = flash_mod.BWD_TC_KERNELS if dt == bf16 else 0
+        if (fa.bwd_launches - n, fa.bwd_tc_launches - ntc) != (flash_mod.BWD_KERNELS, want_tc):
+            fail(f"flash backward {label}: launched {fa.bwd_launches - n} kernels, "
+                 f"{fa.bwd_tc_launches - ntc} on the tensor cores")
         fwd_tol = FLASH_TOL[str(dt).split(".")[1]]
         if out.dtype != dt or out.shape != q.shape or not out_err <= fwd_tol:
             fail(f"flash forward with lse {label}: output max abs err {out_err} of max(1, the "
@@ -3365,7 +3375,7 @@ def train_danube(torch, dev, flash_mod) -> tuple:
     def stepped(state, batch):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        n, nb, tc = fa.launches, fa.bwd_launches, fa.tc_launches
+        n, nb, tc, nbtc = fa.launches, fa.bwd_launches, fa.tc_launches, fa.bwd_tc_launches
         t = time.perf_counter()
         state, m = step_fn(state, batch)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
@@ -3375,7 +3385,8 @@ def train_danube(torch, dev, flash_mod) -> tuple:
                       "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                       "flash_fwd": fa.launches - n, "flash_bwd": fa.bwd_launches - nb,
-                      "flash_fwd_tc": fa.tc_launches - tc})
+                      "flash_fwd_tc": fa.tc_launches - tc,
+                      "flash_bwd_tc": fa.bwd_tc_launches - nbtc})
         print(json.dumps({"phase": "train_step", "arch": ARCH, **steps[-1]}), flush=True)
         return state, m
 
@@ -3383,18 +3394,20 @@ def train_danube(torch, dev, flash_mod) -> tuple:
     trainer = Trainer(RunConfig(model=cfg, shape=shape, train=tcfg), stepped, state, pipeline,
                       voter=ReplicaVoter(n_replicas=1),
                       put_batch=lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
-    fa.launches = fa.tc_launches = fa.bwd_launches = 0
+    fa.launches = fa.tc_launches = fa.bwd_launches = fa.bwd_tc_launches = 0
     t = time.perf_counter()
     last = trainer.run_slice(TRAIN_STEPS)
     wall = time.perf_counter() - t
     fwd, bwd = fa.launches, fa.bwd_launches
     pipeline.close()
-    L, nbk = cfg.num_layers, flash_mod.BWD_KERNELS
+    L, nbk, ntc = cfg.num_layers, flash_mod.BWD_KERNELS, flash_mod.BWD_TC_KERNELS
     for st in steps:
-        if (st["flash_fwd"], st["flash_bwd"], st["flash_fwd_tc"]) != (2 * L, nbk * L, 2 * L):
+        if (st["flash_fwd"], st["flash_bwd"], st["flash_fwd_tc"], st["flash_bwd_tc"]) != \
+                (2 * L, nbk * L, 2 * L, ntc * L):
             fail(f"train step {st['step']}: flash launched {st['flash_fwd']} forward "
                  f"({st['flash_fwd_tc']} on the tensor cores) and {st['flash_bwd']} backward "
-                 f"kernels, expected {2 * L} and {nbk * L} ({L} calls of {nbk})")
+                 f"kernels ({st['flash_bwd_tc']} on the tensor cores), expected {2 * L} and "
+                 f"{nbk * L} ({L} calls of {nbk}, {ntc} of them on the tensor cores)")
         if not all(map(math.isfinite, (st["loss"], st["grad_norm"]))):
             fail(f"train step {st['step']}: loss {st['loss']}, grad_norm {st['grad_norm']}")
     if len(steps) != TRAIN_STEPS or trainer.current_step() != TRAIN_STEPS or \
@@ -3412,7 +3425,8 @@ def train_danube(torch, dev, flash_mod) -> tuple:
         "step_ms_mean_after_first": sum(x["ms"] for x in warm) / len(warm),
         "tokens_per_s_after_first": TRAIN_BATCH * TRAIN_SEQ * len(warm) / sum(x["ms"] / 1e3 for x in warm),
         "peak_gb": max(x["peak_gb"] for x in steps), "losses": [x["loss"] for x in steps],
-        "flash_fwd_launches": fwd, "flash_bwd_launches": bwd, "card": smi,
+        "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
+        "flash_bwd_tc_launches": fa.bwd_tc_launches, "card": smi,
     }), flush=True)
     del trainer, state, model, step_fn
     return fwd, bwd

@@ -2,8 +2,9 @@
 layers, bf16, AdamW, remat) at seq 4096 and batch 4, as ``chip_smoke.py``
 phase 9 (b) trains it, one step under ``torch.profiler`` after two
 unprofiled ones.  Prints the card, the step's wall ms, the device's busy
-ms, and its kernel time by group: flash attention's backward (the three
-kernels of ``csrc/flashattn_bwd.cu``), its forward (``flash_tc_kernel``,
+ms, and its kernel time by group: flash attention's backward (the
+kernels of ``csrc/flashattn_bwd.cu``: rowdot and, in bf16, the
+tensor-core ``dkdv_tc_kernel`` and ``dq_tc_kernel``), its forward (``flash_tc_kernel``,
 both instances), the matrix products (cuBLAS / CUTLASS: ``gemm``,
 ``nvjet``, ``cutlass``, ``sm90_xmma``), and the rest (elementwise work,
 reductions, the optimizer, copies), each with its share; then the
@@ -24,7 +25,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = (("flash backward", ("rowdot_kernel", "dkdv_kernel", "dq_kernel")),
+GROUPS = (("flash backward", ("rowdot_kernel", "dkdv_kernel", "dq_kernel", "dkdv_tc_kernel",
+                             "dq_tc_kernel")),
           ("flash forward", ("flash_tc_kernel", "flash_kernel")),
           ("matrix products", ("gemm", "nvjet", "cutlass", "sm90_xmma", "Kernel2")))
 

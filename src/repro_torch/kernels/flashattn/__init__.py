@@ -13,7 +13,10 @@ backward.
                  ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref``;
   csrc/        — ``flashattn_tc.cu``, the bf16 forward on the tensor cores;
                  ``flashattn.cu``, the f32 forward on the FP32 pipes;
-                 ``flashattn_bwd.cu``, the backward (f32 arithmetic).
+                 ``flashattn_bwd.cu``, the backward (bf16 on the tensor
+                 cores, f32 on the FP32 pipes); ``flashattn_mma.cuh``, the
+                 warp-level tensor-core and copy helpers both bf16 sources
+                 include.
 """
 
 from repro_torch.kernels.flashattn.flashattn import (

@@ -9,7 +9,8 @@
 // thousands of multiply-adds, so the time of the bytes is far below that of
 // the arithmetic; the tensor cores' 989 TFLOP/s in bf16 are the bound.
 //
-// Design (the FlashAttention-2 forward on warp-level tensor-core ops):
+// Design (the FlashAttention-2 forward on warp-level tensor-core ops, whose
+// helpers it shares with the backward through flashattn_mma.cuh):
 //   * one block of 8 warps per (batch, head, 128-query tile), 16 rows a
 //     warp: each K/V tile brought into shared memory serves 128 rows.  Two
 //     blocks share an SM (<= 128 registers a thread at HD_PAD <= 80; ptxas
@@ -58,6 +59,8 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "flashattn_mma.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -84,50 +87,6 @@ struct Tile {
     static constexpr int ROWS = BQ + 2 * STAGES * BKV;
     static constexpr size_t SMEM = static_cast<size_t>(ROWS) * LD * sizeof(bf16);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !in.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// Two f32 rounded to bf16, lo in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Rows start..start+NROWS-1 (those < limit; the rest zero-filled) of a
 // (S, hd) slab with row stride `ld_g` into the NROWS x LD bf16 tile at

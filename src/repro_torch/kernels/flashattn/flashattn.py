@@ -17,12 +17,17 @@ take the plain version (``ref.flash_attention_ref``).
 ``flash_attention.tc_launches`` those of the tensor-core kernel.
 
 The backward (``csrc/flashattn_bwd.cu``, built by ``BWD_LIBRARY``) is
-``flash_attention_bwd``; ``FlashAttention`` is the autograd function that
-runs the forward kernel with its log-sum-exp output and the backward
-kernel, and ``ops.attention`` takes it on CUDA when an input requires
+``flash_attention_bwd``: bf16 on the tensor cores, f32 on the FP32 pipes,
+routed by the same ``route`` (bf16 operands it marks ``padded_copy`` go
+through zero-padded contiguous copies, and the gradients are copied back
+into their operands' layout).  ``FlashAttention`` is the autograd function
+that runs the forward kernel with its log-sum-exp output and the backward
+kernels, and ``ops.attention`` takes it on CUDA when an input requires
 grad.  ``flash_attention`` itself still refuses such inputs.
 ``flash_attention.bwd_launches`` counts the backward's kernel launches,
-``BWD_KERNELS`` (D, dK/dV, dQ) a call.
+``BWD_KERNELS`` (D, dK/dV, dQ) a call, and
+``flash_attention.bwd_tc_launches`` those on the tensor cores,
+``BWD_TC_KERNELS`` (dK/dV, dQ) a bf16 call.
 """
 
 from __future__ import annotations
@@ -57,16 +62,28 @@ def _binder(name: str, n_ptrs: int, n_ints: int):
     return bind
 
 
+def _binders(*binds):
+    def bind(lib) -> None:
+        for b in binds:
+            b(lib)
+    return bind
+
+
+# The warp-level tensor-core and copy helpers of both bf16 sources.
+MMA_HEADER = "flashattn_mma.cuh"
 # The forward entries take q, k, v, out and lse (NULL: not written).
 LIBRARY = CudaLibrary("flashattn", CSRC, "flashattn.cu", (),
                       _binder("flash_attention_launch", 5, 8))
 # The tensor-core entry also takes hd_pad, the instance ``route`` chose.
-TC_LIBRARY = CudaLibrary("flashattn_tc", CSRC, "flashattn_tc.cu", (),
+TC_LIBRARY = CudaLibrary("flashattn_tc", CSRC, "flashattn_tc.cu", (MMA_HEADER,),
                          _binder("flash_attention_tc_launch", 5, 9))
 BWD_KERNELS = 3                    # rowdot (D), dkdv, dq: the launches of one backward call
-# q, k, v, out, dout, lse, D, dq, dk, dv; B, H, KV, S, hd, causal, window, dtype.
-BWD_LIBRARY = CudaLibrary("flashattn_bwd", CSRC, "flashattn_bwd.cu", (),
-                          _binder("flash_attention_bwd_launch", 10, 8))
+BWD_TC_KERNELS = 2                 # of those, on the tensor cores in a bf16 call: dkdv, dq
+# q, k, v, out, dout, lse, D, dq, dk, dv; B, H, KV, S, hd, causal, window (f32 entry);
+# the tensor-core entry also takes hd_pad after hd.
+BWD_LIBRARY = CudaLibrary("flashattn_bwd", CSRC, "flashattn_bwd.cu", (MMA_HEADER,),
+                          _binders(_binder("flash_attention_bwd_launch", 10, 7),
+                                   _binder("flash_attention_bwd_tc_launch", 10, 8)))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -79,11 +96,12 @@ class Route(NamedTuple):
     padded_copy: bool    # q/k/v go through zero-padded contiguous (..., roundup(hd, 8)) copies
 
 
-def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Route:
-    """Which kernel takes these operands.  The tensor-core kernel copies
-    16-byte rows, so it needs hd % 8 == 0, a contiguous last dimension,
-    16-byte aligned pointers and strides that are multiples of 8; operands
-    that miss any of that are copied first."""
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> Route:
+    """Which kernel takes these operands (q, k, v, and for the backward
+    out and dout too).  The tensor-core kernels copy 16-byte rows, so they
+    need hd % 8 == 0, a contiguous last dimension, 16-byte aligned pointers
+    and strides that are multiples of 8; operands that miss any of that
+    are copied first."""
     hd = q.shape[-1]
     if q.dtype == torch.float32:
         return Route("fp32", hd, False)
@@ -91,7 +109,7 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Route:
         raise ValueError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     aligned = hd % 8 == 0 and all(
         t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-        for t in (q, k, v))
+        for t in (q, k, v, *more))
     return Route("mma", _round_up(hd, 16), not aligned)
 
 
@@ -178,9 +196,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                         window: int | None = None):
     """(dq, dk, dv) like q, k and v: the backward of ``flash_attention``
     from its output, its lse (``flash_attention_fwd``) and the output's
-    gradient.  CUDA tensors launch ``csrc/flashattn_bwd.cu`` (Sq == Sk,
-    f32 or bf16, any strides with head_dim contiguous) or raise; CPU
-    tensors take ``ref.flash_attention_bwd_ref``."""
+    gradient.  CUDA tensors launch ``csrc/flashattn_bwd.cu`` (Sq == Sk;
+    bf16 on the tensor cores, f32 on the FP32 pipes; any strides) or
+    raise; CPU tensors take ``ref.flash_attention_bwd_ref``."""
     _check(q, k, v, window)
     B, H, S, hd = q.shape
     if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape) \
@@ -196,22 +214,43 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         raise ValueError(f"flash_attention_bwd kernel takes head_dim <= {MAX_HEAD_DIM}, got {hd}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention_bwd kernel takes float32 or bfloat16, got {q.dtype}")
-    dev = q.device
-    q, k, v, out, dout = (t if t.stride(-1) == 1 else t.contiguous()
-                          for t in (q, k, v, out, dout.to(q.dtype)))
+    return _launch_bwd(q, k, v, out, lse, dout.to(q.dtype), causal, window)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, window):
+    """One backward call (three launches) on the kernels ``route`` picks."""
+    B, H, S, hd = q.shape
+    r = route(q, k, v, out, dout)
+    ops = bwd_operands(r, q, k, v, out, dout)
     lse = lse.to(torch.float32).contiguous()
-    D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    tensors = (q, k, v, out, dout, dq, dk, dv)
+    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    grads = tuple(torch.empty_like(t) for t in ops[:3])
+    tensors = (*ops, *grads)
     strides = (ctypes.c_longlong * 24)(*[s for t in tensors for s in t.stride()[:3]])
-    err = BWD_LIBRARY.load().flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
-        B, H, k.shape[1], S, hd, int(causal), window or 0, int(q.dtype == torch.bfloat16),
-        softmax_scale(hd), torch.cuda.current_stream(dev).cuda_stream)
+    args = (*(t.data_ptr() for t in ops), lse.data_ptr(), D.data_ptr(),
+            *(t.data_ptr() for t in grads), strides, B, H, k.shape[1], S, ops[0].shape[-1])
+    tail = (int(causal), window or 0, softmax_scale(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if r.kernel == "mma":
+        err = BWD_LIBRARY.load().flash_attention_bwd_tc_launch(*args, r.hd_pad, *tail)
+    else:
+        err = BWD_LIBRARY.load().flash_attention_bwd_launch(*args, *tail)
     check_launch(err, "flash_attention_bwd")
     flash_attention.bwd_launches += BWD_KERNELS
-    return dq, dk, dv
+    if r.kernel == "mma":
+        flash_attention.bwd_tc_launches += BWD_TC_KERNELS
+    if r.padded_copy:        # back to head_dim and the operands' layout
+        return tuple(torch.empty_like(t).copy_(gr[..., :hd]) for t, gr in zip((q, k, v), grads))
+    return grads
+
+
+def bwd_operands(r: Route, q, k, v, out, dout) -> tuple:
+    """q, k, v, out and dout as the backward kernel of route ``r`` takes
+    them: zero-padded contiguous (..., roundup(hd, 8)) copies when ``r``
+    says so, else each with its last dimension made contiguous."""
+    if r.padded_copy:
+        return tuple(_padded(t, _round_up(t.shape[-1], 8)) for t in (q, k, v, out, dout))
+    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, out, dout))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -237,3 +276,4 @@ class FlashAttention(torch.autograd.Function):
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention.bwd_launches = 0
+flash_attention.bwd_tc_launches = 0

@@ -32,7 +32,9 @@ at per-node budgets) byte-identical to ``executor="cuda"``, and the
 single-node ``"cuda"`` and ``"trace"`` backends to the Oracle; flash
 attention's backward kernel within 1e-4 (f32) and 1e-2 (bf16) of its plain
 version relative to the plain version's largest value, at the shapes of
-``chip_smoke.py`` phase 9 (a) and on strided views, the forward's
+``chip_smoke.py`` phase 9 (a) and on strided views (bf16 on the
+tensor-core kernels, whose launches are counted, f32 on the FP32 ones;
+two bf16 calls give the same bits), the forward's
 log-sum-exp against its plain version, and ``ops.attention``'s
 ``FlashAttention`` against autograd through the plain attention; a CUDA
 tensor never takes the
@@ -55,7 +57,7 @@ from repro_torch.core.vm import FleetVM, vmstate as vms
 from repro_torch.kernels.vmloop import check, vmloop as kmod
 from repro_torch.kernels.fixmatmul.ref import fixmatmul_ref
 from repro_torch.kernels.flashattn import flash_attention
-from repro_torch.kernels.flashattn.flashattn import BWD_KERNELS
+from repro_torch.kernels.flashattn.flashattn import BWD_KERNELS, BWD_TC_KERNELS
 from repro_torch.kernels.flashattn.ref import flash_attention_ref
 from repro_torch.kernels.lutact.ref import lut_sigmoid_ref
 from repro_torch.kernels.rwkv6_scan.ref import decode_ref, rwkv6_scan_ref
@@ -741,10 +743,11 @@ def _flash_bwd_vs_plain(q, k, v, causal, window):
     assert _fwd_err(out, out_r) <= FLASH_FWD_TOL[q.dtype]
     assert float((lse - lse_r).abs().max()) <= 1e-4 * max(1.0, float(lse_r.abs().max()))
     dout = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
-    n = flash_attention.bwd_launches
+    n, tc = flash_attention.bwd_launches, flash_attention.bwd_tc_launches
     grads = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.bwd_launches == n + BWD_KERNELS
+    assert flash_attention.bwd_tc_launches == tc + BWD_TC_KERNELS * (q.dtype == torch.bfloat16)
     refs = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
     for name, a, b, t in zip(("dq", "dk", "dv"), grads, refs, (q, k, v)):
         assert a.dtype == t.dtype and a.shape == t.shape, name
@@ -763,6 +766,7 @@ def _flash_bwd_vs_plain(q, k, v, causal, window):
     (1, 4, 2, 130, 16, True, None, torch.bfloat16),         # hd 16 (SMOKE)
     (1, 4, 1, 150, 36, True, 70, torch.float32),            # hd 36, MQA
     (1, 8, 2, 200, 72, False, None, torch.float32),         # hd 72 non-causal
+    (1, 8, 2, 333, 80, True, 40, torch.bfloat16),           # S no multiple of the tiles, window < a tile
 ])
 def test_flash_attention_bwd_matches_plain_version(B, H, KV, S, hd, causal, window, dtype, cuda):
     g = torch.Generator(device=cuda).manual_seed(S + hd)
@@ -783,6 +787,50 @@ def test_flash_attention_bwd_strided_views(dtype, cuda):
     assert dq.stride() == q.stride() and dk.stride() == k.stride()
     wide = torch.randn((B, H, S, 84), generator=g, device=cuda).to(dtype)[..., :hd]
     _flash_bwd_vs_plain(wide, k, v, True, None)
+
+
+def _bwd_inputs(dtype, dev, B=1, H=8, KV=2, S=300, hd=80, causal=True, window=64):
+    from repro_torch.kernels.flashattn import flash_attention_fwd
+
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v, dout = (torch.randn(sh, generator=g, device=dev).to(dtype)
+                     for sh in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd), (B, H, S, hd)))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    return (q, k, v, out, lse, dout), dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_counts_tensor_core_launches(dtype, cuda):
+    """A bf16 backward call launches the tensor-core kernels (dK/dV and
+    dQ) and raises ``bwd_tc_launches`` by BWD_TC_KERNELS; an f32 call runs
+    the FP32-pipe kernels and leaves it; both raise ``bwd_launches`` by
+    BWD_KERNELS."""
+    from repro_torch.kernels.flashattn import flash_attention_bwd
+
+    args, mask = _bwd_inputs(dtype, cuda)
+    n, tc = flash_attention.bwd_launches, flash_attention.bwd_tc_launches
+    flash_attention_bwd(*args, **mask)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == n + BWD_KERNELS
+    assert flash_attention.bwd_tc_launches == tc + (BWD_TC_KERNELS if dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,causal,window", [
+    (1, 32, 8, 1024, 80, True, 512),        # danube's heads, a window
+    (2, 6, 6, 300, 64, False, None),        # non-causal
+    (1, 16, 16, 260, 128, True, None),      # HD_PAD 128
+])
+def test_flash_attention_bwd_is_deterministic(B, H, KV, S, hd, causal, window, cuda):
+    """Two bf16 backward calls on the same inputs give the same bits in
+    dq, dk and dv: no atomics, every sum in a fixed order."""
+    from repro_torch.kernels.flashattn import flash_attention_bwd
+
+    args, mask = _bwd_inputs(torch.bfloat16, cuda, B, H, KV, S, hd, causal, window)
+    first = flash_attention_bwd(*args, **mask)
+    second = flash_attention_bwd(*args, **mask)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
