@@ -2,8 +2,10 @@
 h2o-danube-1.8b, rwkv6-7b, qwen2-moe-a2.7b (on the int8 KV cache), the
 repo's other moe and dense configs, and zamba2-1.2b, whisper-tiny and
 internvl2-2b (the hybrid, encdec and vlm families) served with the VM
-fleet as their measuring job; and h2o-danube-1.8b trained at full width
-and depth, through flash attention's backward kernel.
+fleet as their measuring job; h2o-danube-1.8b trained at full width
+and depth, through flash attention's backward kernel; rwkv6-7b trained at
+full width (12 of its 32 layers) through rwkv6_scan's backward kernels;
+and zamba2-1.2b's train step.
 
     python3 chip_smoke.py [--nodes N]
 
@@ -15,7 +17,8 @@ each printing its results on a line of its own:
      rwkv6_scan, lut_sigmoid) from the sources in the checkout, one nvcc
      per source (flash attention has three: the bf16 forward on the tensor
      cores, the f32 forward on the FP32 pipes, the backward, bf16 on the
-     tensor cores and f32 on the FP32 pipes), all started together, and
+     tensor cores and f32 on the FP32 pipes; rwkv6_scan two: the forward's
+     routes and the backward), all started together, and
      print each one's ptxas
      register and spill lines (rwkv6_scan's decode kernel, flash
      attention's forward instances at HD_PAD 80 and 128 and its backward's
@@ -202,7 +205,27 @@ each printing its results on a line of its own:
      (c) one train step of danube at full width and 4 layers
      through the kernels against the same step from the same state with
      the plain attention (autograd through ``blocked_attention``): loss,
-     grad_norm and updated leaves agree.
+     grad_norm and updated leaves agree;
+ 10. rwkv6 and zamba2 training: (a) rwkv6_scan's backward kernels (the
+     dstate pass and the gradient pass) against the plain backward
+     (autograd through ``ref.rwkv6_scan_ref``, over slices of the heads)
+     at rwkv6-7b's 64 heads of 64: the serve prefill's B 1 S 8192 bf16,
+     the training shape B 4 S 4096 bf16, one chunk (S 64), f32 at B 1 S
+     2048, a state in and a gradient of the last state out (B 2 S 1024),
+     and a decay past the clip at -60; each timed beside the plain
+     version and its bound (no library call computes it); (b) the cell
+     rwkv6-train-4k: rwkv6-7b at full width with 12 of its 32 layers
+     (3.16 B parameters; the whole model's AdamW state passes one card),
+     bf16, AdamW, remat, through ``Trainer.run_slice``: 5 steps at seq
+     4096 and batch 4, per step loss, grad_norm, ms, tokens/s, peak memory
+     and the launches (24 forward, all on the two passes, and 12 backward
+     calls of two kernels a step); (c) one AdamW step at full width and 2
+     layers through the kernels against the same step with
+     ``wkv=chunked_wkv``, where the kernel step calls no plain scan; (d)
+     zamba2-1.2b: one step at full width and 6 layers (the shared block
+     once, on flash's HD_PAD 64 forward with lse and its backward) against
+     the plain-attention step, then the whole model (38 layers) for 3
+     steps at seq 4096 and the largest of batch 4, 2, 1 that fits.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -253,6 +276,13 @@ TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH = 4, 1       # phase 9 (c): kernel step vs
 FLASH_BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # max |dq, dk, dv diff| / max |plain|
 TRAIN_LOSS_TOL, TRAIN_GNORM_TOL = 1e-2, 5e-2       # phase 9 (c): relative, bf16 over 4 layers
 TRAIN_LEAF_CLOSE = 0.95        # phase 9 (c): share of a leaf within its bf16 rounding
+RWKV_BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}   # phase 10 (a): max |grad diff| / max |plain|
+PLAIN_ROWS = 16 * 8192          # phase 10 (a): batch x heads x seq of one slice of the plain backward
+RWKV_TRAIN_LAYERS = 12          # phase 10 (b): rwkv6-7b's 32 layers cut to fit one card
+RWKV_CHECK_LAYERS, RWKV_CHECK_STEPS = 2, 3   # phase 10 (c): kernel steps vs plain-scan steps
+ZAMBA_ARCH = "zamba2-1.2b"      # phase 10 (d)
+ZAMBA_CHECK_LAYERS = 6          # the shared attention block runs once
+ZAMBA_TRAIN_STEPS, ZAMBA_BATCHES = 3, (4, 2, 1)     # the whole model, the largest batch that fits
 RWKV_TOL = {"bfloat16": 1e-2, "float32": 1e-4}    # out: max abs err / max(1, max |plain|)
 RWKV_STATE_TOL = 1e-4           # the state (f32 in both), the same measure
 LUT_SIZES = (1024, 8192)        # fixed_sigmoid inputs: bench_kernels.py's size, one past L2
@@ -356,7 +386,7 @@ def main() -> int:
     # 2. build: one nvcc per kernel, all started together
     t0 = time.perf_counter()
     libs = (kmod.LIBRARY, fix_mod.LIBRARY, flash_mod.LIBRARY, flash_mod.TC_LIBRARY,
-            flash_mod.BWD_LIBRARY, rwkv_mod.LIBRARY, lut_mod.LIBRARY)
+            flash_mod.BWD_LIBRARY, rwkv_mod.LIBRARY, rwkv_mod.BWD_LIBRARY, lut_mod.LIBRARY)
     with ThreadPoolExecutor(len(libs)) as pool:
         for lib, fut in [(lib, pool.submit(lib.build)) for lib in libs]:
             try:
@@ -685,8 +715,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_kernel_vs_plain(torch, dev, flash_mod)
     torch.cuda.empty_cache()
-    next(r for r in records if r["name"] == "flash_attention")["launches"] += launches_train_fwd
-    records.append(dict(bwd_record, launches=launches_train_bwd))
+
+    # 10. rwkv6 and zamba2 training: rwkv6_scan's backward kernels against
+    # their plain version, rwkv6-7b's train steps at full width, a kernel
+    # step against a plain-scan step, and zamba2's train step
+    rwkv_bwd_record = check_rwkv6_bwd(torch, rwkv_mod, dev)
+    torch.cuda.empty_cache()
+    launches_rwkv_train, launches_rwkv_bwd = train_rwkv6(torch, dev, rwkv_mod)
+    torch.cuda.empty_cache()
+    rwkv6_kernel_vs_plain(torch, dev, rwkv_mod)
+    torch.cuda.empty_cache()
+    launches_zamba_fwd, launches_zamba_bwd = train_zamba2(torch, dev, flash_mod)
+    torch.cuda.empty_cache()
+    by_name = {r["name"]: r for r in records}
+    by_name["flash_attention"]["launches"] += launches_train_fwd + launches_zamba_fwd
+    by_name["rwkv6_scan"]["launches"] += launches_rwkv_train
+    records.append(dict(bwd_record, launches=launches_train_bwd + launches_zamba_bwd))
+    records.append(dict(rwkv_bwd_record, launches=launches_rwkv_bwd))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3349,146 +3394,439 @@ def _train_parts(torch, cfg, dev, tcfg):
     return model, state, time.perf_counter() - t
 
 
-def train_danube(torch, dev, flash_mod) -> tuple:
-    """Phase 9 (b): h2o-danube-1.8b whole in bf16 with AdamW through
-    ``Trainer.run_slice`` on the synthetic pipeline (the launcher's
-    ``TrainConfig``: warmup max(steps // 20, 1)), every step timed and
-    counted.  Returns (forward, backward) flash launches of the run."""
-    from repro_torch.config import SHAPES, RunConfig, TrainConfig, get_arch
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def train_run(torch, dev, cfg, batch: int, steps: int, counters: dict, per_step: dict) -> dict:
+    """``steps`` steps of ``cfg`` (bf16, AdamW, remat) through
+    ``Trainer.run_slice`` on the synthetic pipeline at seq TRAIN_SEQ and
+    global batch ``batch`` (the launcher's ``TrainConfig``: warmup
+    max(steps // 20, 1)); each step timed, with its peak memory and the
+    growth of each of ``counters`` (name -> a reader of a launch count),
+    printed as a ``train_step`` line.  Fails unless every step grows each
+    counter named in ``per_step`` by the count given there, and every loss
+    and grad_norm is finite, the first loss within 1 of ln(vocab).
+    Returns the run's summary (steps, ms and tokens/s after the first,
+    peak GB, losses)."""
+    from repro_torch.config import SHAPES, RunConfig, TrainConfig
     from repro_torch.resilience.voting import ReplicaVoter
     from repro_torch.train.data import pipeline_for
     from repro_torch.train.train_step import make_train_step
     from repro_torch.train.trainer import Trainer
 
-    cfg = get_arch(ARCH)
-    full = SHAPES["train_4k"]
-    shape = full.replace(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
-    print(f"train: {ARCH} {cfg.num_layers} layers d {cfg.d_model}, {cfg.param_count():,} params "
-          f"in {cfg.dtype}, AdamW, remat={cfg.remat}; {full.name} cut from global batch "
-          f"{full.global_batch} to {TRAIN_BATCH} (seq {TRAIN_SEQ}) to fit one card", flush=True)
-    tcfg = TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=max(TRAIN_STEPS // 20, 1))
+    shape = SHAPES["train_4k"].replace(seq_len=TRAIN_SEQ, global_batch=batch)
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=max(steps // 20, 1))
     model, state, init_s = _train_parts(torch, cfg, dev, tcfg)
     step_fn = make_train_step(model, tcfg)
-    fa = flash_mod.flash_attention
-    steps = []
+    records = []
 
-    def stepped(state, batch):
+    def stepped(state, b):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        n, nb, tc, nbtc = fa.launches, fa.bwd_launches, fa.tc_launches, fa.bwd_tc_launches
+        before = {name: read() for name, read in counters.items()}
         t = time.perf_counter()
-        state, m = step_fn(state, batch)
+        state, m = step_fn(state, b)
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        steps.append({"step": int(state.step), "loss": loss, "grad_norm": gnorm, "ms": 1e3 * dt,
-                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
-                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                      "flash_fwd": fa.launches - n, "flash_bwd": fa.bwd_launches - nb,
-                      "flash_fwd_tc": fa.tc_launches - tc,
-                      "flash_bwd_tc": fa.bwd_tc_launches - nbtc})
-        print(json.dumps({"phase": "train_step", "arch": ARCH, **steps[-1]}), flush=True)
+        records.append({"step": int(state.step), "loss": loss, "grad_norm": gnorm, "ms": 1e3 * dt,
+                        "tokens_per_s": batch * TRAIN_SEQ / dt,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        **{name: read() - before[name] for name, read in counters.items()}})
+        print(json.dumps({"phase": "train_step", "arch": cfg.name, **records[-1]}), flush=True)
         return state, m
 
     pipeline = pipeline_for(cfg, shape, seed=SEED)
     trainer = Trainer(RunConfig(model=cfg, shape=shape, train=tcfg), stepped, state, pipeline,
                       voter=ReplicaVoter(n_replicas=1),
                       put_batch=lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
-    fa.launches = fa.tc_launches = fa.bwd_launches = fa.bwd_tc_launches = 0
-    t = time.perf_counter()
-    last = trainer.run_slice(TRAIN_STEPS)
-    wall = time.perf_counter() - t
-    fwd, bwd = fa.launches, fa.bwd_launches
-    pipeline.close()
-    L, nbk, ntc = cfg.num_layers, flash_mod.BWD_KERNELS, flash_mod.BWD_TC_KERNELS
-    for st in steps:
-        if (st["flash_fwd"], st["flash_bwd"], st["flash_fwd_tc"], st["flash_bwd_tc"]) != \
-                (2 * L, nbk * L, 2 * L, ntc * L):
-            fail(f"train step {st['step']}: flash launched {st['flash_fwd']} forward "
-                 f"({st['flash_fwd_tc']} on the tensor cores) and {st['flash_bwd']} backward "
-                 f"kernels ({st['flash_bwd_tc']} on the tensor cores), expected {2 * L} and "
-                 f"{nbk * L} ({L} calls of {nbk}, {ntc} of them on the tensor cores)")
+    try:
+        t = time.perf_counter()
+        last = trainer.run_slice(steps)
+        wall = time.perf_counter() - t
+    finally:
+        pipeline.close()
+    for st in records:
+        wrong = {name: st[name] for name, n in per_step.items() if st[name] != n}
+        if wrong:
+            fail(f"train {cfg.name} step {st['step']}: launches {wrong}, expected {per_step}")
         if not all(map(math.isfinite, (st["loss"], st["grad_norm"]))):
-            fail(f"train step {st['step']}: loss {st['loss']}, grad_norm {st['grad_norm']}")
-    if len(steps) != TRAIN_STEPS or trainer.current_step() != TRAIN_STEPS or \
+            fail(f"train {cfg.name} step {st['step']}: loss {st['loss']}, grad_norm {st['grad_norm']}")
+    if len(records) != steps or trainer.current_step() != steps or \
             trainer.log.losses[-1] != last["loss"]:
-        fail(f"train: {len(steps)} steps, at step {trainer.current_step()}")
-    if abs(steps[0]["loss"] - math.log(cfg.vocab_size)) > 1.0:
-        fail(f"train: first loss {steps[0]['loss']} is not near ln(vocab) {math.log(cfg.vocab_size)}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip().splitlines()[0]
-    warm = steps[1:]
+        fail(f"train {cfg.name}: {len(records)} steps, at step {trainer.current_step()}")
+    if abs(records[0]["loss"] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"train {cfg.name}: first loss {records[0]['loss']} is not near ln(vocab) "
+             f"{math.log(cfg.vocab_size)}")
+    warm = records[1:]
+    del trainer, state, model, step_fn
+    return {"steps": steps, "optimizer": tcfg.optimizer, "remat": cfg.remat, "init_s": init_s,
+            "wall_s": wall, "step_ms_mean_after_first": sum(x["ms"] for x in warm) / len(warm),
+            "tokens_per_s_after_first": batch * TRAIN_SEQ * len(warm) / sum(
+                x["ms"] / 1e3 for x in warm),
+            "peak_gb": max(x["peak_gb"] for x in records), "losses": [x["loss"] for x in records]}
+
+
+def flash_counters(flash_mod) -> dict:
+    fa = flash_mod.flash_attention
+    return {"flash_fwd": lambda: fa.launches, "flash_bwd": lambda: fa.bwd_launches,
+            "flash_fwd_tc": lambda: fa.tc_launches, "flash_bwd_tc": lambda: fa.bwd_tc_launches}
+
+
+def train_danube(torch, dev, flash_mod) -> tuple:
+    """Phase 9 (b): h2o-danube-1.8b whole in bf16 with AdamW, TRAIN_STEPS
+    steps at TRAIN_BATCH: 48 forward flash launches a step (24 layers,
+    twice under remat, all on the tensor cores) and 24 backward calls of
+    BWD_KERNELS launches, BWD_TC_KERNELS of them on the tensor cores.
+    Returns (forward, backward) flash launches of the run."""
+    from repro_torch.config import SHAPES, get_arch
+
+    cfg = get_arch(ARCH)
+    full = SHAPES["train_4k"]
+    print(f"train: {ARCH} {cfg.num_layers} layers d {cfg.d_model}, {cfg.param_count():,} params "
+          f"in {cfg.dtype}, AdamW, remat={cfg.remat}; {full.name} cut from global batch "
+          f"{full.global_batch} to {TRAIN_BATCH} (seq {TRAIN_SEQ}) to fit one card", flush=True)
+    fa, L = flash_mod.flash_attention, cfg.num_layers
+    fa.launches = fa.tc_launches = fa.bwd_launches = fa.bwd_tc_launches = 0
+    run = train_run(torch, dev, cfg, TRAIN_BATCH, TRAIN_STEPS, flash_counters(flash_mod), {
+        "flash_fwd": 2 * L, "flash_fwd_tc": 2 * L, "flash_bwd": flash_mod.BWD_KERNELS * L,
+        "flash_bwd_tc": flash_mod.BWD_TC_KERNELS * L})
+    fwd, bwd = fa.launches, fa.bwd_launches
     print(json.dumps({
         "phase": "train", "arch": ARCH, "layers": L, "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
-        "cut_from": {"shape": full.name, "global_batch": full.global_batch}, "steps": TRAIN_STEPS,
-        "optimizer": tcfg.optimizer, "remat": cfg.remat, "init_s": init_s, "wall_s": wall,
-        "step_ms_mean_after_first": sum(x["ms"] for x in warm) / len(warm),
-        "tokens_per_s_after_first": TRAIN_BATCH * TRAIN_SEQ * len(warm) / sum(x["ms"] / 1e3 for x in warm),
-        "peak_gb": max(x["peak_gb"] for x in steps), "losses": [x["loss"] for x in steps],
+        "cut_from": {"shape": full.name, "global_batch": full.global_batch}, **run,
         "flash_fwd_launches": fwd, "flash_bwd_launches": bwd,
-        "flash_bwd_tc_launches": fa.bwd_tc_launches, "card": smi,
+        "flash_bwd_tc_launches": fa.bwd_tc_launches, "card": card_line(),
     }), flush=True)
-    del trainer, state, model, step_fn
     return fwd, bwd
 
 
-def train_kernel_vs_plain(torch, dev, flash_mod) -> None:
-    """Phase 9 (c): one AdamW step of danube at full width and
-    TRAIN_CHECK_LAYERS layers through the kernels, and the same step from a
-    copy of the same state with the plain attention (autograd through
-    ``blocked_attention``, no flash launch).  The loss within
-    TRAIN_LOSS_TOL and grad_norm within TRAIN_GNORM_TOL relative; a
-    step-1 update is lr * g / (|g| + eps), so every element of the updated
-    leaves within 2 lr plus the bf16 rounding of both results, and
-    TRAIN_LEAF_CLOSE of each leaf within that rounding alone."""
-    from repro_torch.config import ShapeConfig, TrainConfig, get_arch
-    from repro_torch.models.attention import blocked_attention
+def step_kernel_vs_plain(torch, dev, cfg, plain_kw: dict, counters: dict, expect: dict,
+                         leaf_names, phase: str, steps: int = 1) -> dict:
+    """``steps`` AdamW steps of ``cfg`` at TRAIN_CHECK_BATCH x TRAIN_SEQ
+    through the kernels, and the same steps on the same batches from a
+    copy of the same state with ``plain_kw`` passed to the model's forward
+    (the plain version of a kernel).  Each step grows ``counters`` (name ->
+    reader) by ``expect[path]``.  At every step the loss within
+    TRAIN_LOSS_TOL and grad_norm within TRAIN_GNORM_TOL relative; after the
+    first, whose update is lr * g / (|g| + eps), every element of the
+    ``leaf_names`` leaves within 2 lr plus the bf16 rounding of both
+    results, and TRAIN_LEAF_CLOSE of each leaf within that rounding alone.
+    Prints a ``phase`` line (the first step's numbers, and every step's
+    under ``per_step``) and returns it."""
+    from repro_torch.config import ShapeConfig, TrainConfig
     from repro_torch.train.data import pipeline_for
     from repro_torch.train.train_step import TrainState, make_train_step
     from repro_torch.utils.tree import tree_flatten_with_names, tree_map
 
-    cfg = get_arch(ARCH).replace(num_layers=TRAIN_CHECK_LAYERS)
     tcfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     model, state, _ = _train_parts(torch, cfg, dev, tcfg)
     copy = lambda t: t.detach().clone()
     plain_state = TrainState(tree_map(copy, state.params), tree_map(copy, state.opt), state.rng,
                              state.step.clone())
     shape = ShapeConfig("check", seq_len=TRAIN_SEQ, global_batch=TRAIN_CHECK_BATCH, kind="train")
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in pipeline_for(cfg, shape, seed=SEED + 1).source.batch_at(0).items()}
-    fa = flash_mod.flash_attention
-    runs = {}
-    for name, st, kw in (("kernel", state, {}), ("plain", plain_state, {"attention": blocked_attention})):
-        n, nb = fa.launches, fa.bwd_launches
-        (new, m), ms = timed(torch, lambda: make_train_step(model, tcfg, **kw)(st, batch))
-        runs[name] = (new, float(m["loss"]), float(m["grad_norm"]), ms,
-                      (fa.launches - n, fa.bwd_launches - nb))
-    (ks, kl, kg, kms, kn), (ps, pl, pg, pms, pn) = runs["kernel"], runs["plain"]
-    L = TRAIN_CHECK_LAYERS
-    if kn != (2 * L, flash_mod.BWD_KERNELS * L) or pn != (0, 0):
-        fail(f"train check: flash launches kernel {kn}, plain {pn}")
-    loss_rel, gnorm_rel = abs(kl - pl) / abs(pl), abs(kg - pg) / abs(pg)
-    if loss_rel > TRAIN_LOSS_TOL or gnorm_rel > TRAIN_GNORM_TOL:
-        fail(f"train check: loss {kl} vs {pl} ({loss_rel:.3g}), grad_norm {kg} vs {pg} ({gnorm_rel:.3g})")
-    plain_leaves = dict(tree_flatten_with_names(ps.params))
-    leaves = {}
-    for name, a in tree_flatten_with_names(ks.params):
-        if name not in ("embed/tokens", "layers/0/attn/wq", f"layers/{L - 1}/attn/wk",
-                        f"layers/{L - 1}/mlp/w2", "lm_head"):
+    source = pipeline_for(cfg, shape, seed=SEED + 1).source
+    fns = {"kernel": make_train_step(model, tcfg), "plain": make_train_step(model, tcfg, **plain_kw)}
+    states = {"kernel": state, "plain": plain_state}
+    per_step, leaves = [], {}
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in source.batch_at(i).items()}
+        runs = {}
+        for name in ("kernel", "plain"):
+            before = {c: read() for c, read in counters.items()}
+            (states[name], m), ms = timed(torch, lambda: fns[name](states[name], batch))
+            runs[name] = (float(m["loss"]), float(m["grad_norm"]), ms,
+                          {c: read() - before[c] for c, read in counters.items()})
+            if runs[name][3] != expect[name]:
+                fail(f"{phase}: step {i + 1}: the {name} step's launches {runs[name][3]}, "
+                     f"expected {expect[name]}")
+        (kl, kg, kms, kn), (pl, pg, pms, pn) = runs["kernel"], runs["plain"]
+        loss_rel, gnorm_rel = abs(kl - pl) / abs(pl), abs(kg - pg) / abs(pg)
+        if loss_rel > TRAIN_LOSS_TOL or gnorm_rel > TRAIN_GNORM_TOL:
+            fail(f"{phase}: step {i + 1}: loss {kl} vs {pl} ({loss_rel:.3g}), grad_norm {kg} vs "
+                 f"{pg} ({gnorm_rel:.3g})")
+        per_step.append({"loss": [kl, pl], "loss_rel": loss_rel, "grad_norm": [kg, pg],
+                         "grad_norm_rel": gnorm_rel, "step_ms": {"kernel": kms, "plain": pms},
+                         "launches": {"kernel": kn, "plain": pn}})
+        if i:
             continue
-        a, b = a.detach().float(), plain_leaves[name].detach().float()
-        diff, rounding = (a - b).abs(), 2.0 ** -8 * (a.abs() + b.abs())
-        close = float((diff <= rounding + 1e-12).float().mean())
-        worst_lr = float(diff.max()) / tcfg.lr
-        if not bool((diff <= 2 * tcfg.lr + rounding + 1e-12).all()) or close < TRAIN_LEAF_CLOSE:
-            fail(f"train check: leaf {name}: {close:.4f} within bf16 rounding, "
-                 f"max diff {worst_lr:.3f} lr")
-        leaves[name] = {"within_rounding": close, "max_diff_lr": worst_lr}
-    print(json.dumps({"phase": "train_check", "arch": ARCH, "layers": L, "batch": TRAIN_CHECK_BATCH,
-                      "seq": TRAIN_SEQ, "loss": [kl, pl], "loss_rel": loss_rel,
-                      "grad_norm": [kg, pg], "grad_norm_rel": gnorm_rel,
-                      "step_ms": {"kernel": kms, "plain": pms}, "leaves": leaves,
-                      "flash_launches_kernel_step": kn}), flush=True)
+        plain_leaves = dict(tree_flatten_with_names(states["plain"].params))
+        for name, a in tree_flatten_with_names(states["kernel"].params):
+            if name not in leaf_names:
+                continue
+            a, b = a.detach().float(), plain_leaves[name].detach().float()
+            diff, rounding = (a - b).abs(), 2.0 ** -8 * (a.abs() + b.abs())
+            close = float((diff <= rounding + 1e-12).float().mean())
+            worst_lr = float(diff.max()) / tcfg.lr
+            if not bool((diff <= 2 * tcfg.lr + rounding + 1e-12).all()) or close < TRAIN_LEAF_CLOSE:
+                fail(f"{phase}: leaf {name}: {close:.4f} within bf16 rounding, "
+                     f"max diff {worst_lr:.3f} lr")
+            leaves[name] = {"within_rounding": close, "max_diff_lr": worst_lr}
+        if set(leaves) != set(leaf_names):
+            fail(f"{phase}: leaves {sorted(set(leaf_names) - set(leaves))} not found")
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+            "batch": TRAIN_CHECK_BATCH, "seq": TRAIN_SEQ, "steps": steps, **per_step[0],
+            "leaves": leaves, "per_step": per_step}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def train_kernel_vs_plain(torch, dev, flash_mod) -> None:
+    """Phase 9 (c): danube at full width and TRAIN_CHECK_LAYERS layers
+    through the kernels against the plain attention (autograd through
+    ``blocked_attention``, no flash launch)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.attention import blocked_attention
+
+    L = TRAIN_CHECK_LAYERS
+    counters = {k: v for k, v in flash_counters(flash_mod).items() if k in ("flash_fwd", "flash_bwd")}
+    step_kernel_vs_plain(
+        torch, dev, get_arch(ARCH).replace(num_layers=L), {"attention": blocked_attention},
+        counters, {"kernel": {"flash_fwd": 2 * L, "flash_bwd": flash_mod.BWD_KERNELS * L},
+                   "plain": {"flash_fwd": 0, "flash_bwd": 0}},
+        ("embed/tokens", "layers/0/attn/wq", f"layers/{L - 1}/attn/wk", f"layers/{L - 1}/mlp/w2",
+         "lm_head"), "train_check")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: rwkv6 and zamba2 training
+# ---------------------------------------------------------------------------
+
+def rwkv6_plain_bwd(torch, r, k, v, logw, u, s0, dout, ds1) -> list:
+    """The plain backward: autograd through ``rwkv6_scan_ref`` (its forward
+    and backward), over slices of at most PLAIN_ROWS // (B S) heads, so
+    that each chunk's (B, heads, L, L, K) tensors and the graph fit;
+    (dr, dk, dv, dlogw, du, dstate0)."""
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    B, H, S, _ = r.shape
+    step = max(1, min(H, PLAIN_ROWS // (B * S)))
+    parts = []
+    for h0 in range(0, H, step):
+        sl = slice(h0, h0 + step)
+        leaves = [t[:, sl].detach().requires_grad_(True) for t in (r, k, v, logw)] + [
+            u[sl].detach().requires_grad_(True), s0[:, sl].detach().requires_grad_(True)]
+        out, s1 = rwkv6_scan_ref(*leaves)
+        parts.append(torch.autograd.grad(
+            (out * dout[:, sl].float()).sum() + (s1 * ds1[:, sl]).sum(), leaves))
+    return [torch.cat([p[i] for p in parts], dim=0 if i == 4 else 1) for i in range(6)]
+
+
+def check_rwkv6_bwd(torch, rwkv_mod, dev) -> dict:
+    """Phase 10 (a): rwkv6_scan's backward kernels at rwkv6-7b's heads (64
+    of 64) against the plain backward (``rwkv6_plain_bwd``) from the same
+    inputs, the chunk states from the forward kernel: every gradient
+    within RWKV_BWD_TOL of the plain version's largest value; each shape's
+    kernel ms (CUDA events), plain ms (autograd's forward and backward)
+    and bound: the larger of the bytes it must move (inputs, the saved
+    states, the gradients, each once) at the HBM rate and its operations,
+    the pairwise exponentials once at the SFU rate, its f32 FLOPs at the
+    FP32 rate or, in bf16, the products of two inputs (D = v . dO) at the
+    tensor cores' bf16 rate.  Returns the kernels-line record (the training shape,
+    without launches)."""
+    from repro_torch.config import get_arch
+
+    c = get_arch(RWKV_ARCH)
+    K = c.ssm_head_dim
+    H = c.d_model // K
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = [  # (label, B, S, dtype, decay, d(s1) nonzero)
+        ("serve_prefill", 1, PREFILL_LEN, bf16, "slow", False),
+        ("train", TRAIN_BATCH, TRAIN_SEQ, bf16, "slow", False),
+        ("one_chunk", TRAIN_BATCH, 64, bf16, "slow", False),
+        ("f32", 1, 2048, f32, "slow", False),
+        ("state_and_ds1", 2, 1024, bf16, "slow", True),
+        ("fast_decay", 1, 2048, bf16, "fast", False),
+    ]
+    bwd = rwkv_mod.rwkv6_scan
+    per, worst = [], 0.0
+    for label, B, S, dt, decay, with_ds1 in shapes:
+        g = torch.Generator(device=dev).manual_seed(SEED + 11 + S + B)
+        r, k, v, logw, u, s0 = rwkv6_inputs(torch, B, H, S, K, dt, dev, g, decay)
+        dout = torch.randn((B, H, S, K), generator=g, device=dev).to(dt)
+        ds1 = (torch.randn((B, H, K, K), generator=g, device=dev) if with_ds1
+               else torch.zeros((B, H, K, K), device=dev))
+        _, _, states = rwkv_mod._launch(r, k, v, logw, u, s0, 64, keep_states=True)
+        n = bwd.bwd_launches
+        grads = rwkv_mod.rwkv6_scan_bwd(r, k, v, logw, u, states, dout, ds1)
+        torch.cuda.synchronize()
+        if bwd.bwd_launches - n != rwkv_mod.BWD_KERNELS:
+            fail(f"rwkv6_scan backward {label}: {bwd.bwd_launches - n} launches")
+        refs = rwkv6_plain_bwd(torch, r, k, v, logw, u, s0, dout, ds1)
+        names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
+        rel = {name: float((a.float() - b.float()).abs().max() / b.float().abs().max())
+               for name, a, b in zip(names, grads, refs)}
+        abs_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(grads, refs))
+        tol = RWKV_BWD_TOL[str(dt).split(".")[1]]
+        if max(rel.values()) > tol or any(a.dtype != b.dtype or a.shape != b.shape
+                                          for a, b in zip(grads, refs)):
+            fail(f"rwkv6_scan backward {label}: relative errors {rel} (tolerance {tol})")
+        if dt == bf16:
+            worst = max(worst, abs_err)
+        del grads, refs
+        ms = cuda_ms(torch, lambda i: rwkv_mod.rwkv6_scan_bwd(r, k, v, logw, u, states, dout, ds1))
+        plain = cuda_ms(torch, lambda i: rwkv6_plain_bwd(torch, r, k, v, logw, u, s0, dout, ds1),
+                        reps=2, warmup=1)
+        L = min(64, S)
+        n_el, es, chunks = B * H * S * K, r.element_size(), B * H * (S // L)
+        pairs = L * (L - 1) // 2
+        # r, k, v, dout and logw in; the chunk states; d(s1) in and dstate0 out;
+        # dr, dk, dv and dlogw out; du
+        nbytes = n_el * (4 * es + 4) + 4 * chunks * K * K + 8 * B * H * K * K + n_el * (3 * es + 4) \
+            + 4 * H * K
+        exps = chunks * pairs * K
+        # f32 flops: A (3 a term), the dr and dk sums (5), A^T dO (2); S dO,
+        # G v, (k kdec)^T G and the dstate update (2 L K^2 each).  D[t, i] =
+        # v_i . dO_t over i <= t is a product of two inputs: exact on the
+        # tensor cores in bf16 (f32 sums), on the FP32 pipes in f32
+        flops = chunks * (10 * pairs * K + 8 * L * K * K)
+        d_flops = chunks * L * (L + 1) * K
+        if dt == bf16:
+            t_tc = 1e3 * d_flops / BF16_FLOPS
+        else:
+            t_tc, flops = 0.0, flops + d_flops
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_exp, t_flops = 1e3 * exps / SFU_PER_S, 1e3 * flops / FP32_FLOPS
+        t_ops = max(t_exp, t_flops, t_tc)   # the SFU, FMA and tensor pipes run side by side
+        bound = max(t_bytes, t_ops)
+        row = {"shape": label, "B": B, "H": H, "S": S, "K": K, "dtype": str(dt).split(".")[1],
+               "decay": decay, "ds1": with_ds1, "ms": ms, "plain_ms": plain, "library_ms": None,
+               "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "exps": exps, "flops": flops,
+               "tc_flops": d_flops if dt == bf16 else 0, "t_bytes_ms": t_bytes,
+               "t_exp_ms": t_exp, "t_flops_ms": t_flops, "t_tc_ms": t_tc, "rel_err": rel,
+               "max_abs_err": abs_err}
+        per.append(row)
+        print(json.dumps({"phase": "rwkv6_bwd", **row, "x_bound": ms / bound}), flush=True)
+        del r, k, v, logw, u, s0, dout, ds1, states
+        torch.cuda.empty_cache()
+    d = next(x for x in per if x["shape"] == "train")
+    return {"name": "rwkv6_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan_bwd.cu",
+            "replaces": "src/repro/models/rwkv6.py:83", "max_abs_err": worst,
+            **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "per_shape": per}
+
+
+def rwkv6_counters(rwkv_mod) -> dict:
+    scan = rwkv_mod.rwkv6_scan
+    return {"rwkv6_fwd": lambda: scan.launches, "rwkv6_chunked": lambda: scan.chunked_launches,
+            "rwkv6_bwd": lambda: scan.bwd_launches}
+
+
+def train_rwkv6(torch, dev, rwkv_mod) -> tuple:
+    """Phase 10 (b), the cell rwkv6-train-4k: rwkv6-7b at full width with
+    RWKV_TRAIN_LAYERS of its layers (bf16, AdamW, remat), TRAIN_STEPS
+    steps at TRAIN_BATCH x TRAIN_SEQ: every time-mix layer's scan on the
+    two passes twice a step (remat) and its backward once.  Returns
+    (forward, backward) rwkv6_scan launches of the run."""
+    from repro_torch.config import SHAPES, get_arch
+
+    full = get_arch(RWKV_ARCH)
+    cfg = full.replace(num_layers=RWKV_TRAIN_LAYERS)
+    print(f"train: {RWKV_ARCH} {cfg.num_layers} of {full.num_layers} layers d {cfg.d_model}, "
+          f"{cfg.param_count():,} params in {cfg.dtype}, AdamW, remat={cfg.remat}; "
+          f"train_4k cut from global batch {SHAPES['train_4k'].global_batch} to {TRAIN_BATCH} "
+          f"(seq {TRAIN_SEQ}) to fit one card", flush=True)
+    scan, L = rwkv_mod.rwkv6_scan, cfg.num_layers
+    scan.launches = scan.chunked_launches = scan.decode_launches = scan.bwd_launches = 0
+    run = train_run(torch, dev, cfg, TRAIN_BATCH, TRAIN_STEPS, rwkv6_counters(rwkv_mod), {
+        "rwkv6_fwd": 2 * L, "rwkv6_chunked": 2 * L, "rwkv6_bwd": rwkv_mod.BWD_KERNELS * L})
+    fwd, bwd = scan.launches, scan.bwd_launches
+    print(json.dumps({
+        "phase": "train", "cell": "rwkv6-train-4k", "arch": RWKV_ARCH, "layers": L,
+        "layers_of": full.num_layers, "params": cfg.param_count(), "seq": TRAIN_SEQ,
+        "global_batch": TRAIN_BATCH, **run, "rwkv6_fwd_launches": fwd,
+        "rwkv6_bwd_launches": bwd, "card": card_line()}), flush=True)
+    return fwd, bwd
+
+
+def rwkv6_kernel_vs_plain(torch, dev, rwkv_mod) -> None:
+    """Phase 10 (c): rwkv6-7b at full width and RWKV_CHECK_LAYERS layers,
+    RWKV_CHECK_STEPS steps through the kernels against the same steps with
+    ``wkv=chunked_wkv`` (autograd through the plain scan), the loss and
+    grad_norm held at every step.  Every plain function the port has for
+    the scan is counted: a kernel step calls none, a plain step calls
+    chunked_wkv twice a layer (remat)."""
+    from repro_torch.config import get_arch
+    from repro_torch.kernels.rwkv6_scan import ref as ref_mod
+    from repro_torch.models.rwkv6 import chunked_wkv
+
+    calls = [0]
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            calls[0] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    names = ("rwkv6_scan_ref", "chunk_states_ref", "chunk_outputs_ref", "chunk_dstates_ref",
+             "chunk_grads_ref")
+    saved = {name: getattr(rwkv_mod, name) for name in names}
+    saved_ref = ref_mod.chunked_wkv
+    L = RWKV_CHECK_LAYERS
+    counters = {k: v for k, v in rwkv6_counters(rwkv_mod).items() if k != "rwkv6_chunked"}
+    counters["plain_scan"] = lambda: calls[0]
+    try:
+        for name in names:
+            setattr(rwkv_mod, name, counted(saved[name]))
+        ref_mod.chunked_wkv = counted(saved_ref)
+        step_kernel_vs_plain(
+            torch, dev, get_arch(RWKV_ARCH).replace(num_layers=L), {"wkv": counted(chunked_wkv)},
+            counters, {"kernel": {"rwkv6_fwd": 2 * L, "rwkv6_bwd": rwkv_mod.BWD_KERNELS * L,
+                                  "plain_scan": 0},
+                       "plain": {"rwkv6_fwd": 0, "rwkv6_bwd": 0, "plain_scan": 2 * L}},
+            ("embed/tokens", "layers/0/time/wk", "layers/0/time/w0", f"layers/{L - 1}/time/wb",
+             f"layers/{L - 1}/chan/wv", "lm_head"), "rwkv6_train_check", RWKV_CHECK_STEPS)
+    finally:
+        for name in names:
+            setattr(rwkv_mod, name, saved[name])
+        ref_mod.chunked_wkv = saved_ref
+
+
+def train_zamba2(torch, dev, flash_mod) -> tuple:
+    """Phase 10 (d): zamba2-1.2b's train step on the card.  One step at
+    full width and ZAMBA_CHECK_LAYERS layers (the shared attention block
+    runs once, on flash's HD_PAD 64 forward with lse and its backward)
+    against the plain-attention step, as 9 (c); then the whole model for
+    ZAMBA_TRAIN_STEPS steps at the largest of ZAMBA_BATCHES that fits.
+    Returns (forward, backward) flash launches of the whole-model run."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.attention import blocked_attention
+
+    full = get_arch(ZAMBA_ARCH)
+    cfg = full.replace(num_layers=ZAMBA_CHECK_LAYERS)
+    shared = ZAMBA_CHECK_LAYERS // (cfg.attn_every or 6)
+    counters = {k: v for k, v in flash_counters(flash_mod).items() if k in ("flash_fwd", "flash_bwd")}
+    step_kernel_vs_plain(
+        torch, dev, cfg, {"attention": blocked_attention}, counters,
+        {"kernel": {"flash_fwd": shared, "flash_bwd": flash_mod.BWD_KERNELS * shared},
+         "plain": {"flash_fwd": 0, "flash_bwd": 0}},
+        ("embed/tokens", "layers/0/mamba/wx", f"layers/{cfg.num_layers - 1}/mamba/out_proj",
+         "shared/attn/wq", "shared/mlp/w2", "lm_head"), "zamba2_train_check")
+    torch.cuda.empty_cache()
+    fa = flash_mod.flash_attention
+    apps = full.num_layers // (full.attn_every or 6)
+    tried = []
+    for batch in ZAMBA_BATCHES:
+        fa.launches = fa.tc_launches = fa.bwd_launches = fa.bwd_tc_launches = 0
+        try:
+            run = train_run(torch, dev, full, batch, ZAMBA_TRAIN_STEPS, flash_counters(flash_mod), {
+                "flash_fwd": apps, "flash_fwd_tc": apps, "flash_bwd": flash_mod.BWD_KERNELS * apps,
+                "flash_bwd_tc": flash_mod.BWD_TC_KERNELS * apps})
+        except torch.cuda.OutOfMemoryError:
+            tried.append(batch)
+            torch.cuda.empty_cache()
+            continue
+        print(json.dumps({"phase": "train", "cell": "zamba2-train-4k", "arch": ZAMBA_ARCH,
+                          "layers": full.num_layers, "params": full.param_count(),
+                          "seq": TRAIN_SEQ, "global_batch": batch, "out_of_memory_at": tried,
+                          **run, "flash_fwd_launches": fa.launches,
+                          "flash_bwd_launches": fa.bwd_launches, "card": card_line()}), flush=True)
+        return fa.launches, fa.bwd_launches
+    fail(f"train {ZAMBA_ARCH}: out of memory at every batch of {ZAMBA_BATCHES}")
 
 
 if __name__ == "__main__":

@@ -2,11 +2,12 @@
 
 A kernel's output is allocated fresh, so without this check ``backward()``
 would treat it as a constant and raise nothing.  The plain versions, which
-the CPU takes, stay differentiable.  Flash attention's backward is a
-kernel of its own: the training path reaches it through ``ops.attention``
-(the ``FlashAttention`` autograd function), while the raw
-``flash_attention`` still refuses.  fixmatmul (the int8 serve path) and
-rwkv6_scan have none yet.
+the CPU takes, stay differentiable.  Flash attention's and rwkv6_scan's
+backwards are kernels of their own: the training path reaches them
+through ``flashattn.ops.attention`` and ``rwkv6_scan.ops.wkv`` (the
+``FlashAttention`` and ``RwkvScan`` autograd functions), while the raw
+``flash_attention`` and ``rwkv6_scan`` still refuse.  Only fixmatmul (the
+int8 serve path) has no backward.
 """
 
 from __future__ import annotations
@@ -21,5 +22,5 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward pass, and an input requires grad.  "
             "Call it under torch.no_grad(), or on CPU tensors, whose plain version is "
-            "differentiable; flash attention trains through ops.attention, and rwkv6_scan's "
-            "backward kernel is still to come (ROADMAP.md queue 1).")
+            "differentiable; flash attention trains through flashattn.ops.attention and "
+            "rwkv6_scan through rwkv6_scan.ops.wkv, and fixmatmul has no backward.")

@@ -221,19 +221,35 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
     for (int e = tid; e < K * K; e += THREADS) s1[st + e] = St[e];
 }
 
+// Opts `kern` into `smem` bytes of dynamic shared memory on the current
+// device (and, with `carveout`, the largest shared-memory carveout), once a
+// device (one bit a device in `opted_in`).
+template <typename Kern>
+int opt_in(Kern kern, size_t smem, bool carveout, unsigned long long& opted_in) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+    if (!(opted_in >> dev & 1ULL)) {
+        e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+        if (e == cudaSuccess && carveout)
+            e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                     cudaSharedmemCarveoutMaxShared);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        opted_in |= 1ULL << dev;
+    }
+    return 0;
+}
+
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* logw, const void* u,
            const void* s0, void* out, void* s1, const long long* strides, int B, int H, int S,
            int K, int L, cudaStream_t stream) {
-    static bool opted_in = false;
+    static unsigned long long opted_in = 0;
     const size_t bytes = smem_bytes(L, K);
-    if (!opted_in) {
-        cudaError_t e = cudaFuncSetAttribute(rwkv6_scan_kernel<T>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem_bytes(64, 64)));
-        if (e != cudaSuccess) return static_cast<int>(e);
-        opted_in = true;
-    }
+    const int err = opt_in(rwkv6_scan_kernel<T>, smem_bytes(64, 64), false, opted_in);
+    if (err != 0) return err;
     const Strides sr{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]},
         sv{strides[6], strides[7], strides[8]}, sw{strides[9], strides[10], strides[11]},
         so{strides[12], strides[13], strides[14]};
@@ -768,26 +784,10 @@ template <typename T>
 int launch_chunked(const void* r, const void* k, const void* v, const void* logw, const void* u,
                    const void* s0, void* out, void* s1, void* scratch, const long long* strides,
                    int B, int H, int S, int K, int L, cudaStream_t stream) {
-    static bool opted_in = false;
-    if (!opted_in) {
-        cudaError_t e = cudaFuncSetAttribute(rwkv6_state_kernel<T>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(state_smem_bytes<T>()));
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(rwkv6_state_kernel<T>,
-                                     cudaFuncAttributePreferredSharedMemoryCarveout,
-                                     cudaSharedmemCarveoutMaxShared);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(rwkv6_chunk_out_kernel<T>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     static_cast<int>(out_smem_bytes()));
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(rwkv6_chunk_out_kernel<T>,
-                                     cudaFuncAttributePreferredSharedMemoryCarveout,
-                                     cudaSharedmemCarveoutMaxShared);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        opted_in = true;
-    }
+    static unsigned long long state_in = 0, out_in = 0;
+    int err = opt_in(rwkv6_state_kernel<T>, state_smem_bytes<T>(), true, state_in);
+    if (err == 0) err = opt_in(rwkv6_chunk_out_kernel<T>, out_smem_bytes(), true, out_in);
+    if (err != 0) return err;
     const Strides sr{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]},
         sv{strides[6], strides[7], strides[8]}, sw{strides[9], strides[10], strides[11]},
         so{strides[12], strides[13], strides[14]};

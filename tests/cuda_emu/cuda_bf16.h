@@ -25,6 +25,7 @@ inline float emu_bf2f(uint16_t h) {
 }
 inline float __bfloat162float(__nv_bfloat16 b) { return emu_bf2f(b.x); }
 inline __nv_bfloat16 __float2bfloat16(float f) { return {emu_f2bf(f)}; }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return {emu_f2bf(f)}; }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
     return {{emu_f2bf(a)}, {emu_f2bf(b)}};
 }

@@ -1,10 +1,11 @@
 // A CPU emulation of the part of the CUDA runtime that the flash attention
-// kernels use, so that their sources (csrc/flashattn_tc.cu,
-// csrc/flashattn_bwd.cu) build with g++ and run on the host in the tests
-// (tests/test_torch_flash_emu.py).  The test rewrites each `extern
-// __shared__` declaration and each `kernel<<<grid, block, smem,
-// stream>>>(args)` launch into calls of `emu::`; everything else compiles
-// as written.  Blocks run one after another; every thread of a block is a
+// kernels and rwkv6_scan's backward kernels use, so that their sources
+// (csrc/flashattn_tc.cu, csrc/flashattn_bwd.cu, csrc/rwkv6_scan_bwd.cu)
+// build with g++ and run on the host in the tests
+// (tests/test_torch_flash_emu.py, tests/test_torch_rwkv6_emu.py).
+// emulate.py rewrites each `extern __shared__` declaration and each
+// `kernel<<<grid, block, smem, stream>>>(args)` launch into calls of
+// `emu::`; everything else compiles as written.  Blocks run one after another; every thread of a block is a
 // std::thread, `__syncthreads` a barrier of the block, and the warp-level
 // operations (shuffles here, ldmatrix and mma.sync in flashattn_mma.cuh)
 // exchange their operands through a per-warp buffer between two barriers

@@ -39,8 +39,10 @@ log-sum-exp against its plain version, and ``ops.attention``'s
 ``FlashAttention`` against autograd through the plain attention; a CUDA
 tensor never takes the
 plain version (each launch counter grows), and no kernel without a
-backward runs on inputs that require grad (an rwkv6 train step raises in
-rwkv6_scan).  Needs an
+backward runs on inputs that require grad; rwkv6_scan's backward kernels
+within 1e-4 (f32) and 1e-2 (bf16) of autograd through the plain version,
+deterministic, and an rwkv6 SMOKE train step on them equal to the CPU's.
+Needs an
 NVIDIA GPU with nvcc; every test here skips without one.
 
 Run on the card with ``python -m pytest tests/test_torch_cuda.py``.
@@ -876,28 +878,120 @@ def test_bench_cuda_events_times_the_card(cuda):
     assert 1e-3 < card <= 1.1 * host
 
 
-def test_other_kernels_still_refuse_grad(cuda):
-    """rwkv6 has no backward kernel yet: a train step of the rwkv6 SMOKE
-    model on the card raises refuse_grad's error in rwkv6_scan and never
-    takes the plain scan; fixmatmul keeps refusing (see
-    test_kernels_refuse_autograd), and lut_sigmoid takes only int32, which
-    cannot require grad (a float input raises)."""
+def test_other_kernels_still_refuse_grad(cuda, monkeypatch):
+    """rwkv6 trains through rwkv6_scan's backward kernel: one SGD step of
+    the rwkv6 SMOKE model (f32, remat) at B 2, S 128 (two chunks) on the
+    card launches the forward twice a layer and the backward kernels once
+    a layer, never the plain scan, and matches the same step on the CPU
+    (the plain path): loss, CE and grad_norm within 1e-4 relative, every
+    updated param within 1e-5 of its largest value (f32 sums in another
+    order; SGD's update is linear in the gradient).  The raw kernels keep
+    refusing (test_kernels_refuse_autograd: fixmatmul, flash_attention,
+    rwkv6_scan), and lut_sigmoid takes only int32, which cannot require
+    grad (a float input raises)."""
     from repro_torch.config import TrainConfig, get_smoke
     from repro_torch.models import build_model
     from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_flatten_with_names, tree_map
 
     cfg = get_smoke("rwkv6-7b")
-    model = build_model(cfg, cuda)
-    tcfg = TrainConfig(warmup_steps=1, total_steps=4)
-    state = init_train_state(model, tcfg, 0)
-    toks = torch.randint(0, cfg.vocab_size, (2, 17), device=cuda,
-                         generator=torch.Generator(device=cuda).manual_seed(0))
-    n = rmod.rwkv6_scan.launches
-    with pytest.raises(RuntimeError, match="rwkv6_scan.*no backward"):
-        make_train_step(model, tcfg)(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
-    assert rmod.rwkv6_scan.launches == n
+    tcfg = TrainConfig(lr=0.2, warmup_steps=1, total_steps=4, optimizer="sgd")
+    cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    cpu_state = init_train_state(cpu_model, tcfg, 0)
+    copy = lambda t: t.detach().clone().to(cuda).requires_grad_(t.requires_grad)
+    gpu_state = cpu_state._replace(params=tree_map(copy, cpu_state.params),
+                                   opt=tree_map(copy, cpu_state.opt))
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain scan ran on the card")
+
+    with monkeypatch.context() as m:
+        for name in ("rwkv6_scan_ref", "chunk_states_ref", "chunk_outputs_ref", "chunk_dstates_ref",
+                     "chunk_grads_ref"):
+            m.setattr(rmod, name, plain)
+        n, nb = rmod.rwkv6_scan.launches, rmod.rwkv6_scan.bwd_launches
+        new_gpu, m_gpu = make_train_step(gpu_model, tcfg)(
+            gpu_state, {k: v.to(cuda) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert rmod.rwkv6_scan.launches - n == 2 * cfg.num_layers
+        assert rmod.rwkv6_scan.bwd_launches - nb == rmod.BWD_KERNELS * cfg.num_layers
+    new_cpu, m_cpu = make_train_step(cpu_model, tcfg)(cpu_state, batch)
+    for key in ("loss", "ce", "grad_norm"):
+        assert float(m_gpu[key]) == pytest.approx(float(m_cpu[key]), rel=1e-4), key
+    want = dict(tree_flatten_with_names(new_cpu.params))
+    for name, leaf in tree_flatten_with_names(new_gpu.params):
+        b = want[name]
+        assert float((leaf.detach().cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
     with pytest.raises(ValueError, match="int32"):
         lmod.lut_sigmoid(torch.zeros(8, device=cuda, requires_grad=True))
+
+
+RWKV_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,K,chunk,decay", [
+    (1, 4, 256, 64, 64, "slow"),        # four chunks at the model's head size
+    (2, 3, 128, 16, 32, "slow"),        # L 32, the SMOKE head size
+    (2, 2, 64, 64, 64, "slow"),         # one chunk: the one-block route's state
+    (1, 8, 256, 64, 64, "fast"),        # the clip at -60 active
+    (2, 4, 96, 36, 32, "slow"),         # K 36
+    (1, 64, 512, 64, 64, "slow"),       # the model's heads
+])
+def test_rwkv6_scan_bwd_matches_plain_version(B, H, S, K, chunk, decay, dtype, cuda):
+    """``RwkvScan`` (the forward kernel keeping its chunk states, then the
+    backward kernels) against autograd of the plain version from the same
+    inputs, a state in and a gradient of the last state: every gradient
+    within 1e-4 (f32) or 1e-2 (bf16) of the plain version's largest value;
+    one backward call is ``BWD_KERNELS`` launches."""
+    r, k, v, logw, u, s0 = _rwkv_inputs(B, H, S, K, dtype, cuda, S + K + B, decay)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    dout = torch.randn((B, H, S, K), generator=g, device=cuda).to(dtype)
+    ds1 = torch.randn((B, H, K, K), generator=g, device=cuda)
+    grads = {}
+    for name in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (r, k, v, logw, u, s0)]
+        n = rmod.rwkv6_scan.bwd_launches
+        if name == "kernel":
+            out, s1 = rmod.RwkvScan.apply(*leaves, chunk)
+        else:
+            out, s1 = rwkv6_scan_ref(*leaves, chunk=chunk)
+        grads[name] = torch.autograd.grad((out.float() * dout.float()).sum() + (s1 * ds1).sum(),
+                                          leaves)
+        torch.cuda.synchronize()
+        assert rmod.rwkv6_scan.bwd_launches - n == (rmod.BWD_KERNELS if name == "kernel" else 0)
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        rel = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert rel <= RWKV_BWD_TOL[dtype], rel
+
+
+def test_rwkv6_scan_bwd_is_deterministic(cuda):
+    """Two backward calls from the same inputs give the same bits (no
+    atomics; du's per-(batch, chunk) shares are summed in a fixed order)."""
+    r, k, v, logw, u, s0 = _rwkv_inputs(2, 8, 512, 64, torch.bfloat16, cuda, 11)
+    dout = torch.randn((2, 8, 512, 64), device=cuda).to(torch.bfloat16)
+    ds1 = torch.randn((2, 8, 64, 64), device=cuda)
+    _, _, states = rmod._launch(r, k, v, logw, u, s0, 64, keep_states=True)
+    a, b = (rmod.rwkv6_scan_bwd(r, k, v, logw, u, states, dout, ds1) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_wkv_under_autograd_refuses_state_out(cuda):
+    """The decode path's in-place state write cannot be followed by
+    autograd: ``ops.wkv`` refuses ``state_out`` when an input requires
+    grad, and takes it under no_grad."""
+    from repro_torch.kernels.rwkv6_scan.ops import wkv
+
+    r, k, v, logw, u, s0 = _rwkv_inputs(1, 4, 64, 16, torch.float32, cuda, 5)
+    flat = lambda x: x.movedim(1, 2).reshape(1, 64, 64)
+    args = (flat(r).requires_grad_(True), flat(k), flat(v), flat(logw), u.reshape(-1), s0, 16)
+    with pytest.raises(ValueError, match="state_out"):
+        wkv(*args, state_out=s0)
+    with torch.no_grad():
+        wkv(*args, state_out=s0)
 
 
 def test_moe_int8_kv_decode_matches_cpu(cuda):

@@ -12,67 +12,21 @@ max(1, max |plain|) and lse within 1e-5.  The backward
 (f32) of the plain version's largest value.  The copies run synchronously here, so this checks the kernels'
 arithmetic, tiling and masks, not the timing of their cp.async ring."""
 
-import ctypes
-import hashlib
-import re
 import shutil
-import subprocess
 import types
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import pytest
 import torch
+from cuda_emu.emulate import Emulated, build
 
 from repro_torch.kernels.flashattn import flashattn as fa
 from repro_torch.kernels.flashattn.ref import flash_attention_bwd_ref, flash_attention_lse_ref
 
 torch.set_num_threads(1)
 
-ROOT = Path(__file__).resolve().parents[1]
-EMU = Path(__file__).resolve().parent / "cuda_emu"
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-
-
-def _emulated(main: str) -> str:
-    """``csrc/<main>`` with its shared-memory declarations and launches
-    rewritten for the emulation."""
-    s = (fa.CSRC / main).read_text()
-    s = s.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
-                  "unsigned char* smem_raw = emu::blk->smem;")
-    s = s.replace("extern __shared__ float smem[];",
-                  "float* smem = reinterpret_cast<float*>(emu::blk->smem);")
-    return re.sub(r"([\w:]+(?:<[^<>]*>)?)<<<(.*?)>>>\(", r"emu::launch(\1, \2, ", s, flags=re.S)
-
-
-def _build(lib, gxx: str) -> Path:
-    src = _emulated(lib.main)
-    digest = hashlib.sha256(src.encode() + b"".join(
-        p.read_bytes() for p in sorted(EMU.iterdir()))).hexdigest()[:16]
-    out = ROOT / "build" / "repro_torch_test" / f"lib{lib.name}_emu_{digest}.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        cpp = out.with_suffix(".cpp")
-        cpp.write_text(src)
-        tmp = out.with_suffix(f".{digest}.tmp")
-        subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-I", str(EMU),
-                        "-o", str(tmp), str(cpp)], check=True, capture_output=True, text=True)
-        tmp.replace(out)
-    return out
-
-
-class _Emulated:
-    """A ``CudaLibrary`` stand-in: the g++ build of its source, bound as
-    the real one binds."""
-
-    def __init__(self, lib, path: Path):
-        self.lib = ctypes.CDLL(str(path))
-        lib.bind(self.lib)
-        self.lib.emu_faults.restype = ctypes.c_int
-
-    def load(self):
-        return self.lib
 
 
 @pytest.fixture(scope="module")
@@ -81,8 +35,8 @@ def emulated():
     if gxx is None:
         pytest.skip("no g++ to build the kernels' sources for the CPU")
     with ThreadPoolExecutor(2) as pool:
-        paths = list(pool.map(lambda lib: _build(lib, gxx), (fa.TC_LIBRARY, fa.BWD_LIBRARY)))
-    return [_Emulated(lib, p) for lib, p in zip((fa.TC_LIBRARY, fa.BWD_LIBRARY), paths)]
+        paths = list(pool.map(lambda lib: build(lib, gxx), (fa.TC_LIBRARY, fa.BWD_LIBRARY)))
+    return [Emulated(lib, p) for lib, p in zip((fa.TC_LIBRARY, fa.BWD_LIBRARY), paths)]
 
 
 @pytest.fixture
