@@ -212,8 +212,12 @@ each printing its results on a line of its own:
      at rwkv6-7b's 64 heads of 64: the serve prefill's B 1 S 8192 bf16,
      the training shape B 4 S 4096 bf16, one chunk (S 64), f32 at B 1 S
      2048, a state in and a gradient of the last state out (B 2 S 1024),
-     and a decay past the clip at -60; each timed beside the plain
-     version and its bound (no library call computes it); (b) the cell
+     and a decay past the clip at -60, every bf16 call on the tensor-core
+     kernels; each timed beside the plain version and its bound (no
+     library call computes it), the bound with every f32 FLOP on the
+     FP32 pipes beside it; each
+     kernel's HMMA count in the library's SASS (cuobjdump), ptxas line
+     and resident warps an SM; (b) the cell
      rwkv6-train-4k: rwkv6-7b at full width with 12 of its 32 layers
      (3.16 B parameters; the whole model's AdamW state passes one card),
      bf16, AdamW, remat, through ``Trainer.run_slice``: 5 steps at seq
@@ -238,6 +242,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3614,20 +3619,73 @@ def rwkv6_plain_bwd(torch, r, k, v, logw, u, s0, dout, ds1) -> list:
     return [torch.cat([p[i] for p in parts], dim=0 if i == 4 else 1) for i in range(6)]
 
 
+def sass_mma(lib) -> dict:
+    """HMMA instructions (the tensor cores' mma) in each kernel of
+    ``lib``'s built library, by mangled name, from ``cuobjdump -sass``."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    proc = subprocess.run([exe, "-sass", str(lib.path())], capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass {lib.path()} failed: {proc.stderr.strip()[-400:]}")
+    counts, fn = {}, None
+    for ln in proc.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
+def rwkv6_bwd_design(rwkv_mod) -> dict:
+    """Phase 10 (a)'s report of the backward's kernels: each one's HMMA
+    count in the library's SASS, ptxas line and resident blocks and warps
+    an SM (the occupancy API).  Fails unless both bf16 kernels hold HMMA."""
+    lib = rwkv_mod.BWD_LIBRARY
+    counts = sass_mma(lib)
+    kernels = {  # name: (its key in bwd_occupancy(), threads a block, precision)
+        "rwkv6_dstate_tc_kernel": ("dstate_tc", 256, "bf16, tensor cores"),
+        "rwkv6_grad_tc_kernel": ("grad_tc", 512, "bf16, tensor cores"),
+        "rwkv6_dstate_kernel": ("dstate_f32", 256, "f32, FP32 pipes"),
+        "rwkv6_grad_kernel": ("grad_f32", 512, "f32, FP32 pipes"),
+    }
+    occ = rwkv_mod.bwd_occupancy()
+    report = {}
+    for name, (occ_key, threads, kind) in kernels.items():
+        frag = f"{len(name)}{name}"      # the mangled name's length-prefixed part
+        hmma = sum(n for fn, n in counts.items() if frag in fn)
+        report[name] = {"precision": kind, "sass_hmma": hmma,
+                        "ptxas": ptxas_of(lib, frag)[1:] or ["not in the report"],
+                        "blocks_per_sm": occ[occ_key], "warps_per_sm": occ[occ_key] * threads // 32}
+        if "tensor" in kind and hmma == 0:
+            fail(f"rwkv6_scan backward: {name} holds no HMMA in its SASS")
+    print(json.dumps({"phase": "rwkv6_bwd_design", "card": card_line(), "kernels": report}),
+          flush=True)
+    return report
+
+
 def check_rwkv6_bwd(torch, rwkv_mod, dev) -> dict:
     """Phase 10 (a): rwkv6_scan's backward kernels at rwkv6-7b's heads (64
     of 64) against the plain backward (``rwkv6_plain_bwd``) from the same
     inputs, the chunk states from the forward kernel: every gradient
-    within RWKV_BWD_TOL of the plain version's largest value; each shape's
+    within RWKV_BWD_TOL of the plain version's largest value, every bf16
+    call on the tensor-core kernels (``bwd_tc_launches``); each shape's
     kernel ms (CUDA events), plain ms (autograd's forward and backward)
     and bound: the larger of the bytes it must move (inputs, the saved
     states, the gradients, each once) at the HBM rate and its operations,
-    the pairwise exponentials once at the SFU rate, its f32 FLOPs at the
-    FP32 rate or, in bf16, the products of two inputs (D = v . dO) at the
-    tensor cores' bf16 rate.  Returns the kernels-line record (the training shape,
-    without launches)."""
+    each on the pipe that does it exactly, side by side: the pairwise
+    exponentials once at the SFU rate; in bf16 the element-weighted
+    pairwise sums (8 FLOPs a term) at the FP32 rate and the matmul-shaped
+    products (A^T dO, the 8 L K^2 of S dO, G v, (k kdec)^T G and the dstate
+    update) at a third of the tensor cores' bf16 rate (an f32 operand in
+    three bf16 parts), D = v . dO (two inputs) at the full rate; in f32
+    every FLOP at the FP32 rate.  ``bound_fp32_ms`` prices the same shape
+    with every f32 FLOP at the FP32 rate (D on the tensor cores in bf16),
+    the figure before the products moved to the tensor cores.  Returns the
+    kernels-line record (the training shape, without launches)."""
     from repro_torch.config import get_arch
 
+    design = rwkv6_bwd_design(rwkv_mod)
     c = get_arch(RWKV_ARCH)
     K = c.ssm_head_dim
     H = c.d_model // K
@@ -3649,11 +3707,14 @@ def check_rwkv6_bwd(torch, rwkv_mod, dev) -> dict:
         ds1 = (torch.randn((B, H, K, K), generator=g, device=dev) if with_ds1
                else torch.zeros((B, H, K, K), device=dev))
         _, _, states = rwkv_mod._launch(r, k, v, logw, u, s0, 64, keep_states=True)
-        n = bwd.bwd_launches
+        n, ntc = bwd.bwd_launches, bwd.bwd_tc_launches
         grads = rwkv_mod.rwkv6_scan_bwd(r, k, v, logw, u, states, dout, ds1)
         torch.cuda.synchronize()
-        if bwd.bwd_launches - n != rwkv_mod.BWD_KERNELS:
-            fail(f"rwkv6_scan backward {label}: {bwd.bwd_launches - n} launches")
+        tc = bwd.bwd_tc_launches - ntc
+        if bwd.bwd_launches - n != rwkv_mod.BWD_KERNELS or \
+                tc != (rwkv_mod.BWD_TC_KERNELS if dt == bf16 else 0):
+            fail(f"rwkv6_scan backward {label}: {bwd.bwd_launches - n} launches, {tc} on the "
+                 f"tensor cores")
         refs = rwkv6_plain_bwd(torch, r, k, v, logw, u, s0, dout, ds1)
         names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
         rel = {name: float((a.float() - b.float()).abs().max() / b.float().abs().max())
@@ -3677,25 +3738,34 @@ def check_rwkv6_bwd(torch, rwkv_mod, dev) -> dict:
         nbytes = n_el * (4 * es + 4) + 4 * chunks * K * K + 8 * B * H * K * K + n_el * (3 * es + 4) \
             + 4 * H * K
         exps = chunks * pairs * K
-        # f32 flops: A (3 a term), the dr and dk sums (5), A^T dO (2); S dO,
-        # G v, (k kdec)^T G and the dstate update (2 L K^2 each).  D[t, i] =
-        # v_i . dO_t over i <= t is a product of two inputs: exact on the
-        # tensor cores in bf16 (f32 sums), on the FP32 pipes in f32
-        flops = chunks * (10 * pairs * K + 8 * L * K * K)
+        # FLOPs: A (3 a term) and the dr and dk sums (5), element-weighted;
+        # A^T dO (2 a term) and S dO, G v, (k kdec)^T G and the dstate update
+        # (2 L K^2 each), matmul-shaped; D[t, i] = v_i . dO_t over i <= t, a
+        # product of two inputs
+        pair_flops = chunks * 8 * pairs * K
+        mm_flops = chunks * (2 * pairs * K + 8 * L * K * K)
         d_flops = chunks * L * (L + 1) * K
-        if dt == bf16:
-            t_tc = 1e3 * d_flops / BF16_FLOPS
-        else:
-            t_tc, flops = 0.0, flops + d_flops
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_exp, t_flops = 1e3 * exps / SFU_PER_S, 1e3 * flops / FP32_FLOPS
+        t_exp = 1e3 * exps / SFU_PER_S
+        t_fp32_all = 1e3 * (pair_flops + mm_flops) / FP32_FLOPS
+        if dt == bf16:
+            # tensor cores: the split f32 operands' three products, and D exact
+            tc_flops = 3 * mm_flops + d_flops
+            flops, t_tc = pair_flops, 1e3 * tc_flops / BF16_FLOPS
+            bound_fp32 = max(t_bytes, t_exp, t_fp32_all, 1e3 * d_flops / BF16_FLOPS)
+        else:
+            tc_flops, flops, t_tc = 0, pair_flops + mm_flops + d_flops, 0.0
+            bound_fp32 = None
+        t_flops = 1e3 * flops / FP32_FLOPS
         t_ops = max(t_exp, t_flops, t_tc)   # the SFU, FMA and tensor pipes run side by side
         bound = max(t_bytes, t_ops)
+        bound_fp32 = bound if bound_fp32 is None else bound_fp32
         row = {"shape": label, "B": B, "H": H, "S": S, "K": K, "dtype": str(dt).split(".")[1],
                "decay": decay, "ds1": with_ds1, "ms": ms, "plain_ms": plain, "library_ms": None,
                "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes": nbytes, "exps": exps, "flops": flops,
-               "tc_flops": d_flops if dt == bf16 else 0, "t_bytes_ms": t_bytes,
+               "bound_fp32_ms": bound_fp32, "x_bound_fp32": ms / bound_fp32,
+               "tc_launches": tc, "bytes": nbytes, "exps": exps, "flops": flops,
+               "tc_flops": tc_flops, "t_bytes_ms": t_bytes,
                "t_exp_ms": t_exp, "t_flops_ms": t_flops, "t_tc_ms": t_tc, "rel_err": rel,
                "max_abs_err": abs_err}
         per.append(row)
@@ -3706,14 +3776,16 @@ def check_rwkv6_bwd(torch, rwkv_mod, dev) -> dict:
     return {"name": "rwkv6_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan_bwd.cu",
             "replaces": "src/repro/models/rwkv6.py:83", "max_abs_err": worst,
-            **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "per_shape": per}
+            **{k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                 "bound_fp32_ms")},
+            "tensor_core_kernels": [n for n, x in design.items() if "tensor" in x["precision"]],
+            "design": design, "per_shape": per}
 
 
 def rwkv6_counters(rwkv_mod) -> dict:
     scan = rwkv_mod.rwkv6_scan
     return {"rwkv6_fwd": lambda: scan.launches, "rwkv6_chunked": lambda: scan.chunked_launches,
-            "rwkv6_bwd": lambda: scan.bwd_launches}
+            "rwkv6_bwd": lambda: scan.bwd_launches, "rwkv6_bwd_tc": lambda: scan.bwd_tc_launches}
 
 
 def train_rwkv6(torch, dev, rwkv_mod) -> tuple:
@@ -3732,14 +3804,17 @@ def train_rwkv6(torch, dev, rwkv_mod) -> tuple:
           f"(seq {TRAIN_SEQ}) to fit one card", flush=True)
     scan, L = rwkv_mod.rwkv6_scan, cfg.num_layers
     scan.launches = scan.chunked_launches = scan.decode_launches = scan.bwd_launches = 0
+    scan.bwd_tc_launches = 0
     run = train_run(torch, dev, cfg, TRAIN_BATCH, TRAIN_STEPS, rwkv6_counters(rwkv_mod), {
-        "rwkv6_fwd": 2 * L, "rwkv6_chunked": 2 * L, "rwkv6_bwd": rwkv_mod.BWD_KERNELS * L})
+        "rwkv6_fwd": 2 * L, "rwkv6_chunked": 2 * L, "rwkv6_bwd": rwkv_mod.BWD_KERNELS * L,
+        "rwkv6_bwd_tc": rwkv_mod.BWD_TC_KERNELS * L})
     fwd, bwd = scan.launches, scan.bwd_launches
     print(json.dumps({
         "phase": "train", "cell": "rwkv6-train-4k", "arch": RWKV_ARCH, "layers": L,
         "layers_of": full.num_layers, "params": cfg.param_count(), "seq": TRAIN_SEQ,
         "global_batch": TRAIN_BATCH, **run, "rwkv6_fwd_launches": fwd,
-        "rwkv6_bwd_launches": bwd, "card": card_line()}), flush=True)
+        "rwkv6_bwd_launches": bwd, "rwkv6_bwd_tc_launches": scan.bwd_tc_launches,
+        "card": card_line()}), flush=True)
     return fwd, bwd
 
 
@@ -3767,7 +3842,8 @@ def rwkv6_kernel_vs_plain(torch, dev, rwkv_mod) -> None:
     saved = {name: getattr(rwkv_mod, name) for name in names}
     saved_ref = ref_mod.chunked_wkv
     L = RWKV_CHECK_LAYERS
-    counters = {k: v for k, v in rwkv6_counters(rwkv_mod).items() if k != "rwkv6_chunked"}
+    counters = {k: v for k, v in rwkv6_counters(rwkv_mod).items()
+                if k not in ("rwkv6_chunked", "rwkv6_bwd_tc")}
     counters["plain_scan"] = lambda: calls[0]
     try:
         for name in names:

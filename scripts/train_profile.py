@@ -5,7 +5,7 @@ its layers: rwkv6-7b with 12, as phase 10 (b)), one step under
 ``torch.profiler`` after two unprofiled ones.  Prints the card, the
 step's wall ms, the device's busy ms, and its kernel time by group:
 rwkv6_scan's backward (``csrc/rwkv6_scan_bwd.cu``: the dstate and
-gradient passes) and forward (``csrc/rwkv6_scan.cu``), flash attention's
+gradient passes, on the tensor cores in bf16) and forward (``csrc/rwkv6_scan.cu``), flash attention's
 backward (the kernels of ``csrc/flashattn_bwd.cu``: rowdot and, in bf16,
 the tensor-core ``dkdv_tc_kernel`` and ``dq_tc_kernel``), its forward
 (``flash_tc_kernel``, both instances), the matrix products (cuBLAS /
@@ -29,7 +29,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = (("rwkv6_scan backward", ("rwkv6_dstate_kernel", "rwkv6_grad_kernel")),
+GROUPS = (("rwkv6_scan backward", ("rwkv6_dstate_kernel", "rwkv6_grad_kernel",
+                                   "rwkv6_dstate_tc_kernel", "rwkv6_grad_tc_kernel")),
           ("rwkv6_scan forward", ("rwkv6_state_kernel", "rwkv6_chunk_out_kernel",
                                   "rwkv6_scan_kernel", "rwkv6_decode_kernel")),
           ("flash backward", ("rowdot_kernel", "dkdv_kernel", "dq_kernel", "dkdv_tc_kernel",

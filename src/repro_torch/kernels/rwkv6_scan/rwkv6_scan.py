@@ -20,14 +20,16 @@ only CPU tensors take the plain version (``ref.rwkv6_scan_ref``).
 route), ``rwkv6_scan.chunked_launches`` those that took the two passes
 and ``rwkv6_scan.decode_launches`` those that took the decode kernel.
 
-The backward (``csrc/rwkv6_scan_bwd.cu``, built by ``BWD_LIBRARY``) is
-``rwkv6_scan_bwd``: a dstate pass over the chunks in reverse, then a
-gradient pass with one block per chunk, from the state each chunk starts
-from, which the forward's chunked route keeps in its scratch (one chunk:
-``state0``).  ``RwkvScan`` is the autograd function that runs the forward
-kernel, keeps those states and runs the backward kernels, and
-``ops.wkv`` takes it on CUDA when an input requires grad;
-``rwkv6_scan`` itself still refuses such inputs.
+The backward (``csrc/rwkv6_scan_bwd.cu`` with ``csrc/rwkv6_mma.cuh``,
+built by ``BWD_LIBRARY``) is ``rwkv6_scan_bwd``: a dstate pass over the
+chunks in reverse, then a gradient pass with one block per chunk, from the
+state each chunk starts from, which the forward's chunked route keeps in
+its scratch (one chunk: ``state0``); bf16 runs both on the tensor cores
+(``rwkv6_scan.bwd_tc_launches`` counts them), f32 on the FP32 pipes.
+``RwkvScan`` is the autograd function that runs the forward kernel, keeps
+those states and runs the backward kernels, and ``ops.wkv`` takes it on
+CUDA when an input requires grad; ``rwkv6_scan`` itself still refuses
+such inputs.
 ``rwkv6_scan.bwd_launches`` counts the backward's kernel launches,
 ``BWD_KERNELS`` a call.  CPU tensors take the plain passes
 (``ref.chunk_dstates_ref``, ``ref.chunk_grads_ref``).
@@ -70,11 +72,16 @@ def _bind_bwd(lib) -> None:
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.POINTER(ctypes.c_longlong)] + [
         ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.rwkv6_scan_bwd_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.rwkv6_scan_bwd_occupancy.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("rwkv6_scan", CSRC, "rwkv6_scan.cu", (), _bind)
-BWD_LIBRARY = CudaLibrary("rwkv6_scan_bwd", CSRC, "rwkv6_scan_bwd.cu", (), _bind_bwd)
+BWD_LIBRARY = CudaLibrary("rwkv6_scan_bwd", CSRC, "rwkv6_scan_bwd.cu",
+                          ("rwkv6_mma.cuh", "../../flashattn/csrc/flashattn_mma.cuh"), _bind_bwd)
 BWD_KERNELS = 2                  # the dstate pass and the gradient pass: one backward call
+BWD_TC_KERNELS = 2               # of which on the tensor cores, in bf16
+OCCUPANCY = ("grad_tc", "dstate_tc", "grad_f32", "dstate_f32")
 
 
 def route(S: int, chunk: int = 64) -> str:
@@ -225,7 +232,8 @@ def rwkv6_scan_bwd(r, k, v, logw, u, states, dout, ds1, *, chunk: int = 64):
 
 
 def _launch_bwd(r, k, v, logw, u, states, dout, ds1, L):
-    """One backward call (``BWD_KERNELS`` launches)."""
+    """One backward call (``BWD_KERNELS`` launches; bf16 on the tensor
+    cores, counted by ``bwd_tc_launches`` too)."""
     B, H, S, K = r.shape
     dev = r.device
     r, k, v, logw, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (r, k, v, logw, dout))
@@ -245,7 +253,16 @@ def _launch_bwd(r, k, v, logw, u, states, dout, ds1, L):
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "rwkv6_scan_bwd")
     rwkv6_scan.bwd_launches += BWD_KERNELS
+    rwkv6_scan.bwd_tc_launches += BWD_TC_KERNELS if r.dtype == torch.bfloat16 else 0
     return (*grads, du_part.sum((0, 1)), ds0)
+
+
+def bwd_occupancy() -> dict:
+    """Resident blocks an SM of each backward kernel on the current device
+    (``OCCUPANCY`` names them), from the CUDA occupancy API."""
+    out = (ctypes.c_int * len(OCCUPANCY))()
+    check_launch(BWD_LIBRARY.load().rwkv6_scan_bwd_occupancy(out), "rwkv6_scan_bwd occupancy")
+    return dict(zip(OCCUPANCY, out))
 
 
 class RwkvScan(torch.autograd.Function):
@@ -278,3 +295,4 @@ rwkv6_scan.launches = 0
 rwkv6_scan.chunked_launches = 0
 rwkv6_scan.decode_launches = 0
 rwkv6_scan.bwd_launches = 0
+rwkv6_scan.bwd_tc_launches = 0

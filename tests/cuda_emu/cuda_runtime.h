@@ -1,6 +1,7 @@
 // A CPU emulation of the part of the CUDA runtime that the flash attention
 // kernels and rwkv6_scan's backward kernels use, so that their sources
-// (csrc/flashattn_tc.cu, csrc/flashattn_bwd.cu, csrc/rwkv6_scan_bwd.cu)
+// (csrc/flashattn_tc.cu, csrc/flashattn_bwd.cu, csrc/rwkv6_scan_bwd.cu with
+// rwkv6_mma.cuh)
 // build with g++ and run on the host in the tests
 // (tests/test_torch_flash_emu.py, tests/test_torch_rwkv6_emu.py).
 // emulate.py rewrites each `extern __shared__` declaration and each
@@ -40,6 +41,12 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return
 struct float2 {
     float x, y;
 };
+struct alignas(16) float4 {
+    float x, y, z, w;
+};
+struct alignas(8) uint2 {
+    unsigned x, y;
+};
 typedef void* cudaStream_t;
 enum cudaError_t {
     cudaSuccess = 0,
@@ -61,6 +68,12 @@ cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
     return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// One block an SM: the emulation runs blocks one after another.
+template <class T>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int, size_t) {
+    *n = 1;
+    return cudaSuccess;
+}
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
