@@ -229,7 +229,27 @@ each printing its results on a line of its own:
      zamba2-1.2b: one step at full width and 6 layers (the shared block
      once, on flash's HD_PAD 64 forward with lse and its backward) against
      the plain-attention step, then the whole model (38 layers) for 3
-     steps at seq 4096 and the largest of batch 4, 2, 1 that fits.
+     steps at seq 4096 and the largest of batch 4, 2, 1 that fits;
+ 11. the sharded fleet (``FleetVM(mesh=)``): (a) phase 4's ring under
+     executor="cuda" on ``make_node_mesh()`` (one shard a card) and on
+     ``make_node_mesh(4, device="cuda")`` (four shards on the card, each in
+     storage of its own), in turns with the meshless fleet (meshless,
+     one, four, four, one, meshless), every run byte for byte phase 4's
+     meshless cuda run (states, outputs, steps, kernel_stats with
+     bail_hist {"task": 256, "rnd": 256}), vmloop launched once a shard
+     (>= 4 a round on four shards); rounds ms and steps/s of each beside
+     the meshless run's, and the router's descriptor copies and bytes a
+     round; (b) partial IO at 4096 nodes on the four shards (every 64th
+     node calls a FIOS word): the IO service's d2h bytes the nodes
+     serviced times one node's bytes, equal to the meshless run; (c) the
+     first 4094 nodes of (b)'s fleet (four shards do not divide them)
+     replicated: spec (), as many launches as the meshless run; (d) phase
+     4f's Executive fleet, phase 4g's firmware under "trace" and "auto"
+     (two rounds each), and phase 4c's observed run on the four shards,
+     each equal to its meshless run; (e)
+     FleetServeMonitor(n=64) on the four shards over a fixed ServeStats
+     sequence, equal to the meshless monitor.  No speed is claimed: the
+     times are the card's own, beside its name and power limit.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -312,6 +332,11 @@ TRACE_PROGRAM = ("array x { 10 20 30 40 } array w { 1 2 3 4 5 6 7 8 9 10 11 12 1
 TRACE_ROUNDS = 8                # phase 4g (a), (b): rounds a run
 TRACE_EXEC_ROUNDS = 5           # phase 4g (c)
 TRACE_RING_NODES = 64           # phase 4g (d): phase 4's ring, one program a node
+SHARDS = 4                      # phase 11: shards of the one-card node mesh
+PARTIAL_IO_EVERY = 64           # phase 11 (b): every 64th node calls a FIOS word
+REPLICATED_NODES = 4094         # phase 11 (c): a ring SHARDS does not divide
+SHARD_TRACE_ROUNDS = 2          # phase 11 (d): rounds of 4g's firmware under trace and auto
+MONITOR_STEPS = 5               # phase 11 (e): ServeStats steps of the monitors
 HOST_IO = (("0 30 0 do 1+ loop out halt", False), ("seven 1+ halt", True),
            ("var flag : w 1 flag ! end ; 0 0 $ w task drop 100 1 flag await . flag @ . halt",
             False))             # phase 4g (e): tests/test_vm_pallas.py's host-IO programs
@@ -632,12 +657,12 @@ def main() -> int:
 
     # 4f. the Executive at full width: preemptive micro-slices over vmloop,
     # the vectorized syscall plane and WCET admission
-    exec_launches = executive_phase(torch, kmod, check, cfg, dev, n_nodes, run)
+    exec_launches, exec_ring = executive_phase(torch, kmod, check, cfg, dev, n_nodes, run)
 
     # 4g. the trace-JIT at full width: one firmware on every node, against
     # cuda and batched, under auto, under the Executive; phase 4's ring at
     # 64 nodes; the serve monitor and the single-node backends
-    trace_launches, tail = trace_phase(torch, kmod, check, cfg, dev, n_nodes)
+    trace_launches, tail, firmware_ring = trace_phase(torch, kmod, check, cfg, dev, n_nodes)
     trace_executive(torch, check, cfg, dev, n_nodes)
     trace_ring(check, cfg, dev, run, REXAVM, vms)
     trace_monitor_and_nodes(torch, check, dev, REXAVM, vms)
@@ -674,7 +699,8 @@ def main() -> int:
             f"n{n_nodes}_elided": fleet_elided, f"n{n_nodes}_budget32": fleet_q,
             f"n{n_nodes}_trace_tail": fleet_tail},
     }]
-    del nodes, init, results, S, fleet, mon
+    phase4 = results["cuda", 1]           # phase 11 holds its sharded runs to it
+    del results, S, fleet, mon
     torch.cuda.empty_cache()
 
     # 6. the other kernels against their plain versions
@@ -732,7 +758,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_zamba_fwd, launches_zamba_bwd = train_zamba2(torch, dev, flash_mod)
     torch.cuda.empty_cache()
+
+    # 11. the sharded fleet: phase 4's ring on a node mesh of one shard a
+    # card and of four shards on the card, partial IO, a replicated fleet,
+    # the Executive, trace, auto, obs and the serve monitor on the mesh
+    launches_sharded = sharded_phase(torch, kmod, check, cfg, n_nodes, (nodes, init), phase4,
+                                     exec_ring, firmware_ring)
+    del nodes, init, phase4, exec_ring, firmware_ring
     by_name = {r["name"]: r for r in records}
+    by_name["vmloop"]["launches"] += launches_sharded
     by_name["flash_attention"]["launches"] += launches_train_fwd + launches_zamba_fwd
     by_name["rwkv6_scan"]["launches"] += launches_rwkv_train
     records.append(dict(bwd_record, launches=launches_train_bwd + launches_zamba_bwd))
@@ -1065,12 +1099,13 @@ def executive_setup(cfg, dev, n, main=None, saver=None):
 
 
 def executive_run(torch, cfg, dev, ring, executor, io_mode, tmp, start_only: bool = False,
-                  max_rounds: int = 200):
+                  max_rounds: int = 200, mesh=None):
     """One FleetVM.run of phase 4f's fleet from its initial states: fresh
     services (a CheckpointManager under ``tmp``), the spawns through
     Executive.spawn (timed: the WCET admission), then start / rounds / sync
     as phase 4's ``run``, at most ``max_rounds``.  With ``start_only`` it
-    returns the started fleet."""
+    returns the started fleet; with ``mesh`` the fleet is sharded over it
+    (phase 11)."""
     from repro_torch.core.vm import FleetVM, vmstate as vms
     from repro_torch.exec import Executive, ExecutiveConfig, install_services
     from repro_torch.resilience import CheckpointManager
@@ -1079,9 +1114,11 @@ def executive_run(torch, cfg, dev, ring, executor, io_mode, tmp, start_only: boo
     for vm, st in zip(nodes, init):
         vm.state = vms.clone(st)
         vm.out_stream.clear()
-    fleet = FleetVM(nodes=nodes, executor=executor, device=dev, executive=ExecutiveConfig(),
-                    io_mode=io_mode)
-    mgr = CheckpointManager(os.path.join(tmp, f"{executor}_{io_mode}"), keep=2)
+    where = {"mesh": mesh} if mesh is not None else {"device": dev}
+    fleet = FleetVM(nodes=nodes, executor=executor, executive=ExecutiveConfig(),
+                    io_mode=io_mode, **where)
+    mgr = CheckpointManager(os.path.join(tmp, f"{executor}_{io_mode}{'_mesh' if mesh else ''}"),
+                            keep=2)
     svcs = install_services(nodes, mgr)
     scalar = ScalarTrio(nodes, fleet) if io_mode == "partial" else None
     ex = Executive(fleet)
@@ -1131,9 +1168,11 @@ def exec_stats(run) -> dict:
     return e
 
 
-def executive_phase(torch, kmod, check, cfg, dev, n_nodes, run) -> int:
-    """Phase 4f: returns vmloop's launches in the first cuda run.  ``run``
-    is phase 4's, which times the baseline (the ring alone, no Executive)."""
+def executive_phase(torch, kmod, check, cfg, dev, n_nodes, run) -> tuple:
+    """Phase 4f: returns vmloop's launches in the first cuda run and the
+    fleet's nodes (``executive_setup``'s, which phase 11 runs again).
+    ``run`` is phase 4's, which times the baseline (the ring alone, no
+    Executive)."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -1241,7 +1280,7 @@ def executive_phase(torch, kmod, check, cfg, dev, n_nodes, run) -> int:
     print(json.dumps({"phase": "executive_baseline", "turns": turns, "mean": mean,
                       "executive_over_baseline_s": mean["executive"]["s"] / mean["baseline"]["s"]}),
           flush=True)
-    return launches
+    return launches, ring
 
 
 def group_growth(engine, before: dict) -> dict:
@@ -1301,8 +1340,9 @@ def trace_phase(torch, kmod, check, cfg, dev, n_nodes) -> tuple:
     only as the tail (a budget tensor) and never its plain version.  (b) the
     same fleet under "auto": plan ("trace", False), predicted ["rnd"],
     n_nodes AOT branch sets, nothing built during the run, the same bytes.
-    Returns the trace runs' vmloop launches and round 0's first tail launch
-    (core, budget)."""
+    Returns the trace runs' vmloop launches, round 0's first tail launch
+    (core, budget) and the fleet's (nodes, initial states), which phase 11
+    runs again."""
     import warnings
     from collections import Counter
 
@@ -1470,7 +1510,7 @@ def trace_phase(torch, kmod, check, cfg, dev, n_nodes) -> tuple:
         "rounds_ms": 1e3 * dt - split["sync_ms"], "sync_ms": split["sync_ms"],
         "specialized_frac": ts["specialized_frac"], "identical_to_trace": True,
     }), flush=True)
-    return launches, tail
+    return launches, tail, (nodes, init)
 
 
 def profile_spec_slice(torch, ex, S, steps: int) -> dict:
@@ -1621,6 +1661,234 @@ def trace_monitor_and_nodes(torch, check, dev, REXAVM, vms) -> None:
                       "monitor_groups_grown": grown, "reports_equal_cuda": True,
                       "single_node_cuda": nodes_out, "single_node_equal_oracle": ["cuda", "trace"]}),
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the sharded fleet
+# ---------------------------------------------------------------------------
+
+def shard_drive(torch, kmod, fleet_ring, mesh=None, executor="cuda", obs=None,
+                max_rounds: int = 200, dev=None) -> dict:
+    """One FleetVM.run of a fleet (``(nodes, initial states)``) from its
+    initial states, on ``mesh`` or meshless on ``dev``, split as phase 4's
+    ``run``; with vmloop's launches in the run."""
+    from repro_torch.core.vm import FleetVM, vmstate as vms
+
+    nodes, init = fleet_ring
+    for vm, st in zip(nodes, init):
+        vm.state = vms.clone(st)
+        vm.out_stream.clear()
+    where = {"mesh": mesh} if mesh is not None else {"device": dev or torch.device("cuda")}
+    fleet = FleetVM(nodes=nodes, executor=executor, obs=obs, **where)
+    split: dict = {}
+    l0 = kmod.vmloop_call.launches
+    names = ("start", "sync") + (("_resolve_auto",) if executor == "auto" else ())
+    res, dt, final = timed_run(torch, fleet, split, names, max_rounds=max_rounds)
+    return {"fleet": fleet, "res": res, "dt": dt, "final": final, "split": split,
+            "launches": kmod.vmloop_call.launches - l0}
+
+
+def shard_diff(check, a: dict, b: dict) -> list:
+    """What differs between two runs: states, outputs, rounds, steps, out
+    streams and the kernel's counters."""
+    err, bad = check.max_abs_diff(a["final"], b["final"])
+    ra, rb = a["res"], b["res"]
+    for name, x, y in (("outputs", ra.outputs, rb.outputs), ("rounds", ra.rounds, rb.rounds),
+                       ("statuses", ra.statuses, rb.statuses),
+                       ("steps", ra.steps.tolist(), rb.steps.tolist()),
+                       ("out_streams", [vm.out_stream for vm in a["fleet"].nodes],
+                        [vm.out_stream for vm in b["fleet"].nodes]),
+                       ("kernel_stats", a["fleet"].kernel_stats(), b["fleet"].kernel_stats())):
+        if x != y:
+            bad.append(name)
+    return bad
+
+
+def shard_timing(runs: list) -> dict:
+    """Means over the runs of one kind: rounds ms, start / sync ms and
+    steps/s (host clock, the card synchronized)."""
+    steps = int(runs[0]["res"].steps.sum())
+    return {"runs": len(runs), "rounds": runs[0]["res"].rounds,
+            "rounds_ms": sum(r["split"]["rounds_ms"] for r in runs) / len(runs),
+            "start_ms": sum(r["split"]["start_ms"] for r in runs) / len(runs),
+            "sync_ms": sum(r["split"]["sync_ms"] for r in runs) / len(runs),
+            "steps_per_s": sum(steps / r["dt"] for r in runs) / len(runs),
+            "launches": runs[0]["launches"], "turns_s": [r["dt"] for r in runs]}
+
+
+def sharded_phase(torch, kmod, check, cfg, n_nodes, ring, phase4, exec_ring,
+                  firmware_ring) -> int:
+    """Phase 11: the sharded fleet (see the module's docstring).  ``ring``
+    is phase 4's (nodes, initial states), ``phase4`` its meshless cuda run
+    at service_every=1, ``exec_ring`` phase 4f's nodes and
+    ``firmware_ring`` phase 4g's firmware fleet.  Returns vmloop's launches in the phase."""
+    import tempfile
+
+    from repro_torch.core.vm import REXAVM, vmstate as vms
+    from repro_torch.launch.mesh import make_node_mesh
+    from repro_torch.obs import ObsConfig
+    from repro_torch.serve import FleetServeMonitor, ServeStats
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    meshes = {"mesh1": make_node_mesh(), "mesh4": make_node_mesh(SHARDS, device="cuda")}
+    kmod.vmloop_call.launches = 0
+    base = {"fleet": phase4[0], "res": phase4[1], "final": phase4[3]}
+    spawners = len(range(0, n_nodes, 16))
+
+    # (a) phase 4's ring on one shard a card and on four shards of the card
+    runs: dict = {"meshless": [], "mesh1": [], "mesh4": []}
+    route = {}
+    for name in ("meshless", "mesh1", "mesh4", "mesh4", "mesh1", "meshless"):
+        r = shard_drive(torch, kmod, ring, meshes.get(name))
+        bad = shard_diff(check, r, base)
+        if bad or r["fleet"].kernel_stats()["bail_hist"] != {"task": spawners, "rnd": spawners}:
+            fail(f"11 (a): the ring on {name} != phase 4's meshless cuda run on {bad}")
+        spec = r["fleet"].node_spec
+        if spec != ((("node",)) if name != "meshless" else ()):
+            fail(f"11 (a): {name} has node spec {spec}")
+        if name != "meshless":
+            stats = r["fleet"].kernels.route.stats
+            route[name] = {k: v / stats["rounds"] for k, v in stats.items() if k != "rounds"}
+        runs[name].append(r)
+        del r
+    timing = {name: shard_timing(rs) for name, rs in runs.items()}
+    rounds = timing["meshless"]["rounds"]
+    if timing["mesh1"]["launches"] != timing["meshless"]["launches"] \
+            or timing["mesh4"]["launches"] < SHARDS * rounds:
+        fail(f"11 (a): vmloop launches {[(k, t['launches']) for k, t in timing.items()]} "
+             f"over {rounds} rounds")
+    del runs
+    print(json.dumps({
+        "phase": "sharded_ring", "nodes": n_nodes, "shards": {"mesh1": 1, "mesh4": SHARDS},
+        "executor": "cuda", "steps": int(phase4[1].steps.sum()), **timing,
+        "descriptor_copies_per_round": route, "identical_to_phase4": True,
+    }), flush=True)
+
+    # (b) partial IO at full width on the four shards
+    t0 = time.perf_counter()
+    io_nodes = [REXAVM(cfg, seed=1 + i, device=dev) for i in range(n_nodes)]
+    for i, vm in enumerate(io_nodes):
+        if i % PARTIAL_IO_EVERY == 0:
+            vm.dios_add("ready", 1)
+            vm.svc_add("ping", functools.partial(vm.dios_write, "ready", [1]))
+            vm.launch(vm.load("ping 1000 1 ready await drop 5 . halt"))
+        else:
+            vm.launch(vm.load("0 50 0 do 1+ loop . halt"))
+    io_ring = (io_nodes, [vms.clone(vm.state) for vm in io_nodes])
+    io_setup_s = time.perf_counter() - t0
+    rm = shard_drive(torch, kmod, io_ring, meshes["mesh4"])
+    rb = shard_drive(torch, kmod, io_ring)
+    fm, fb = rm["fleet"], rb["fleet"]
+    per_node = vms.state_nbytes(io_ring[1][0])
+    svc = fm.io_service
+    served = len(range(0, n_nodes, PARTIAL_IO_EVERY))
+    bad = shard_diff(check, rm, rb)
+    if (bad or rm["res"].statuses != ["halt"] * n_nodes or svc.nodes_serviced < served
+            or fm.io_d2h_bytes != svc.nodes_serviced * per_node
+            or fm.transfer_stats() != fb.transfer_stats() or (fm.h2d, fm.d2h) != (1, 1)):
+        fail(f"11 (b): partial IO on {SHARDS} shards: {bad}, {fm.transfer_stats()}")
+    print(json.dumps({
+        "phase": "sharded_partial_io", "nodes": n_nodes, "shards": SHARDS, "setup_s": io_setup_s,
+        "io_services": svc.services, "io_nodes_serviced": svc.nodes_serviced,
+        "io_d2h_bytes": fm.io_d2h_bytes, "node_bytes": per_node,
+        "full_state_bytes": per_node * n_nodes, "mesh4_s": rm["dt"], "meshless_s": rb["dt"],
+        "identical_to_meshless": True,
+    }), flush=True)
+    del rm, rb, fm, fb, svc
+
+    # (c) a fleet the mesh does not divide (the first REPLICATED_NODES of
+    # (b)'s): replicated, one copy, as many launches as meshless
+    rep_ring = (io_ring[0][:REPLICATED_NODES], io_ring[1][:REPLICATED_NODES])
+    rm = shard_drive(torch, kmod, rep_ring, meshes["mesh4"])
+    rb = shard_drive(torch, kmod, rep_ring)
+    bad = shard_diff(check, rm, rb)
+    if bad or rm["fleet"].node_spec != () or rm["launches"] != rb["launches"] \
+            or rm["res"].statuses != ["halt"] * REPLICATED_NODES:
+        fail(f"11 (c): {REPLICATED_NODES} nodes on {SHARDS} shards: {bad}, spec "
+             f"{rm['fleet'].node_spec}, launches {rm['launches']} vs {rb['launches']}")
+    print(json.dumps({
+        "phase": "sharded_replicated", "nodes": REPLICATED_NODES, "shards": SHARDS,
+        "node_spec": list(rm["fleet"].node_spec), "launches": rm["launches"],
+        "meshless_launches": rb["launches"], "mesh4_s": rm["dt"], "meshless_s": rb["dt"],
+        "identical_to_meshless": True,
+    }), flush=True)
+    del io_nodes, io_ring, rep_ring, rm, rb
+
+    # (d) the Executive, the trace-JIT, auto and obs on the four shards
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        em = executive_run(torch, cfg, dev, exec_ring, "cuda", "vector", tmp,
+                           mesh=meshes["mesh4"])
+        eb = executive_run(torch, cfg, dev, exec_ring, "cuda", "vector", tmp)
+    bad = same_run(check, em, eb)
+    if bad or exec_stats(em) != exec_stats(eb) or em["ckpt"] != eb["ckpt"] \
+            or em["fleet"].kernel_stats() != eb["fleet"].kernel_stats():
+        fail(f"11 (d): the Executive fleet on {SHARDS} shards != meshless on {bad}")
+    out["executive"] = {"rounds": em["res"].rounds, "mesh4_s": em["dt"], "meshless_s": eb["dt"],
+                        "exec_slices": exec_stats(em)["exec_slices"]}
+    del em, eb
+    for executor in ("trace", "auto"):
+        # trace_stats() right after each run: the engine's counters are shared
+        rm = shard_drive(torch, kmod, firmware_ring, meshes["mesh4"], executor,
+                         max_rounds=SHARD_TRACE_ROUNDS)
+        tm = rm["fleet"].trace_stats()
+        rb = shard_drive(torch, kmod, firmware_ring, None, executor,
+                         max_rounds=SHARD_TRACE_ROUNDS)
+        tb = rb["fleet"].trace_stats()
+        bad = shard_diff(check, rm, rb)
+        if executor == "auto" and rm["fleet"].analysis_stats() != rb["fleet"].analysis_stats():
+            bad.append("analysis_stats")
+        for key in ("spec_steps", "guard_exits", "total_steps"):
+            if tm[key] != tb[key]:
+                bad.append(key)
+        if bad:
+            fail(f"11 (d): the firmware under {executor} on {SHARDS} shards != meshless on {bad}")
+        out[executor] = {"rounds": rm["res"].rounds, "mesh4_s": rm["dt"], "meshless_s": rb["dt"],
+                         "spec_steps": tm["spec_steps"],
+                         "plan": ([rm["fleet"]._analysis.executor, rm["fleet"]._analysis.elide_checks]
+                                  if executor == "auto" else None)}
+        del rm, rb
+    obs_cfg = ObsConfig(trace=True, deadline_ms=OBS_DEADLINE_MS, time_rounds=True)
+    rm = shard_drive(torch, kmod, ring, meshes["mesh4"], obs=obs_cfg)
+    rb = shard_drive(torch, kmod, ring, None, obs=obs_cfg)
+    mm, mb = rm["fleet"].metrics().as_dict(), rb["fleet"].metrics().as_dict()
+    lat = mm.pop("latency"), mb.pop("latency")
+    bad = shard_diff(check, rm, rb)
+    if bad or mm != mb:
+        fail(f"11 (d): the observed ring on {SHARDS} shards != meshless on {bad}, metrics equal "
+             f"{mm == mb}")
+    out["obs"] = {"rounds": rm["res"].rounds, "mesh4_s": rm["dt"], "meshless_s": rb["dt"],
+                  "round_p50_ms": [x["p50_ms"] for x in lat],
+                  "instructions": mm["counters"]["instructions"]}
+    del rm, rb
+    print(json.dumps({"phase": "sharded_engines", "nodes": n_nodes, "shards": SHARDS, **out,
+                      "identical_to_meshless": True}), flush=True)
+
+    # (e) the serve monitor on the four shards
+    mons = {"mesh4": FleetServeMonitor(n=MONITOR_NODES, executor="cuda", mesh=meshes["mesh4"]),
+            "meshless": FleetServeMonitor(n=MONITOR_NODES, executor="cuda", device=dev)}
+    step_ms = {k: [] for k in mons}
+    for step in range(1, MONITOR_STEPS + 1):
+        stats = ServeStats(steps=step, prefill_tokens=SERVE_BATCH * PROMPT_LEN,
+                           decode_tokens=SERVE_BATCH * step)
+        for name, mon in mons.items():
+            step_ms[name].append(timed(torch, lambda mon=mon: mon(stats))[1])
+    ma, mb = (m.metrics().as_dict() for m in mons.values())
+    ma.pop("latency")
+    mb.pop("latency")
+    if mons["mesh4"].reports() != mons["meshless"].reports() or ma != mb \
+            or mons["mesh4"].fleet.node_spec != ("node",):
+        fail("11 (e): the monitor on the mesh reports or counts otherwise than meshless")
+    launches = kmod.vmloop_call.launches
+    if launches <= 0:
+        fail("phase 11 launched the vmloop kernel no time")
+    print(json.dumps({
+        "phase": "sharded_monitor", "nodes": MONITOR_NODES, "shards": SHARDS,
+        "steps": MONITOR_STEPS, "step_ms": step_ms, "reports_equal_meshless": True,
+        "phase_s": time.perf_counter() - t_phase, "vmloop_launches": launches,
+    }), flush=True)
+    return launches
 
 
 def time_trace_tail(torch, kmod, check, tail, cfg) -> dict:

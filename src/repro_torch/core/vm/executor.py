@@ -43,6 +43,13 @@ fleet engine also offers ``obs_schedule(S) -> found`` and
 schedule/execute seam, counting every retired instruction in its bin
 (``repro_torch.obs.metrics``).
 
+Node sharding: the batched, cuda and Oracle engines take ``mesh=`` (a
+``NodeMesh``) and then also run a ``vmstate.ShardedState``: each shard's
+slice runs on its own device (``vmstate.each_shard``), the kernel launched
+once a shard (``fleet_vmloop(..., mesh=)``), and the per-node outputs are
+joined in node order on the first shard's device.  A plain stacked state
+(a replicated fleet) takes the meshless path.
+
 The batched and cuda engines take ``elide_checks``: the checks-elided
 interpreter (``Interpreter(elide_checks=True)``) and vmloop instance, for
 fleets whose programs the static verifier admitted
@@ -69,38 +76,54 @@ def _iowait(S) -> torch.Tensor:
     return (S.tstatus == ST_IOWAIT).sum()
 
 
+def _per_shard(S, fn, mesh):
+    """``fn(shard)`` on each shard of ``S`` under its device, the per-node
+    outputs joined in node order on the first shard's device."""
+    if isinstance(S, vms.ShardedState) and S.mesh != mesh:
+        raise ValueError("the state is sharded over another mesh than the engine's")
+    return vms.join_rows([fn(sh) for sh, _ in vms.each_shard(S)], vms.first_device(S))
+
+
 class BatchedSliceExecutor:
     """``run_slice_batched(S, steps) -> found``: schedule -> vmloop ->
     preempt per node, all on the batched interpreter."""
 
     backend = "batched"
 
-    def __init__(self, cfg: VMConfig, isa: ISA | None = None, elide_checks: bool = False):
+    def __init__(self, cfg: VMConfig, isa: ISA | None = None, elide_checks: bool = False,
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.interp = interp_for(cfg, isa, elide_checks)
         self._checked = interp_for(cfg, isa)
 
     def run_slice_batched(self, S, steps: int) -> torch.Tensor:
-        return self.interp.run_slice(S, steps)
+        return _per_shard(S, lambda sh: self.interp.run_slice(sh, steps), self.mesh)
 
     def run_slice_exec_batched(self, S, quantum: int):
         """The Executive micro-slice (``Interpreter.run_slice_exec``):
         ``(found, switched, preempted)``, each (N,)."""
-        return self.interp.run_slice_exec(S, quantum)
+        return _per_shard(S, lambda sh: self.interp.run_slice_exec(sh, quantum), self.mesh)
 
     # -- observability: obs_schedule then obs_execute is run_slice_batched,
     # -- with every retired instruction binned ---------------------------------
 
     def obs_schedule(self, S) -> torch.Tensor:
-        return self.interp.schedule(S)
+        return _per_shard(S, self.interp.schedule, self.mesh)
 
     def obs_execute(self, S, steps: int, found):
         from repro_torch.obs.metrics import make_counting_finish, zero_exec_aux
 
-        iow0 = _iowait(S)
-        hist = make_counting_finish(self._checked)(S, steps, active=found)
-        return zero_exec_aux(self.interp.isa, S.pc.device)._replace(
-            op_hist=hist.sum(0, dtype=I32), io_susp=(_iowait(S) - iow0).to(I32))
+        finish = make_counting_finish(self._checked)
+        hist, io_susp = [], []
+        for sh, lo in vms.each_shard(S):
+            iow0 = _iowait(sh)
+            active = found[lo:lo + sh.pc.shape[0]].to(sh.pc.device)
+            hist.append(finish(sh, steps, active=active).sum(0, dtype=I32))
+            io_susp.append((_iowait(sh) - iow0).to(I32))
+        dev = vms.first_device(S)
+        return zero_exec_aux(self.interp.isa, dev)._replace(
+            op_hist=vms.sum_to(hist, dev), io_susp=vms.sum_to(io_susp, dev))
 
 
 class CudaSliceExecutor:
@@ -159,11 +182,12 @@ class CudaSliceExecutor:
     backend = "cuda"
 
     def __init__(self, cfg: VMConfig, isa: ISA | None = None, elide_checks: bool = False,
-                 device=None, obs=None):
+                 device=None, obs=None, mesh=None):
         from repro_torch.obs.metrics import n_bins, normalize_obs
 
         self.cfg = cfg
         self.isa = isa
+        self.mesh = mesh
         self.elide_checks = elide_checks
         self.interp = interp_for(cfg, isa, elide_checks)
         self._checked = interp_for(cfg, isa)
@@ -183,69 +207,108 @@ class CudaSliceExecutor:
         its specialized steps), which the first launch takes as ``budget``.
         ``node_hist`` ((N, num_ops + 4) int32), when given, accumulates each
         node's retired instructions by bin.  Returns ``(n_exec, ever,
-        met)`` as ``run_slice_batched_aux``'s last three."""
+        met)`` as ``run_slice_batched_aux``'s last three.
+
+        On a sharded state the first launch goes to every shard
+        (``fleet_vmloop(..., mesh=)``), and each pass runs per shard: the
+        pending rows (one host sync a shard), the declined instructions,
+        the relaunch over those rows.  Per-node ``steps`` and ``node_hist``
+        are then tuples of per-shard tensors; the outputs are joined in node
+        order on the first shard's device."""
         from repro_torch.kernels.vmloop.ops import fleet_vmloop
 
         obs = node_hist is not None
         elide = self.elide_checks and not obs
         it = self._checked if obs else self.interp
-        N, nops = S.pc.shape[0], it.num_ops
-        dev = S.pc.device
-        per_node = isinstance(steps, torch.Tensor)
-        S, n_exec, bailed, bail_op, *h = fleet_vmloop(
-            S, 0 if per_node else steps, self.cfg, self.isa, budget=steps if per_node else None,
-            obs=obs, elide_checks=elide)
+        nops = it.num_ops
+        sharded = isinstance(S, vms.ShardedState)
+        shards = vms.shards_of(S)
+        k = len(shards)
+        per_node = isinstance(steps, (torch.Tensor, tuple, list))
+        budgets = (tuple(steps) if sharded else (steps,)) if per_node else (steps,) * k
+        hists = (tuple(node_hist) if sharded else (node_hist,)) if obs else (None,) * k
+        first = fleet_vmloop(
+            S, 0 if per_node else steps, self.cfg, self.isa,
+            budget=(budgets if sharded else steps) if per_node else None, obs=obs,
+            elide_checks=elide, mesh=self.mesh if sharded else None)[1:]
+        if not sharded:
+            first = tuple((x,) for x in first)
+        n_exec, bailed, bail_op = (list(x) for x in first[:3])
         if obs:
-            node_hist += h[0]
+            for h, add in zip(hists, first[3]):
+                h += add
         mark("kernel")
-        rows = torch.arange(N, device=dev)
-        retired = n_exec.clone()
-        ever = bailed != 0
-        met = torch.zeros(N * (nops + 1), dtype=torch.bool, device=dev)
+        rows = [torch.arange(sh.pc.shape[0], device=sh.pc.device) for sh in shards]
+        retired = [x.clone() for x in n_exec]
+        ever = [b != 0 for b in bailed]
+        met = [torch.zeros(sh.pc.shape[0] * (nops + 1), dtype=torch.bool, device=sh.pc.device)
+               for sh in shards]
+        pend: list = [None] * k
+
+        def budget_of(j, r):
+            return budgets[j][r] if per_node else steps
+
+        live = list(range(k))
         while True:
-            hit = bailed != 0
-            cell = rows * (nops + 1) + torch.clamp(bail_op, 0, nops).long()
-            met[cell] = met[cell] | hit
-            pending = torch.zeros(N, dtype=torch.bool, device=dev)
-            pending[rows] = hit & (retired[rows] < (steps[rows] if per_node else steps))
-            rows = pending.nonzero().flatten()          # the pass's one sync
-            if rows.numel() == 0:
+            nxt = []
+            for j in live:
+                sh = shards[j]
+                with vms.on_device(sh.pc.device):
+                    hit = bailed[j] != 0
+                    cell = rows[j] * (nops + 1) + torch.clamp(bail_op[j], 0, nops).long()
+                    met[j][cell] = met[j][cell] | hit
+                    pending = torch.zeros(sh.pc.shape[0], dtype=torch.bool, device=sh.pc.device)
+                    pending[rows[j]] = hit & (retired[j][rows[j]] < budget_of(j, rows[j]))
+                    r = pending.nonzero().flatten()      # the pass's one sync a shard
+                if r.numel():
+                    rows[j], pend[j] = r, pending
+                    nxt.append(j)
+            if not nxt:
                 break
-            retired += it.vmloop(S, 1, active=pending, hist=node_hist)[0]
+            for j in nxt:
+                with vms.on_device(shards[j].pc.device):
+                    retired[j] += it.vmloop(shards[j], 1, active=pend[j], hist=hists[j])[0]
             mark("tail")
-            left = (steps[rows] if per_node else steps) - retired[rows]
-            S, n_r, bailed, bail_op, *h = fleet_vmloop(
-                S, 0 if per_node else steps, self.cfg, self.isa,
-                rows=rows.to(I32), budget=left, obs=obs, elide_checks=elide,
-            )
-            if obs:
-                node_hist.index_add_(0, rows, h[0])
+            for j in nxt:
+                r = rows[j]
+                with vms.on_device(shards[j].pc.device):
+                    left = budget_of(j, r) - retired[j][r]
+                    _, n_r, bailed[j], bail_op[j], *h = fleet_vmloop(
+                        shards[j], 0 if per_node else steps, self.cfg, self.isa,
+                        rows=r.to(I32), budget=left, obs=obs, elide_checks=elide,
+                    )
+                    if obs:
+                        hists[j].index_add_(0, r, h[0])
+                    n_exec[j].index_add_(0, r, n_r)
+                    retired[j].index_add_(0, r, n_r)
+                    ever[j][r] = ever[j][r] | (bailed[j] != 0)
             mark("kernel")
-            n_exec.index_add_(0, rows, n_r)
-            retired.index_add_(0, rows, n_r)
-            ever[rows] = ever[rows] | (bailed != 0)
-        return n_exec, ever.to(I32), met.view(N, nops + 1).sum(dim=0)
+            live = nxt
+        dev = shards[0].pc.device
+        return (vms.join_rows(n_exec, dev), vms.join_rows([e.to(I32) for e in ever], dev),
+                vms.sum_to([m.view(-1, nops + 1).sum(dim=0) for m in met], dev))
 
     def _slice(self, S, steps: int, mark, executive: bool):
         """One slice: schedule, ``_execute``'s passes, preempt.  The
         Executive's micro-slice schedules by priority and also returns
         ``switched`` and ``preempted`` (read before the preempt)."""
         mark = mark or (lambda layer: None)
-        if executive:
-            prev = S.cur.clone()
-            found = self.interp.schedule_prio(S)
-            head = (found, (found & (S.cur != prev)).to(I32))
-            mark("schedule_prio")
-        else:
-            found = self.interp.schedule(S)
-            head = (found,)
-            mark("schedule")
+        heads = []
+        for sh, _ in vms.each_shard(S):
+            if executive:
+                prev = sh.cur.clone()
+                found = self.interp.schedule_prio(sh)
+                heads.append((found, (found & (sh.cur != prev)).to(I32)))
+            else:
+                heads.append((self.interp.schedule(sh),))
+        mark("schedule_prio" if executive else "schedule")
         out = self._execute(S, steps, mark)
-        if executive:
-            head += (self.interp.running_cur(S),)
-        self.interp.preempt(S)
+        for j, (sh, _) in enumerate(vms.each_shard(S)):
+            if executive:
+                heads[j] += (self.interp.running_cur(sh),)
+            self.interp.preempt(sh)
         mark("preempt")
-        return (*head, *out)
+        return (*vms.join_rows(heads, vms.first_device(S)), *out)
 
     def run_slice_batched_aux(self, S, steps: int, mark=None):
         return self._slice(S, steps, mark, executive=False)
@@ -262,7 +325,7 @@ class CudaSliceExecutor:
     # -- observability -----------------------------------------------------------
 
     def obs_schedule(self, S) -> torch.Tensor:
-        return self.interp.schedule(S)
+        return _per_shard(S, self.interp.schedule, self.mesh)
 
     def obs_execute(self, S, steps: int, found, mark=None):
         """The kernel's counting instance on every pass (rows added back to
@@ -271,16 +334,23 @@ class CudaSliceExecutor:
         node-rounds that met each declined word (``kernel_stats``)."""
         from repro_torch.obs.metrics import ExecAux, n_bins
 
-        N = S.pc.shape[0]
-        node_hist = torch.zeros(N, n_bins(self.interp.isa), dtype=I32, device=S.pc.device)
-        iow0 = _iowait(S)
+        shards = vms.shards_of(S)
+        dev = shards[0].pc.device
+        hists = tuple(torch.zeros(sh.pc.shape[0], n_bins(self.interp.isa), dtype=I32,
+                                  device=sh.pc.device) for sh in shards)
+        iow0 = [_iowait(sh) for sh in shards]
         mark = mark or (lambda layer: None)
-        n_exec, ever, met = self._execute(S, steps, mark, node_hist)
-        self.interp.preempt(S)
+        n_exec, ever, met = self._execute(
+            S, steps, mark, hists if isinstance(S, vms.ShardedState) else hists[0])
+        io_susp = []
+        for j, (sh, _) in enumerate(vms.each_shard(S)):
+            self.interp.preempt(sh)
+            io_susp.append(_iowait(sh) - iow0[j])
         mark("preempt")
         bailed = ever.sum(dtype=I32)
         return ExecAux(
-            op_hist=node_hist.sum(0, dtype=I32), io_susp=(_iowait(S) - iow0).to(I32),
+            op_hist=vms.sum_to([h.sum(0, dtype=I32) for h in hists], dev),
+            io_susp=vms.sum_to(io_susp, dev).to(I32),
             deopts=bailed, kernel_steps=n_exec.sum(dtype=I32), bailed=bailed,
             bail_hist=met.to(I32),
         )
@@ -324,33 +394,38 @@ class OracleFleetExecutor:
 
     backend = "oracle"
 
-    def __init__(self, cfg: VMConfig, isa: ISA | None = None):
+    def __init__(self, cfg: VMConfig, isa: ISA | None = None, mesh=None):
         from repro_torch.core.vm.oracle import Oracle
 
         self.cfg = cfg
+        self.mesh = mesh
         self.oracle = Oracle(cfg, isa)
         self.interp = interp_for(cfg, isa)
 
     def _each_node(self, S, fn) -> np.ndarray:
-        """``fn(node_state)`` for every node, on numpy views of one host
-        copy of ``S``, which is then written back; returns the results."""
-        host = [x.cpu().numpy() for x in S]        # views of S itself on the CPU
-        N = host[0].shape[0]
-        out = [fn(VMState(*[a[i, ...] for a in host])) for i in range(N)]
-        if S.pc.device.type != "cpu":
-            for x, a in zip(S, host):
-                x.copy_(torch.from_numpy(a))
+        """``fn(node_state)`` for every node in node order, on numpy views of
+        one host copy of each shard of ``S``, which is then written back;
+        returns the results."""
+        if isinstance(S, vms.ShardedState) and S.mesh != self.mesh:
+            raise ValueError("the state is sharded over another mesh than the engine's")
+        out = []
+        for sh in vms.shards_of(S):
+            host = [x.cpu().numpy() for x in sh]       # views of sh itself on the CPU
+            out.extend(fn(VMState(*[a[i, ...] for a in host])) for i in range(host[0].shape[0]))
+            if sh.pc.device.type != "cpu":
+                for x, a in zip(sh, host):
+                    x.copy_(torch.from_numpy(a))
         return np.asarray(out)
 
     def run_slice_batched(self, S, steps: int) -> torch.Tensor:
         found = self._each_node(S, lambda st: self.oracle.run_slice(st, steps)[1])
-        return torch.as_tensor(found, device=S.pc.device)
+        return torch.as_tensor(found, device=vms.first_device(S))
 
     def run_slice_exec_batched(self, S, quantum: int):
         """The Executive micro-slice through the Oracle:
         ``(found, switched, preempted)``, each (N,)."""
         out = self._each_node(S, lambda st: self.oracle.run_slice_exec(st, quantum)[1:])
-        dev = S.pc.device
+        dev = vms.first_device(S)
         return (torch.as_tensor(out[:, 0] != 0, device=dev),
                 *(torch.as_tensor(out[:, k].astype(np.int32), device=dev) for k in (1, 2)))
 
@@ -358,7 +433,7 @@ class OracleFleetExecutor:
 
     def obs_schedule(self, S) -> torch.Tensor:
         found = self._each_node(S, lambda st: self.oracle.schedule(st)[1])
-        return torch.as_tensor(found, device=S.pc.device)
+        return torch.as_tensor(found, device=vms.first_device(S))
 
     def obs_execute(self, S, steps: int, found):
         """Each node's vmloop (a node the scheduler did not wake is not
@@ -386,7 +461,7 @@ class OracleFleetExecutor:
             self._each_node(S, node)
         finally:
             oracle.step_hook = None
-        dev = S.pc.device
+        dev = vms.first_device(S)
         return zero_exec_aux(oracle.isa, dev)._replace(
             op_hist=torch.as_tensor(hist.astype(np.int32), device=dev),
             io_susp=torch.tensor(iow[1] - iow[0], dtype=I32, device=dev))

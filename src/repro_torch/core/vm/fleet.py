@@ -37,6 +37,14 @@ seams (schedule, execute, clock and router, warp) so that the fleet can
 count, trace and time each phase; ``metrics()`` and ``export_trace()``
 read the result.  With ``obs=None`` (the default) the round loop is the
 plain one: no extra device outputs and no synchronization.
+
+With ``mesh=`` (a ``launch.mesh.NodeMesh``) the node axis is partitioned
+over the mesh (``sharding.logical_leading``): each shard's rows are a
+stacked state of their own on its device (``vmstate.ShardedState``), the
+slice, the clock and the warp run per shard, and the router's send phase
+is the one step that crosses shards.  A fleet the mesh does not divide
+keeps one full copy on the mesh's first device (``node_spec == ()``).
+The results equal the meshless fleet's byte for byte.
 """
 
 from __future__ import annotations
@@ -97,20 +105,21 @@ class FleetKernels:
     is one round under the Executive (see there)."""
 
     def __init__(self, cfg: VMConfig, isa: ISA | None = None, executor: str = "batched",
-                 elide_checks: bool = False, executive=None):
+                 elide_checks: bool = False, executive=None, mesh=None):
         self.cfg = cfg
         self.isa = isa or get_isa()
         self.executive = executive
+        self.mesh = mesh
         if elide_checks and executor not in ("batched", "cuda"):
             raise ValueError(f"executor {executor!r} has no checks-elided engine")
         if executor == "batched":
-            self.executor = BatchedSliceExecutor(cfg, isa, elide_checks)
+            self.executor = BatchedSliceExecutor(cfg, isa, elide_checks, mesh=mesh)
         elif executor == "cuda":
-            self.executor = CudaSliceExecutor(cfg, isa, elide_checks)
+            self.executor = CudaSliceExecutor(cfg, isa, elide_checks, mesh=mesh)
         elif executor == "oracle":
-            self.executor = OracleFleetExecutor(cfg, isa)
+            self.executor = OracleFleetExecutor(cfg, isa, mesh=mesh)
         elif executor == "trace":
-            self.executor = TraceJitExecutor(cfg, isa)
+            self.executor = TraceJitExecutor(cfg, isa, mesh=mesh)
         else:
             raise ValueError(
                 f"unknown fleet executor {executor!r}: valid executors are "
@@ -124,13 +133,23 @@ class FleetKernels:
             self.round_aux = None
             self.rounds_aux = None
 
+    @staticmethod
+    def steps_of(S):
+        """A copy of ``S.steps``, the clock's baseline (one a shard)."""
+        parts = tuple(sh.steps.clone() for sh in vms.shards_of(S))
+        return parts if isinstance(S, vms.ShardedState) else parts[0]
+
     def clock(self, S, steps0) -> torch.Tensor:
-        """Advance each node's virtual clock by its slice's instructions;
-        returns the increment (N,)."""
-        cfg = self.cfg
-        inc = torch.clamp(torch.div((S.steps - steps0) * cfg.us_per_instr, 1000, rounding_mode="floor"), min=1)
-        S.now.add_(inc)
-        return inc
+        """Advance each node's virtual clock by its slice's instructions
+        (node-local, per shard); returns the increment (N,), joined in node
+        order on the first shard's device."""
+        us = self.cfg.us_per_instr
+        incs = []
+        for (sh, _), s0 in zip(vms.each_shard(S), _parts(S, steps0)):
+            inc = torch.clamp(torch.div((sh.steps - s0) * us, 1000, rounding_mode="floor"), min=1)
+            sh.now.add_(inc)
+            incs.append(inc)
+        return vms.join_rows(incs, vms.first_device(S))
 
     def post_slice(self, S, steps0) -> None:
         self.clock(S, steps0)
@@ -169,22 +188,24 @@ class FleetKernels:
 
     @staticmethod
     def warp(S, progress) -> None:
-        """Virtual-time warp to the earliest wake-up (REXAVM.run step 4)."""
-        runnable = (S.tstatus == ST_YIELD).any(dim=1)
-        iowait = (S.tstatus == ST_IOWAIT).any(dim=1)
-        waiting = (S.tstatus == ST_SLEEP) | (S.tstatus == ST_EVENT)
-        wake = torch.where(waiting, S.timeout, _I32_MAX).amin(dim=1)
-        warp = ~runnable & ~progress & ~iowait & waiting.any(dim=1) & (wake > S.now)
-        S.now.copy_(torch.where(warp, wake, S.now))
+        """Virtual-time warp to the earliest wake-up (REXAVM.run step 4),
+        node-local: per shard, with that shard's progress flags."""
+        for (sh, _), prog in zip(vms.each_shard(S), _parts(S, progress)):
+            runnable = (sh.tstatus == ST_YIELD).any(dim=1)
+            iowait = (sh.tstatus == ST_IOWAIT).any(dim=1)
+            waiting = (sh.tstatus == ST_SLEEP) | (sh.tstatus == ST_EVENT)
+            wake = torch.where(waiting, sh.timeout, _I32_MAX).amin(dim=1)
+            warp = ~runnable & ~prog & ~iowait & waiting.any(dim=1) & (wake > sh.now)
+            sh.now.copy_(torch.where(warp, wake, sh.now))
 
     def round(self, S, steps: int):
-        steps0 = S.steps.clone()
+        steps0 = self.steps_of(S)
         self.executor.run_slice_batched(S, steps)
         self.post_slice(S, steps0)
         return S
 
     def round_aux(self, S, steps: int, mark=None):
-        steps0 = S.steps.clone()
+        steps0 = self.steps_of(S)
         _, n_exec, bailed, hist = self.executor.run_slice_batched_aux(S, steps, mark)
         self.post_slice(S, steps0)
         return S, n_exec, bailed, hist
@@ -204,8 +225,8 @@ class FleetKernels:
         ``run_slice_exec_batched_aux``'s, and "route" after the tail."""
         q, k = self.executive.quantum, self.executive.slices
         ex = self.executor
-        dev = S.pc.device
-        steps0 = S.steps.clone()
+        dev = vms.first_device(S)
+        steps0 = self.steps_of(S)
         sums = torch.zeros(4, dtype=torch.int64, device=dev)   # switches, preempts, kernel, bailed
         hist = torch.zeros(self.isa.num_ops + 1, dtype=torch.int64, device=dev)
         for _ in range(k):
@@ -224,7 +245,7 @@ class FleetKernels:
         return (S, *sums, hist)
 
     def rounds_aux(self, S, steps: int, n_rounds: int):
-        dev = S.pc.device
+        dev = vms.first_device(S)
         n_sum = torch.zeros((), dtype=torch.int64, device=dev)
         b_sum = torch.zeros((), dtype=torch.int64, device=dev)
         hist = torch.zeros(self.isa.num_ops + 1, dtype=torch.int64, device=dev)
@@ -234,6 +255,12 @@ class FleetKernels:
             b_sum += bailed.sum()
             hist += h
         return S, n_sum, b_sum, hist
+
+
+def _parts(S, x) -> tuple:
+    """Per-shard values ``x`` of ``S`` as a tuple in mesh order (a plain
+    stacked state has one)."""
+    return tuple(x) if isinstance(S, vms.ShardedState) else (x,)
 
 
 @dataclass
@@ -299,6 +326,15 @@ class FleetVM:
     ``executor="trace"`` (the trace-JIT): ``start()``/``push()`` install each
     node's ``program_key``; ``trace_stats()`` reports the engine's counters
     since this fleet was created (or ``auto`` first planned trace).
+
+    ``mesh`` (a ``launch.mesh.NodeMesh``; exclusive with ``device``)
+    partitions the node axis: ``start()`` places the stacked state with
+    ``sharding.logical_leading`` under ``make_fleet_rules(mesh)``, N / k rows
+    a shard, or one full copy on ``mesh.devices[0]`` when k does not divide
+    N; ``node_spec`` says which (``("node",)`` or ``()``).  Every executor
+    runs on it, per shard; the router's send phase crosses shards.
+    ``start``/``sync``/``push`` still count one ``h2d``/``d2h`` a call, and
+    every stats dict folds the shards into the meshless values.
     """
 
     def __init__(
@@ -313,7 +349,13 @@ class FleetVM:
         obs=None,
         io_mode: str | None = None,
         executive=None,
+        mesh=None,
     ):
+        if mesh is not None and device is not None:
+            raise ValueError("FleetVM: pass mesh or device, not both")
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.devices[0]
         if nodes is not None:
             if not nodes:
                 raise ValueError("a fleet needs at least one node")
@@ -346,6 +388,13 @@ class FleetVM:
             raise ValueError(f"unknown io_mode {io_mode!r}")
         self.io_mode = io_mode
         self.n = len(self.nodes)
+        self._rules = None
+        self.node_spec: tuple = ()
+        if mesh is not None:
+            from repro_torch.sharding import leading_spec, make_fleet_rules
+
+            self._rules = make_fleet_rules(mesh)
+            self.node_spec = leading_spec(self.n, "node", self._rules)
         self.executor_requested = executor
         self._auto = executor == "auto"
         self._elide = False
@@ -602,7 +651,8 @@ class FleetVM:
     def _make_kernels(self, executor: str, elide_checks: bool) -> FleetKernels:
         isa = self.nodes[0].isa
         return FleetKernels(self.cfg, isa if isa is not get_isa() else None, executor,
-                            elide_checks, self.executive)
+                            elide_checks, self.executive,
+                            mesh=self.mesh if self.node_spec else None)
 
     def _analyze_nodes(self) -> list:
         """The static verifier over every node's live task entries (on the
@@ -688,7 +738,13 @@ class FleetVM:
         if self._auto:
             self._resolve_auto()
         stacked = vms.stack_states([vm.state for vm in self.nodes])
-        self._S = vms.to_device(stacked, self.device)
+        if self._rules is not None:
+            from repro_torch.sharding import logical_leading, logical_rules
+
+            with logical_rules(self._rules):
+                self._S = logical_leading(stacked, "node")
+        else:
+            self._S = vms.to_device(stacked, self.device)
         self.h2d += 1
         self.h2d_bytes += vms.state_nbytes(stacked)
         if self.executor_kind == "trace":
@@ -718,10 +774,10 @@ class FleetVM:
         misses (else they are None, and the plain probe stays three copies)."""
         self.probes += 1
         S = self._S
-        tstatus, io_op, steps = (x.cpu().numpy() for x in (S.tstatus, S.io_op, S.steps))
+        tstatus, io_op, steps = (vms.field_to_host(S, f) for f in ("tstatus", "io_op", "steps"))
         if self.executive is None:
             return tstatus, io_op, steps, None, None
-        return tstatus, io_op, steps, S.now.cpu().numpy(), S.deadline.cpu().numpy()
+        return tstatus, io_op, steps, vms.field_to_host(S, "now"), vms.field_to_host(S, "deadline")
 
     def _service_host_io(self, node_mask: np.ndarray) -> bool:
         """Service the host-IO suspensions of the masked nodes: ``partial``
@@ -744,8 +800,10 @@ class FleetVM:
         return progress
 
     def _sync_device(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = self.mesh.distinct_devices() if self.mesh is not None else [self.device]
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _round_obs(self, steps: int) -> None:
         """One observed round: schedule -> execute -> clock and router ->
@@ -758,7 +816,7 @@ class FleetVM:
         timing = cfg_obs.time_rounds or cfg_obs.deadline_wall_ms > 0
         t0 = time.perf_counter() if timing else 0.0
         S = self._S
-        steps0 = S.steps.clone()
+        steps0 = kern.steps_of(S)
         with tr.span("schedule"):
             found = ex.obs_schedule(S)
             if tr.enabled:
@@ -799,7 +857,7 @@ class FleetVM:
         steps = steps or self.cfg.steps_per_slice
         if self._S is None:
             self.start()
-        steps0 = self._S.steps.cpu().numpy().astype(np.int64)
+        steps0 = vms.field_to_host(self._S, "steps").astype(np.int64)
         rounds = 0
         stall = 0
         last_steps_sum = -1
@@ -874,7 +932,7 @@ class FleetVM:
             last_steps_sum = steps_sum
         self.sync()
         self.rounds_total += rounds
-        executed = self._S.steps.cpu().numpy().astype(np.int64) - steps0
+        executed = vms.field_to_host(self._S, "steps").astype(np.int64) - steps0
         self._total_steps_acc += int(executed.sum())
         self._trace_steps_total += int(executed.sum())
         self._S = None

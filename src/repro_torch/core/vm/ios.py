@@ -133,7 +133,10 @@ class FleetIOService:
          ``REXAVM._service_io(route_net=False)``;
       3. ``put_nodes(S, idx, rows)`` scatters the serviced rows back.
 
-    ``d2h_bytes``/``h2d_bytes`` count the rows actually moved.
+    ``d2h_bytes``/``h2d_bytes`` count the rows actually moved.  On a
+    sharded state (``FleetVM(mesh=)``) each suspended row is gathered from
+    its own shard straight to the host and scattered back to it, so the
+    counters stay the nodes serviced times one node's bytes.
     """
 
     def __init__(self, nodes: "list[REXAVM]"):
@@ -158,7 +161,7 @@ class FleetIOService:
         """Copy rows ``idx`` of ``S`` into those nodes' host frontends."""
         from repro_torch.core.vm import vmstate as vms
 
-        host = vms.to_host(vms.take_nodes(S, idx))
+        host = vms.take_nodes(S, idx, device="cpu")
         self.d2h_bytes += vms.state_nbytes(host)
         for j, i in enumerate(idx):
             self.nodes[i].state = vms.unstack(host, j)

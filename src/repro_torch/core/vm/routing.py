@@ -13,6 +13,17 @@ phase, over a stacked state (counterpart of ``repro.core.vm.routing``).
 
 Byte-for-byte the semantics of ``fleet.reference_round``.  Updates the
 state in place.
+
+Node sharding (a ``vmstate.ShardedState``): the send phase is the one
+cross-shard step of a round, and only descriptors cross shards, never
+state rows.  Each shard builds its descriptors; those of all shards are
+gathered in mesh order, once on each device that holds a shard, so that
+the stable destination-major sort sees the global (node, task) order.
+Each destination shard counts the ranks of the sends to its own nodes
+against its own ``space(d)`` and scatters those deliveries into its own
+rings; the delivery flags go back to the senders' shards, and each shard
+resumes its own senders.  The receive phase stays node-local.  A meshless
+state is the one-shard case of the same code.
 """
 
 from __future__ import annotations
@@ -20,67 +31,132 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import VMConfig
+from repro_torch.core.vm import vmstate as vms
 from repro_torch.core.vm.spec import ISA, ST_IOWAIT, ST_YIELD, get_isa
 
 I32 = torch.int32
 
+# The descriptor gather's traffic, summed over the router's rounds:
+# ``chunks``/``bytes`` every shard's descriptors (and delivery flags) copied
+# into a gather, ``cross_device_*`` those that changed device.
+ROUTE_STATS = ("rounds", "chunks", "bytes", "cross_device_chunks", "cross_device_bytes")
+
 
 def build_router(cfg: VMConfig, isa: ISA | None = None, obs: bool = False):
     """Returns ``route(S) -> progress``: ``progress[i]`` is True when any of
-    node ``i``'s tasks was resumed this round.
+    node ``i``'s tasks was resumed this round (on a sharded state, a tuple
+    of per-shard flags in mesh order).
 
     With ``obs=True`` it returns ``route_obs(S) -> (S, progress, (drops,
     depth))``, as the reference's: ``drops`` the messages dropped this round
     (sends to an out-of-range destination), ``depth`` the mailbox
     high-watermark, the deepest ring on any node right after the send phase
-    (before receives pop); both () int32 on the state's device."""
+    (before receives pop); both () int32 on the state's (first) device,
+    reduced over the shards.
+
+    ``route.stats`` counts the descriptor gather's copies (``ROUTE_STATS``);
+    a meshless state copies nothing."""
     isa = isa or get_isa()
     T = cfg.max_tasks
     DS = cfg.ds_size
     MB = cfg.mbox_size
     OP_SEND = isa.opcode["send"]
     OP_RECV = isa.opcode["receive"]
+    stats = dict.fromkeys(ROUTE_STATS, 0)
 
-    def send_phase(S):
-        N = S.pc.shape[0]
-        dev = S.pc.device
-        is_send = (S.tstatus == ST_IOWAIT) & (S.io_op == OP_SEND)       # (N, T)
+    def descriptors(S, N):
+        """One shard's sends: ``(is_send, dst_ok, desc)``, ``desc`` (3, n * T)
+        int32 rows valid, destination (clamped), value."""
+        is_send = (S.tstatus == ST_IOWAIT) & (S.io_op == OP_SEND)       # (n, T)
         # send ( v dst -- ): dst on top, both still on DS (pc rewound).
         dst = S.ds.gather(2, torch.clamp(S.dsp - 1, 0, DS - 1).long()[..., None])[..., 0]
         val = S.ds.gather(2, torch.clamp(S.dsp - 2, 0, DS - 1).long()[..., None])[..., 0]
         dst_ok = (dst >= 0) & (dst < N)
-        dstc = torch.clamp(dst, 0, N - 1).long()
-        valid = is_send & dst_ok
-        vf = valid.reshape(-1)
-        df = dstc.reshape(-1)
-        NT = N * T
-        k = torch.arange(NT, device=dev)
-        key = torch.where(vf, df * NT + k, N * NT + k)
-        order = torch.argsort(key, stable=True)
-        pos = torch.arange(NT, device=dev)
-        sd = df[order]
-        is_start = torch.ones(NT, dtype=torch.bool, device=dev)
-        is_start[1:] = sd[1:] != sd[:-1]
-        seg_start = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
-        rank = torch.empty(NT, dtype=torch.long, device=dev)
-        rank[order] = pos - seg_start
-        space0 = torch.clamp(MB - (S.mbox_wr - S.mbox_rd), min=0).long()  # (N,)
-        deliver = vf & (rank < space0[df])
-        resume = is_send & (~dst_ok | deliver.reshape(N, T))
+        desc = torch.stack([(is_send & dst_ok).to(I32), torch.clamp(dst, 0, N - 1), val])
+        return is_send, dst_ok, desc.reshape(3, -1)
+
+    def gather(parts, dev):
+        """Concatenate per-shard chunks on ``dev``, counting the copies."""
+        if len(parts) == 1:
+            return parts[0].to(dev)
+        for x in parts:
+            nbytes = x.numel() * x.element_size()
+            stats["chunks"] += 1
+            stats["bytes"] += nbytes
+            if x.device != dev:
+                stats["cross_device_chunks"] += 1
+                stats["cross_device_bytes"] += nbytes
+        return torch.cat([x.to(dev) for x in parts], dim=-1)
+
+    def deliver_to(S, lo, vf, df, val, rank):
+        """Destination shard ``S`` (global nodes ``lo : lo + n``): deliver the
+        sends to its nodes that fit its rings, in rank order.  Returns the
+        (NT,) delivery flags of the gathered descriptors."""
+        n = S.pc.shape[0]
+        dev = S.pc.device
+        mine = vf & (df >= lo) & (df < lo + n)
+        ldst = torch.clamp(df - lo, 0, n - 1)
+        space0 = torch.clamp(MB - (S.mbox_wr - S.mbox_rd), min=0).long()  # (n,)
+        deliver = mine & (rank < space0[ldst])
         # Every delivery owns a distinct (dst, slot).
         d_idx = deliver.nonzero()[:, 0]
         if d_idx.numel():
-            drow = df[d_idx]
+            drow = ldst[d_idx]
             slot = torch.remainder(S.mbox_wr.long()[drow] + rank[d_idx], MB)
             S.mbox[drow, 2 * slot] = (d_idx // T).to(I32)
-            S.mbox[drow, 2 * slot + 1] = val.reshape(-1)[d_idx]
-        sends_to = torch.zeros(N, dtype=torch.long, device=dev).index_add_(0, df, vf.long())
+            S.mbox[drow, 2 * slot + 1] = val[d_idx]
+        sends_to = torch.zeros(n, dtype=torch.long, device=dev).index_add_(0, ldst, mine.long())
         S.mbox_wr.add_(torch.minimum(sends_to, space0).to(I32))
-        S.dsp.copy_(torch.where(resume, S.dsp - 2, S.dsp))
-        S.pc.copy_(torch.where(resume, S.pc + 1, S.pc))
-        S.io_op.copy_(torch.where(resume, 0, S.io_op))
-        S.tstatus.copy_(torch.where(resume, ST_YIELD, S.tstatus))
-        return resume.any(dim=1), is_send, dst_ok
+        return deliver
+
+    def send_phase(S):
+        shards = vms.shards_of(S)
+        offsets = S.offsets if isinstance(S, vms.ShardedState) else (0,)
+        N = sum(sh.pc.shape[0] for sh in shards)
+        NT = N * T
+        local = []
+        for sh, _ in vms.each_shard(S):
+            local.append(descriptors(sh, N))
+        # Per device: one gather of every shard's descriptors, one global
+        # rank, then each destination shard on that device delivers.
+        delivered = {}
+        for dev in dict.fromkeys(sh.pc.device for sh in shards):
+            with vms.on_device(dev):
+                g = gather([d for _, _, d in local], dev)
+                vf, df, val = g[0] != 0, g[1].long(), g[2]
+                k = torch.arange(NT, device=dev)
+                key = torch.where(vf, df * NT + k, N * NT + k)
+                order = torch.argsort(key, stable=True)
+                pos = torch.arange(NT, device=dev)
+                sd = df[order]
+                is_start = torch.ones(NT, dtype=torch.bool, device=dev)
+                is_start[1:] = sd[1:] != sd[:-1]
+                seg_start = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+                rank = torch.empty(NT, dtype=torch.long, device=dev)
+                rank[order] = pos - seg_start
+                flags = None
+                for sh, lo in zip(shards, offsets):
+                    if sh.pc.device == dev:
+                        d = deliver_to(sh, lo, vf, df, val, rank)
+                        flags = d if flags is None else flags | d
+                delivered[dev] = flags
+        # Back to the senders: each shard resumes its own sends.
+        progress, drops = [], []
+        for (sh, lo), (is_send, dst_ok, _) in zip(vms.each_shard(S), local):
+            n = sh.pc.shape[0]
+            dev = sh.pc.device
+            mine = gather([f[lo * T:(lo + n) * T] for f in delivered.values()], dev)
+            if len(delivered) > 1:
+                mine = mine.reshape(len(delivered), -1).any(dim=0)
+            resume = is_send & (~dst_ok | mine.reshape(n, T))
+            sh.dsp.copy_(torch.where(resume, sh.dsp - 2, sh.dsp))
+            sh.pc.copy_(torch.where(resume, sh.pc + 1, sh.pc))
+            sh.io_op.copy_(torch.where(resume, 0, sh.io_op))
+            sh.tstatus.copy_(torch.where(resume, ST_YIELD, sh.tstatus))
+            progress.append(resume.any(dim=1))
+            drops.append((is_send & ~dst_ok).sum(dtype=I32))
+        stats["rounds"] += 1
+        return progress, drops
 
     def recv_phase(S):
         N = S.pc.shape[0]
@@ -107,16 +183,26 @@ def build_router(cfg: VMConfig, isa: ISA | None = None, obs: bool = False):
             progress = progress | deliver
         return progress
 
+    def receive(S, sent):
+        out = []
+        for (sh, _), s in zip(vms.each_shard(S), sent):
+            out.append(s | recv_phase(sh))
+        return out[0] if not isinstance(S, vms.ShardedState) else tuple(out)
+
     def route(S):
-        sent, _, _ = send_phase(S)
-        received = recv_phase(S)
-        return sent | received
+        sent, _ = send_phase(S)
+        return receive(S, sent)
 
     def route_obs(S):
-        sent, is_send, dst_ok = send_phase(S)
-        drops = (is_send & ~dst_ok).sum(dtype=I32)
-        depth = (S.mbox_wr - S.mbox_rd).max().to(I32)
-        received = recv_phase(S)
-        return S, sent | received, (drops, depth)
+        sent, drops = send_phase(S)
+        dev = vms.first_device(S)
+        total = drops[0].to(dev)
+        for d in drops[1:]:
+            total = total + d.to(dev)
+        depth = torch.stack([(sh.mbox_wr - sh.mbox_rd).max().to(dev)
+                             for sh in vms.shards_of(S)]).max().to(I32)
+        return S, receive(S, sent), (total, depth)
 
-    return route_obs if obs else route
+    fn = route_obs if obs else route
+    fn.stats = stats
+    return fn

@@ -51,7 +51,9 @@ recorded path may then disagree with execution, and the guards stop
 consumption there.
 
 Traces are cached by ``(program_key, entry pc, cap)``; the built steps by
-branch set (``traces_compiled`` counts the builds).  Engines are cached
+branch set (``traces_compiled`` counts the builds).  On a sharded state
+(``TraceJitExecutor(mesh=)``) every step above runs per shard: program
+groups form within a shard, and all shards share the one trace cache.  Engines are cached
 per ``VMConfig`` for the default ISA, like ``interp_for``.  On the card the
 tail launches the vmloop kernel with per-node budgets and never falls back
 to its plain version; on the CPU it takes the plain version, as
@@ -308,10 +310,11 @@ class TraceJitExecutor:
     backend = "trace"
     host_driven = True
 
-    def __init__(self, cfg: VMConfig, isa: ISA | None = None, device=None, obs=None):
+    def __init__(self, cfg: VMConfig, isa: ISA | None = None, device=None, obs=None, mesh=None):
         from repro_torch.obs.metrics import n_bins, normalize_obs
 
         self.cfg = cfg
+        self.mesh = mesh
         self.engine = get_trace_engine(cfg, isa)
         self.interp = self.engine.interp
         self.tail = CudaSliceExecutor(cfg, isa)
@@ -334,16 +337,18 @@ class TraceJitExecutor:
         self._key_ids = np.unique(np.asarray(self._prog_keys, dtype=object).astype(str),
                                   return_inverse=True)[1].reshape(-1)
 
-    def _groups(self, run: np.ndarray, entry: np.ndarray) -> list:
-        """``[((prog_key, entry_pc), node indices)]`` of the running nodes,
-        in order of each group's first node."""
+    def _groups(self, run: np.ndarray, entry: np.ndarray, base: int = 0,
+                total: int | None = None) -> list:
+        """``[((prog_key, entry_pc), node indices)]`` of the running nodes of
+        a shard holding global nodes ``base : base + N`` of ``total`` (the
+        indices local to the shard), in order of each group's first node."""
         N = run.shape[0]
         keys = self._prog_keys
-        if keys is None or len(keys) != N:
+        if keys is None or len(keys) != (total or N):
             # No green keys: per-node identity (correct, no sharing).
-            keys, ids = list(range(N)), np.arange(N)
+            keys, ids = list(range(base, base + N)), np.arange(N)
         else:
-            ids = self._key_ids
+            keys, ids = keys[base:base + N], self._key_ids[base:base + N]
         live = np.flatnonzero(run)
         if live.size == 0:
             return []
@@ -357,37 +362,61 @@ class TraceJitExecutor:
 
     # -- slices ----------------------------------------------------------------------
 
+    def _shards(self, S):
+        """``(shard, offset, total)`` in mesh order, each shard's device
+        current (a plain stacked state is one shard)."""
+        if isinstance(S, vms.ShardedState) and S.mesh != self.mesh:
+            raise ValueError("the state is sharded over another mesh than the engine's")
+        total = len(S) if isinstance(S, vms.ShardedState) else S.pc.shape[0]
+        for sh, lo in vms.each_shard(S):
+            yield sh, lo, total
+
     def run_slice_batched(self, S, steps: int, mark=None) -> torch.Tensor:
         mark = mark or _no_mark
-        found = self.interp.schedule(S)
-        mark("schedule")
-        aux = self._execute_after_schedule(S, steps, mark, obs=self.op_hist is not None)
-        if aux is not None:
-            self.op_hist += aux.op_hist.cpu().numpy()
-        return found
+        found = []
+        for sh, lo, total in self._shards(S):
+            found.append(self.interp.schedule(sh))
+            mark("schedule")
+            aux = self._execute_after_schedule(sh, steps, mark, obs=self.op_hist is not None,
+                                               base=lo, total=total)
+            if aux is not None:
+                self.op_hist += aux.op_hist.cpu().numpy()
+        return vms.join_rows(found, vms.first_device(S))
 
     def run_slice_exec_batched(self, S, quantum: int, mark=None):
         """The Executive micro-slice: ``(found, switched, preempted)``, each
         (N,), as ``Interpreter.run_slice_exec``."""
         mark = mark or _no_mark
-        prev = S.cur.clone()
-        found = self.interp.schedule_prio(S)
-        switched = (found & (S.cur != prev)).to(I32)
-        mark("schedule_prio")
-        preempted = self._execute_after_schedule(S, quantum, mark, exec_mode=True)
-        return found, switched, preempted
+        out = []
+        for sh, lo, total in self._shards(S):
+            prev = sh.cur.clone()
+            found = self.interp.schedule_prio(sh)
+            switched = (found & (sh.cur != prev)).to(I32)
+            mark("schedule_prio")
+            preempted = self._execute_after_schedule(sh, quantum, mark, exec_mode=True,
+                                                     base=lo, total=total)
+            out.append((found, switched, preempted))
+        return vms.join_rows(out, vms.first_device(S))
 
     def obs_schedule(self, S) -> torch.Tensor:
-        return self.interp.schedule(S)
+        return vms.join_rows([self.interp.schedule(sh) for sh, _, _ in self._shards(S)],
+                             vms.first_device(S))
 
     def obs_execute(self, S, steps: int, found, mark=None):
-        return self._execute_after_schedule(S, steps, mark or _no_mark, obs=True)
+        from repro_torch.obs.metrics import ExecAux
+
+        auxes = [self._execute_after_schedule(sh, steps, mark or _no_mark, obs=True, base=lo,
+                                              total=total)
+                 for sh, lo, total in self._shards(S)]
+        dev = vms.first_device(S)
+        return ExecAux(*[vms.sum_to(list(xs), dev) for xs in zip(*auxes)])
 
     def _execute_after_schedule(self, S, steps: int, mark, obs: bool = False,
-                                exec_mode: bool = False):
-        """Probe, group, specialized steps, generic tail, preempt.  Returns
-        None; with ``obs`` an ``ExecAux``; with ``exec_mode`` the per-node
-        ``preempted`` flags."""
+                                exec_mode: bool = False, base: int = 0, total: int | None = None):
+        """Probe, group, specialized steps, generic tail, preempt, on one
+        stacked state (a shard holding global nodes ``base`` on, of
+        ``total``).  Returns None; with ``obs`` an ``ExecAux``; with
+        ``exec_mode`` the per-node ``preempted`` flags."""
         from repro_torch.obs.metrics import n_bins, trace_spec_hist, zero_exec_aux
 
         eng = self.engine
@@ -404,7 +433,7 @@ class TraceJitExecutor:
             iow0 = (S.tstatus == ST_IOWAIT).sum()
         cap = min(int(steps), TRACE_MAX)
         ns = torch.zeros(N, dtype=I32, device=dev)
-        for (pkey, entry), idx in self._groups(probe[0] != 0, probe[1]):
+        for (pkey, entry), idx in self._groups(probe[0] != 0, probe[1], base, total):
             recorded = eng.traces_recorded
             tr = eng.get_trace(pkey, entry, cap, lambda i=int(idx[0]): _host_node(S, i))
             if eng.traces_recorded != recorded:
@@ -425,8 +454,8 @@ class TraceJitExecutor:
                 vms.put_nodes(S, ia, sub)
                 ns[ia] = n_sub
             self.spec_passes += iters
-            eng.spec_steps_acc = eng.spec_steps_acc + n_sub.sum(dtype=torch.int64)
-            eng.guard_exits_acc = eng.guard_exits_acc + guards.sum(dtype=torch.int64)
+            eng.spec_steps_acc = _add_to(eng.spec_steps_acc, n_sub.sum(dtype=torch.int64))
+            eng.guard_exits_acc = _add_to(eng.guard_exits_acc, guards.sum(dtype=torch.int64))
             mark("spec")
             if obs:
                 hist += trace_spec_hist(n_sub, tr.hist_prefix, tr.length, tr.loop_start)
@@ -476,6 +505,13 @@ class TraceJitExecutor:
             "guard_exits": int(eng.guard_exits_acc),
             "groups": {k: dict(v) for k, v in eng.group_stats.items()},
         }
+
+
+def _add_to(acc, x: torch.Tensor):
+    """``acc + x`` on ``acc``'s device once it is a tensor: the engine's sums
+    are shared by every fleet of its VMConfig, whatever device (or shard of
+    a multi-card mesh) each runs on."""
+    return acc + x.to(acc.device) if isinstance(acc, torch.Tensor) else acc + x
 
 
 def _host_node(S, i: int):

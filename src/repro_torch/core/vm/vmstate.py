@@ -13,10 +13,17 @@ A state is either *single* (one node, fields as in the reference) or
 the vmloop kernel and the router work on stacked states and update them in
 place; the single-node frontend (``REXAVM``) keeps its host-canonical state
 as a single state of CPU tensors.
+
+A *sharded* state (:class:`ShardedState`) is a stacked state split along
+its node axis over a ``NodeMesh`` (``launch/mesh.py``): one stacked
+``VMState`` a shard, in mesh order, each on its shard's device and in
+storage of its own.  ``take_nodes``/``put_nodes``/``to_host`` address it
+by global node index.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -119,9 +126,9 @@ def init_state(cfg: VMConfig, seed: int = 1, device="cpu") -> VMState:
     )
 
 
-def state_nbytes(st: VMState) -> int:
-    """Total byte size of one state (or one stacked fleet state)."""
-    return sum(int(x.numel()) * x.element_size() for x in st)
+def state_nbytes(st) -> int:
+    """Total byte size of one state (or one stacked or sharded fleet state)."""
+    return sum(int(x.numel()) * x.element_size() for sh in shards_of(st) for x in sh)
 
 
 def clone(st: VMState) -> VMState:
@@ -132,8 +139,12 @@ def to_device(st: VMState, device) -> VMState:
     return VMState(*[x.to(device) for x in st])
 
 
-def to_host(st: VMState) -> VMState:
-    """A CPU copy (never a view of device memory)."""
+def to_host(st) -> VMState:
+    """A CPU copy (never a view of device memory); a sharded state comes
+    back as one stacked state in node order."""
+    if isinstance(st, ShardedState):
+        parts = [to_host(sh) for sh in st.shards]
+        return VMState(*[torch.cat(xs) for xs in zip(*parts)])
     return VMState(*[x.detach().to("cpu", copy=True) for x in st])
 
 
@@ -152,18 +163,134 @@ def unstack(S: VMState, i: int) -> VMState:
     return VMState(*[x[i].clone() for x in S])
 
 
-def take_nodes(S: VMState, idx) -> VMState:
-    """Gather node rows ``idx`` from a stacked state (a copy)."""
+def take_nodes(S, idx, device=None) -> VMState:
+    """Gather node rows ``idx`` from a stacked or sharded state (a copy),
+    onto ``device`` (default: the state's first device).  A sharded state
+    gathers each shard's rows on its own device, then moves them."""
+    if isinstance(S, ShardedState):
+        idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+        dev = torch.device(device) if device is not None else S.devices[0]
+        parts, order = [], []
+        for j, (sh, lo) in enumerate(zip(S.shards, S.offsets)):
+            mine = np.flatnonzero((idx >= lo) & (idx < lo + S.sizes[j]))
+            if mine.size:
+                rows = take_nodes(sh, idx[mine] - lo)
+                parts.append(VMState(*[x.to(dev) for x in rows]))
+                order.append(mine)
+        out = VMState(*[torch.cat(xs) for xs in zip(*parts)])
+        inv = torch.as_tensor(np.argsort(np.concatenate(order), kind="stable"), device=dev)
+        return VMState(*[x.index_select(0, inv) for x in out])
     idx = torch.as_tensor(idx, dtype=torch.long, device=S.pc.device)
-    return VMState(*[x.index_select(0, idx) for x in S])
+    rows = VMState(*[x.index_select(0, idx) for x in S])
+    return rows if device is None else VMState(*[x.to(device) for x in rows])
 
 
-def put_nodes(S: VMState, idx, sub: VMState) -> VMState:
-    """Scatter node rows ``sub`` back into ``S`` at rows ``idx`` (in place)."""
+def put_nodes(S, idx, sub: VMState):
+    """Scatter node rows ``sub`` back into ``S`` at rows ``idx`` (in place);
+    on a sharded state each shard takes the rows it owns."""
+    if isinstance(S, ShardedState):
+        idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+        for j, (sh, lo) in enumerate(zip(S.shards, S.offsets)):
+            mine = np.flatnonzero((idx >= lo) & (idx < lo + S.sizes[j]))
+            if mine.size:
+                at = torch.as_tensor(mine, device=sub.pc.device)
+                put_nodes(sh, idx[mine] - lo, VMState(*[u.index_select(0, at) for u in sub]))
+        return S
     idx = torch.as_tensor(idx, dtype=torch.long, device=S.pc.device)
     for x, u in zip(S, sub):
         x.index_copy_(0, idx, u.to(x.device))
     return S
+
+
+# ---------------------------------------------------------------------------
+# Sharded states (the fleet's node axis over a NodeMesh)
+# ---------------------------------------------------------------------------
+
+class ShardedState:
+    """A stacked state split along the node axis over ``mesh``: shard ``j``
+    holds global nodes ``offsets[j] : offsets[j] + sizes[j]`` as a stacked
+    ``VMState`` of its own on ``mesh.devices[j]``."""
+
+    def __init__(self, shards, mesh):
+        self.shards = tuple(shards)
+        self.mesh = mesh
+        if len(self.shards) != mesh.size:
+            raise ValueError(f"{len(self.shards)} shards for a mesh of {mesh.size}")
+        self.sizes = tuple(int(sh.pc.shape[0]) for sh in self.shards)
+        self.offsets = tuple(int(o) for o in np.cumsum((0,) + self.sizes[:-1]))
+        self.n = sum(self.sizes)
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(sh.pc.device for sh in self.shards)
+
+    def __len__(self) -> int:
+        return self.n
+
+
+def split_rows(S: VMState, mesh) -> ShardedState:
+    """Split a stacked state into ``mesh.size`` equal shards, each a copy
+    on its device (storage of its own, even where devices repeat)."""
+    k = mesh.size
+    N = int(S.pc.shape[0])
+    if N % k:
+        raise ValueError(f"{N} nodes do not split over {k} shards")
+    n = N // k
+    return ShardedState(
+        [VMState(*[x[j * n:(j + 1) * n].to(d, copy=True) for x in S])
+         for j, d in enumerate(mesh.devices)], mesh)
+
+
+def shards_of(S) -> tuple:
+    """The stacked states that make up ``S``: its shards, or ``S`` alone."""
+    return S.shards if isinstance(S, ShardedState) else (S,)
+
+
+def first_device(S) -> torch.device:
+    return shards_of(S)[0].pc.device
+
+
+def on_device(dev):
+    """Make ``dev`` the current CUDA device (a no-op for the CPU)."""
+    dev = torch.device(dev)
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def each_shard(S):
+    """``(shard, offset)`` for each shard of ``S`` in mesh order, each with
+    its device current while the caller's loop body runs; a plain stacked
+    state is its one shard, at offset 0."""
+    if not isinstance(S, ShardedState):
+        yield S, 0
+        return
+    for sh, lo in zip(S.shards, S.offsets):
+        with on_device(sh.pc.device):
+            yield sh, lo
+
+
+def join_rows(parts, device):
+    """Per-shard outputs joined in node order on ``device``: tensors are
+    concatenated, tuples element by element."""
+    head = parts[0]
+    if len(parts) == 1:
+        return head
+    if isinstance(head, tuple):
+        return tuple(join_rows(list(xs), device) for xs in zip(*parts))
+    return torch.cat([p.to(device) for p in parts])
+
+
+def sum_to(xs, device) -> torch.Tensor:
+    """The sum of per-shard tensors on ``device``."""
+    total = xs[0].to(device)
+    for x in xs[1:]:
+        total = total + x.to(device)
+    return total
+
+
+def field_to_host(S, name: str) -> np.ndarray:
+    """One field of a stacked or sharded state as a host array in node
+    order (one small copy a shard)."""
+    return np.concatenate([getattr(sh, name).cpu().numpy() for sh in shards_of(S)])
 
 
 def launch_task(st: VMState, task: int, entry: int, prio: int = 0, deadline: int = 0) -> VMState:

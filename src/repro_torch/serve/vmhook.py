@@ -43,8 +43,9 @@ class FleetServeMonitor:
     ``"oracle"`` or ``"trace"`` (the trace-JIT: every node runs the same
     job, one program group); ``device=None`` runs on CUDA and raises when
     there is none.  ``obs`` turns on the monitor fleet's telemetry (an
-    ``ObsConfig``, or ``True``), read by :meth:`metrics`.  ``mesh`` is not
-    in the port yet and raises when given.
+    ``ObsConfig``, or ``True``), read by :meth:`metrics`.  ``mesh`` (a
+    ``launch.mesh.NodeMesh``, exclusive with ``device``) partitions the
+    monitor fleet's node axis over it (``FleetVM(mesh=)``).
     """
 
     STATS_CELLS = 3
@@ -60,12 +61,10 @@ class FleetServeMonitor:
         obs=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("FleetServeMonitor(mesh=...): node sharding is not in "
-                                      "the PyTorch port yet (ROADMAP.md queue 1, item 10)")
         self.cfg = cfg or VMConfig()
         self.rounds_per_step = rounds_per_step
-        self.fleet = FleetVM(self.cfg, n=n, executor=executor, device=device, obs=obs)
+        self.fleet = FleetVM(self.cfg, n=n, executor=executor, device=device, obs=obs,
+                             mesh=mesh)
         self._frames = []
         for node in self.fleet.nodes:
             node.dios_add("stats", np.zeros(self.STATS_CELLS, np.int32))

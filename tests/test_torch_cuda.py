@@ -131,6 +131,43 @@ def test_fleet_cuda_equals_batched(cuda):
     assert stats["kernel_steps"] > 0 and stats["bail_hist"].get("rnd", 0) > 0
 
 
+def test_fleet_cuda_on_four_shards_equals_meshless(cuda):
+    """The ring on a 4-shard node mesh on one card: vmloop launched once a
+    shard (4 launches a pass), the shards' storages distinct, the router's
+    descriptors gathered across shards; byte-identical to the meshless
+    cuda fleet, with equal kernel counters."""
+    from repro_torch.launch.mesh import make_node_mesh
+
+    cfg = CFGS[0]
+    n = 64
+
+    def ring(i):
+        return (f"1 {1 % n} send receive swap . . halt" if i == 0
+                else f"receive swap . 1+ {(i + 1) % n} send 7 rnd drop halt")
+
+    out = {}
+    for mesh in (make_node_mesh(4, device="cuda"), None):
+        where = {"mesh": mesh} if mesh is not None else {"device": cuda}
+        fleet = FleetVM(cfg, n=n, executor="cuda", **where)
+        for i, node in enumerate(fleet.nodes):
+            node.launch(node.load(ring(i)))
+        fleet.start()
+        if mesh is not None:
+            assert fleet.node_spec == ("node",) and fleet._S.sizes == (16,) * 4
+            assert len({sh.pc.data_ptr() for sh in fleet._S.shards}) == 4
+        launches = kmod.vmloop_call.launches
+        res = fleet.run(max_rounds=300)
+        assert res.statuses == ["halt"] * n
+        out[mesh is not None] = (res, vms.stack_states([vm.state for vm in fleet.nodes]), fleet,
+                                 kmod.vmloop_call.launches - launches)
+    (rm, Sm, fm, lm), (rb, Sb, fb, lb) = out[True], out[False]
+    assert rm.outputs == rb.outputs and rm.rounds == rb.rounds
+    assert check.max_abs_diff(Sm, Sb) == (0, [])
+    assert fm.kernel_stats() == fb.kernel_stats()
+    assert lm >= 4 * rm.rounds and lb >= rb.rounds
+    assert fm.kernels.route.stats["chunks"] == 4 * rm.rounds
+
+
 def _rows_cases(n, steps, dev):
     g = torch.Generator().manual_seed(n)
     i32 = dict(dtype=torch.int32, device=dev)

@@ -21,6 +21,7 @@ from repro.core.vm import reference_round as jref_round
 from repro_torch.config import VMConfig
 from repro_torch.core.vm import REXAVM, FleetVM, HostLink, reference_round, vmstate as vms
 from repro_torch.core.vm.spec import ST_HALT, get_isa
+from repro_torch.launch.mesh import make_node_mesh
 
 # The suite runs in several worker processes on shared cores: keep torch's
 # CPU kernels to one thread each so these tests do not crowd out the rest.
@@ -415,3 +416,7 @@ def test_entry_points_default_to_cuda():
         FleetVM(CFG, n=2)
     with pytest.raises(ValueError, match="executor"):
         FleetVM(CFG, n=2, executor="pallas", device="cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_node_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_node_mesh(4, device="cuda")

@@ -158,12 +158,16 @@ def test_monitor_matches_jax_monitor(engines):
 
 
 def test_monitor_options_not_ported(engines):
-    """Node sharding is not in the port yet and raises.  ``trace_stats()``
-    is the monitor fleet's, and a ``"trace"`` monitor (one program group)
-    reports as the ``"batched"`` one; ``obs`` and ``metrics()`` are in
-    tests/test_torch_obs.py."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FleetServeMonitor(n=1, mesh=object(), device="cpu")
+    """The monitor's options: ``mesh`` shards its fleet over a node mesh
+    and excludes ``device`` (tests/test_torch_sharding.py holds it against
+    the meshless monitor).  ``trace_stats()`` is the monitor fleet's, and a
+    ``"trace"`` monitor (one program group) reports as the ``"batched"``
+    one; ``obs`` and ``metrics()`` are in tests/test_torch_obs.py."""
+    from repro_torch.launch.mesh import make_node_mesh
+
+    with pytest.raises(ValueError, match="mesh"):
+        FleetServeMonitor(n=1, mesh=make_node_mesh(2, device="cpu"), device="cpu")
+    assert FleetServeMonitor(n=2, mesh=make_node_mesh(2, device="cpu")).fleet.node_spec == ("node",)
     mon = FleetServeMonitor(n=1, cfg=VMConfig(**VM_CFG), device="cpu", obs=True)
     assert mon.trace_stats() == mon.fleet.trace_stats()
     assert mon.metrics().as_dict()["counters"]["rounds_observed"] == 0
