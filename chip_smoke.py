@@ -5,7 +5,8 @@ internvl2-2b (the hybrid, encdec and vlm families) served with the VM
 fleet as their measuring job; h2o-danube-1.8b trained at full width
 and depth, through flash attention's backward kernel; rwkv6-7b trained at
 full width (12 of its 32 layers) through rwkv6_scan's backward kernels;
-and zamba2-1.2b's train step.
+and zamba2-1.2b's train step; and danube's sharded prefill, decode and
+train steps on the (1, 1) device mesh.
 
     python3 chip_smoke.py [--nodes N]
 
@@ -249,7 +250,21 @@ each printing its results on a line of its own:
      each equal to its meshless run; (e)
      FleetServeMonitor(n=64) on the four shards over a fixed ServeStats
      sequence, equal to the meshless monitor.  No speed is claimed: the
-     times are the card's own, beside its name and power limit.
+     times are the card's own, beside its name and power limit;
+ 12. the model-side sharding: an NCCL process group of one rank (its
+     store a file under build/), the (1, 1) DeviceMesh from
+     ``launch.mesh.make_mesh``, and h2o-danube-1.8b at full width and
+     depth through ``launch.steps``: (a) ``build_prefill`` at B 1 S 8192;
+     (b) ``build_decode`` with ``quantized_serve`` (int8 weights through
+     fixmatmul) for 16 steps of B 8 against a 4096-token cache; (c)
+     ``build_train_step``, 2 AdamW steps at seq 4096 batch 4.  Each equals
+     the unsharded port path on the same card to the bit: the logits, the
+     cache and the loss, then the updated parameters.  The sharded runs
+     must launch flash's forward (on the tensor cores) 24 times a
+     prefill, fixmatmul 169 times a decode step, and flash's forward 48
+     times and its backward 24 calls a train step; one line gives each
+     step's ms, tokens/s and peak memory.  The group is destroyed however
+     the phase ends.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -337,6 +352,9 @@ PARTIAL_IO_EVERY = 64           # phase 11 (b): every 64th node calls a FIOS wor
 REPLICATED_NODES = 4094         # phase 11 (c): a ring SHARDS does not divide
 SHARD_TRACE_ROUNDS = 2          # phase 11 (d): rounds of 4g's firmware under trace and auto
 MONITOR_STEPS = 5               # phase 11 (e): ServeStats steps of the monitors
+MESH_PREFILL_LEN = 8192         # phase 12 (a): B 1
+MESH_DECODE = (8, 4096, 16)     # phase 12 (b): batch, cache length, steps
+MESH_TRAIN = (4, 4096, 2)       # phase 12 (c): batch, seq, steps
 HOST_IO = (("0 30 0 do 1+ loop out halt", False), ("seven 1+ halt", True),
            ("var flag : w 1 flag ! end ; 0 0 $ w task drop 100 1 flag await . flag @ . halt",
             False))             # phase 4g (e): tests/test_vm_pallas.py's host-IO programs
@@ -765,7 +783,15 @@ def main() -> int:
     launches_sharded = sharded_phase(torch, kmod, check, cfg, n_nodes, (nodes, init), phase4,
                                      exec_ring, firmware_ring)
     del nodes, init, phase4, exec_ring, firmware_ring
+
+    # 12. the model-side sharding on the (1, 1) mesh: danube's sharded
+    # prefill, quantized decode and train step against the unsharded path
+    mesh_fix, mesh_fwd, mesh_bwd = model_sharded_phase(torch, dev, fix_mod, flash_mod)
+    torch.cuda.empty_cache()
     by_name = {r["name"]: r for r in records}
+    by_name["fixmatmul"]["launches"] += mesh_fix
+    launches_train_fwd += mesh_fwd
+    launches_train_bwd += mesh_bwd
     by_name["vmloop"]["launches"] += launches_sharded
     by_name["flash_attention"]["launches"] += launches_train_fwd + launches_zamba_fwd
     by_name["rwkv6_scan"]["launches"] += launches_rwkv_train
@@ -4171,6 +4197,177 @@ def train_zamba2(torch, dev, flash_mod) -> tuple:
                           "flash_bwd_launches": fa.bwd_launches, "card": card_line()}), flush=True)
         return fa.launches, fa.bwd_launches
     fail(f"train {ZAMBA_ARCH}: out of memory at every batch of {ZAMBA_BATCHES}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the model-side sharding on the (1, 1) mesh
+# ---------------------------------------------------------------------------
+
+def _same(torch, what: str, a, b) -> None:
+    """Fail unless ``a`` equals ``b`` to the bit (trees of tensors)."""
+    from repro_torch.utils.tree import tree_flatten_with_names
+
+    fa, fb = dict(tree_flatten_with_names(a)), dict(tree_flatten_with_names(b))
+    if fa.keys() != fb.keys():
+        fail(f"phase 12 {what}: the trees differ")
+    for name, x in fa.items():
+        y = fb[name]
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            diff = (x.float() - y.float()).abs().max().item()
+            fail(f"phase 12 {what}: {name or 'value'} differs from the unsharded path (max {diff})")
+        if not isinstance(x, torch.Tensor) and x != y:
+            fail(f"phase 12 {what}: {name} {x} != {y}")
+
+
+def _local(tree):
+    """A tree of DTensors on the (1, 1) mesh as its local tensors."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x, tree)
+
+
+def _timed_step(torch, fn, *args):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t), torch.cuda.max_memory_allocated() / 1e9
+
+
+def model_sharded_phase(torch, dev, fix_mod, flash_mod, backend: str = "nccl") -> tuple:
+    """Phase 12: h2o-danube-1.8b's sharded prefill, quantized decode and
+    train step on the (1, 1) mesh, each equal to the unsharded path to the
+    bit.  Returns the phase's (fixmatmul, flash forward, flash backward)
+    launches."""
+    import torch.distributed as dist
+
+    from repro_torch.config import MeshConfig, RunConfig, ShapeConfig, TrainConfig, get_arch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import make_train_step
+
+    fa, fx = flash_mod.flash_attention, fix_mod.fixmatmul
+    start = {"fix": fx.launches, "fwd": fa.launches, "bwd": fa.bwd_launches}
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    store_dir = os.path.join(HERE, "build", "phase12")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    os.makedirs(store_dir)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh_cfg = MeshConfig(data=1, model=1)
+        mesh = make_mesh(mesh_cfg, dev.type)
+        cfg = get_arch(ARCH)
+        L = cfg.num_layers
+        g = torch.Generator(device=dev).manual_seed(SEED + 12)
+        line = {"phase": "model_sharding", "arch": ARCH, "mesh": list(mesh_cfg.shape),
+                "torch": torch.__version__}
+
+        # (a) prefill
+        run = RunConfig(model=cfg, mesh=mesh_cfg,
+                        shape=ShapeConfig("prefill", MESH_PREFILL_LEN, 1, "prefill"))
+        sf = steps.build_prefill(run, mesh)
+        (params,) = sf.init(SEED)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, MESH_PREFILL_LEN), generator=g,
+                                         device=dev, dtype=torch.int32)}
+        model = build_model(cfg, dev)
+        (ref, _), ref_ms, _ = _timed_step(torch, model.forward, params, batch)
+        n = (fa.launches, fa.tc_launches)
+        logits, first_ms, _ = _timed_step(torch, sf.fn, params, batch)
+        if (fa.launches - n[0], fa.tc_launches - n[1]) != (L, L):
+            fail(f"phase 12 (a): {fa.launches - n[0]} flash launches "
+                 f"({fa.tc_launches - n[1]} on the tensor cores), expected {L}")
+        _same(torch, "(a) logits", logits.to_local(), ref)
+        del logits
+        # the second call is the step; the first also propagates DTensor's shardings
+        logits, ms, peak = _timed_step(torch, sf.fn, params, batch)
+        _same(torch, "(a) logits again", logits.to_local(), ref)
+        line["prefill"] = {"batch": 1, "seq": MESH_PREFILL_LEN, "first_ms": first_ms, "ms": ms,
+                           "unsharded_ms": ref_ms, "tokens_per_s": MESH_PREFILL_LEN / ms * 1e3,
+                           "peak_gb": peak}
+        del sf, params, logits, ref, model
+        torch.cuda.empty_cache()
+
+        # (b) quantized decode against a full cache
+        B, C, n_steps = MESH_DECODE
+        qcfg = cfg.replace(quantized_serve=True)
+        run = RunConfig(model=qcfg, mesh=mesh_cfg, shape=ShapeConfig("decode", C, B, "decode"))
+        sf = steps.build_decode(run, mesh)
+        qparams, cache = sf.init(SEED)
+        _, per_step = decode_launches(qcfg, qparams)
+        model = build_model(qcfg, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (B, n_steps), generator=g, device=dev,
+                               dtype=torch.int32)
+        # fn places a copy of the cache; the unsharded steps write the original
+        ref_cache, shard_cache = cache, cache
+        ms, ref_ms, peak = [], [], 0.0
+        for i in range(n_steps):
+            tok = tokens[:, i:i + 1]
+            n = fx.launches
+            (logits, shard_cache), t, p = _timed_step(torch, sf.fn, qparams, shard_cache, tok)
+            if fx.launches - n != per_step:
+                fail(f"phase 12 (b) step {i}: {fx.launches - n} fixmatmul launches, "
+                     f"expected {per_step}")
+            (ref, ref_cache), t_ref, _ = _timed_step(torch, model.decode_step, qparams, ref_cache,
+                                                     tok)
+            _same(torch, f"(b) step {i} logits", logits.to_local(), ref)
+            ms.append(t)
+            ref_ms.append(t_ref)
+            peak = max(peak, p)
+        _same(torch, "(b) cache", _local(shard_cache), ref_cache)
+        line["decode"] = {"batch": B, "cache": C, "steps": n_steps, "quantized": True,
+                          "step_ms": ms, "unsharded_step_ms": ref_ms,
+                          "tokens_per_s_after_first": B * (n_steps - 1) / sum(ms[1:]) * 1e3,
+                          "fixmatmul_per_step": per_step, "peak_gb": peak}
+        del sf, qparams, cache, ref_cache, shard_cache, model
+        torch.cuda.empty_cache()
+
+        # (c) the train step
+        B, S, n_steps = MESH_TRAIN
+        tcfg = TrainConfig(total_steps=n_steps, warmup_steps=1)
+        run = RunConfig(model=cfg, mesh=mesh_cfg, train=tcfg,
+                        shape=ShapeConfig("train", S, B, "train"))
+        sf = steps.build_train_step(run, mesh)
+        (state,) = sf.init(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g, device=dev,
+                               dtype=torch.int32)
+        batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+        shard_state, ms, peak, losses = state, [], 0.0, []
+        for i in range(n_steps):
+            n = (fa.launches, fa.tc_launches, fa.bwd_launches)
+            (shard_state, m), t, p = _timed_step(torch, sf.fn, shard_state, batch)
+            got = (fa.launches - n[0], fa.tc_launches - n[1], fa.bwd_launches - n[2])
+            if got != (2 * L, 2 * L, flash_mod.BWD_KERNELS * L):
+                fail(f"phase 12 (c) step {i}: flash launches (fwd, tc, bwd) {got}, expected "
+                     f"{(2 * L, 2 * L, flash_mod.BWD_KERNELS * L)}")
+            ms.append(t)
+            peak = max(peak, p)
+            losses.append(m["loss"])
+        shard_params = _local(shard_state.params)
+        del shard_state
+        step_fn = make_train_step(sf_model := build_model(cfg, dev), tcfg)
+        ref_ms = []
+        for i in range(n_steps):
+            (state, m), t, _ = _timed_step(torch, step_fn, state, batch)
+            _same(torch, f"(c) step {i} loss", losses[i], m["loss"])
+            ref_ms.append(t)
+        _same(torch, "(c) params", shard_params, state.params)
+        line["train"] = {"batch": B, "seq": S, "steps": n_steps, "step_ms": ms,
+                         "unsharded_step_ms": ref_ms,
+                         "tokens_per_s_after_first": B * S * (n_steps - 1) / sum(ms[1:]) * 1e3,
+                         "losses": [float(x) for x in losses], "peak_gb": peak}
+        del sf, state, shard_params, step_fn, sf_model
+        line["card"] = card_line()
+        print(json.dumps(line), flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return (fx.launches - start["fix"], fa.launches - start["fwd"], fa.bwd_launches - start["bwd"])
 
 
 if __name__ == "__main__":

@@ -48,6 +48,10 @@ def get_arch(name: str) -> ModelConfig:
     return _ARCHS[name]
 
 
+def list_archs() -> list[str]:
+    return list(_ARCH_MODULES)
+
+
 def get_smoke(name: str) -> ModelConfig:
     _ensure(name)
     return _SMOKE[name]

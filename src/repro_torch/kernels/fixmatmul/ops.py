@@ -12,6 +12,12 @@ from repro_torch.core.fixedpoint.fxp import quantize_per_channel
 from repro_torch.kernels.fixmatmul.fixmatmul import fixmatmul
 
 
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 quantization of x (M, K): (int8 (M, K), f32 scales (M,))."""
+    xq, sx = quantize_per_channel(x, bits=8, axis=0)
+    return xq, sx.reshape(-1)
+
+
 def quantized_matmul(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Dynamic per-row activation quantization + int8 GEMM + dequant.
@@ -20,8 +26,8 @@ def quantized_matmul(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
     lead = x.shape[:-1]
     K = x.shape[-1]
     N = wq.shape[1]
-    xq, sx = quantize_per_channel(x.reshape(-1, K), bits=8, axis=0)
-    out = fixmatmul(xq, wq, sx.reshape(-1), sw.reshape(-1))
+    xq, sx = quantize_rows(x.reshape(-1, K))
+    out = fixmatmul(xq, wq, sx, sw.reshape(-1))
     return out.reshape(*lead, N).to(out_dtype)
 
 

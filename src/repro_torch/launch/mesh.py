@@ -1,11 +1,15 @@
 """Device meshes for the port (counterpart of ``repro.launch.mesh``).
 
-Only the fleet's node mesh is here: ``make_node_mesh`` returns a
-:class:`NodeMesh`, an ordered tuple of ``torch.device``s along one axis
-named ``"node"``.  ``FleetVM(mesh=...)`` partitions the leading node axis
-of its stacked ``VMState`` over it (``sharding.rules.make_fleet_rules``).
-The model meshes (``make_mesh``, ``make_production_mesh``) come with the
-model-side sharding rules.
+  * ``make_mesh`` / ``make_production_mesh``: a
+    ``torch.distributed.device_mesh.DeviceMesh`` with a ``MeshConfig``'s
+    shape and axis names over the current process group, for the models'
+    sharded steps (``launch.steps``).  Each rank of the group is one device
+    of the mesh; the caller initialises the group.
+  * ``make_node_mesh``: a :class:`NodeMesh`, an ordered tuple of
+    ``torch.device``s along one axis named ``"node"``, over which
+    ``FleetVM(mesh=...)`` partitions the leading node axis of its stacked
+    ``VMState`` (``sharding.rules.make_fleet_rules``); it needs no process
+    group.
 """
 
 from __future__ import annotations
@@ -13,6 +17,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch.config import MeshConfig
 
 
 @dataclass(frozen=True)
@@ -37,6 +45,31 @@ class NodeMesh:
     def distinct_devices(self) -> list:
         """The mesh's devices without repeats, in mesh order."""
         return list(dict.fromkeys(self.devices))
+
+
+def make_mesh(cfg: MeshConfig, device_type: str = "cuda") -> DeviceMesh:
+    """A mesh of ``cfg.shape`` over ``cfg.axis_names`` on the current
+    process group, whose world size must be ``cfg.num_devices``
+    (``MeshConfig(data=1, model=1)`` on a world of one card is the (1, 1)
+    mesh).  ``device_type="cpu"`` builds it over a gloo group; the default
+    wants CUDA and raises without it."""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device; pass device_type=\"cpu\" over a gloo group")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: initialise a process group first "
+                           "(torch.distributed.init_process_group)")
+    world = dist.get_world_size()
+    if world != cfg.num_devices:
+        raise ValueError(f"make_mesh: mesh {cfg.shape} needs {cfg.num_devices} ranks, "
+                         f"the world has {world}")
+    return init_device_mesh(device_type, cfg.shape, mesh_dim_names=cfg.axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
+    """The production mesh: one pod = (16, 16) over ("data", "model"); two
+    pods add an outer "pod" axis -> (2, 16, 16).  It raises unless the
+    world has that many ranks, and never shrinks to fit."""
+    return make_mesh(MeshConfig(multi_pod=multi_pod), device_type)
 
 
 def _cuda(index: int) -> torch.device:

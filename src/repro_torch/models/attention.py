@@ -15,6 +15,9 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import local
 
 NEG_INF = -1e30
 # Under jit XLA turns the reference's ``absmax / 127.0`` into a product with
@@ -169,6 +172,7 @@ def decode_attention(
     cache: KVCache,
     *,
     window: Optional[int] = None,
+    seq_shard=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Single-token attention against the cache.
 
@@ -176,39 +180,61 @@ def decode_attention(
     ring-buffer slot = pos % S, and only slots written within the last
     min(pos + 1, S) steps are visible.  An int8 cache stores the token's
     codes and scales, dequantizes in bf16 and contracts bf16 q and p in
-    f32, as the reference does whatever the model's dtype."""
+    f32, as the reference does whatever the model's dtype.
+
+    A DTensor cache (a sharded decode step) runs this function on each
+    rank's (batch, KV head) shard (``sharding.local.decode_attention``):
+    the slot write lands in the rank's own shard in place, which DTensor
+    cannot follow through a view, and the contractions stay local.  The
+    cache lies as ``cache_pspec`` placed it, the layout the reference pins
+    with ``logical`` after its write (``repro/models/attention.py:203``).
+    Where it shards its sequence, ``seq_shard`` is ``(lo, S, reduce)``:
+    this cache holds slots ``[lo, lo + n)`` of ``S``, only the rank that
+    holds the slot writes it, and ``reduce(t, op)`` all-reduces ("max",
+    "sum") over the sequence shards the softmax's max and denominator and
+    the output, so each shard's probabilities are the whole softmax's."""
+    if isinstance(cache.k, DTensor):
+        return local.decode_attention(decode_attention, q, k_new, v_new, cache, window=window)
     B, _, H, hd = q.shape
-    _, S, KV, _ = cache.k.shape
+    _, n, KV, _ = cache.k.shape
+    lo, S, reduce = seq_shard or (0, n, None)
     G = H // KV
     scale = softmax_scale(hd)
     pos = cache.pos
     dev = q.device
     bf16, f32 = torch.bfloat16, torch.float32
 
-    slot = pos % S if window is not None else pos
+    slot = (pos % S if window is not None else pos) - lo
+    write = reduce is None or 0 <= slot < n
     quant = cache.quantized
     if quant:
         for codes, scales, new in ((cache.k, cache.ks, k_new), (cache.v, cache.vs, v_new)):
             qx, sc = _quantize_token(new)
-            codes[:, slot] = qx[:, 0]
-            scales[:, slot] = sc[:, 0]
+            if write:
+                codes[:, slot] = qx[:, 0]
+                scales[:, slot] = sc[:, 0]
         kk = (cache.k.to(bf16) * cache.ks.to(bf16)).to(f32)
         qg = q.reshape(B, KV, G, hd).to(bf16).to(f32)
     else:
-        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+        if write:
+            cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+            cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
         kk = cache.k.to(f32)
         qg = q.reshape(B, KV, G, hd).to(f32)
 
     s = torch.einsum("bngh,bsnh->bngs", qg, kk) * scale
-    idx = torch.arange(S, device=dev)
+    idx = lo + torch.arange(n, device=dev)
     if window is None:
         valid = idx <= pos
     else:
         age = torch.remainder(pos - idx, S)
         valid = age < min(pos + 1, S)
     s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    if reduce is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        e = torch.exp(s - reduce(s.amax(-1, keepdim=True), "max"))
+        p = e / reduce(e.sum(-1, keepdim=True), "sum")
     if quant:
         vv = (cache.v.to(bf16) * cache.vs.to(bf16)).to(f32)
         p = p.to(bf16).to(f32)
@@ -216,5 +242,7 @@ def decode_attention(
         vv = cache.v.to(f32)
         p = p.to(cache.v.dtype).to(f32)
     o = torch.einsum("bngs,bsnh->bngh", p, vv)
+    if reduce is not None:
+        o = reduce(o, "sum")
     out = o.reshape(B, 1, H, hd).to(q.dtype)
     return out, cache._replace(pos=pos + 1)

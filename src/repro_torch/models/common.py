@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.api import logical
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
@@ -72,7 +74,9 @@ def mlp_swiglu(x, w1, w3, w2, act, use_bias=False, b1=None, b3=None, b2=None):
     if use_bias:
         h = h + b1
         g = g + b3
-    o = (act(h) * g) @ w2
+    h = act(h) * g
+    h = logical(h, "batch", "seq", "ff")
+    o = h @ w2
     if use_bias:
         o = o + b2
     return o
@@ -83,7 +87,9 @@ def mlp_plain(x, w1, w2, act, use_bias=False, b1=None, b2=None):
     h = x @ w1
     if use_bias:
         h = h + b1
-    o = act(h) @ w2
+    h = act(h)
+    h = logical(h, "batch", "seq", "ff")
+    o = h @ w2
     if use_bias:
         o = o + b2
     return o

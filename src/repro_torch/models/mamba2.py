@@ -19,8 +19,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import fanin_init, normal_init, rmsnorm
+from repro_torch.sharding import local
+from repro_torch.sharding.api import logical
 
 CHUNK = 64
 
@@ -145,6 +148,8 @@ def mamba_block(params, cfg, x, state: MambaState):
     B_ = x @ params["wb"]
     C_ = x @ params["wc"]
     dt = x @ params["wdt"]
+    z = logical(z, "batch", "seq", "ff")
+    xin = logical(xin, "batch", "seq", "ff")
     # Depthwise causal convs per stream (carry order: [x | B | C]).
     cx = state.conv[:, :, :inner]
     cb = state.conv[:, :, inner : inner + n]
@@ -156,7 +161,11 @@ def mamba_block(params, cfg, x, state: MambaState):
 
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
     xh = xin.reshape(B, S, nheads, P)
-    y, ssd_state = chunked_ssd(xh, dt, B_, C_, params["a_log"], params["d_skip"], state.ssd)
+    ssd_args = (xh, dt, B_, C_, params["a_log"], params["d_skip"], state.ssd)
+    if isinstance(xh, DTensor):
+        y, ssd_state = local.ssd(chunked_ssd, *ssd_args)
+    else:
+        y, ssd_state = chunked_ssd(*ssd_args)
     y = y.reshape(B, S, inner).to(x.dtype)
     y = y * F.silu(z)
     y = rmsnorm(y, params["norm"], 1e-5)

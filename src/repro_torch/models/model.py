@@ -14,6 +14,7 @@ weight-shared attention block) and ``"encdec"`` ``WhisperModel``.
     ``RWKVState`` stacked over layers, a ``ZambaCache`` or a
     ``WhisperCache``)
   * ``decode_step(params, cache, tokens) -> (logits, cache)``
+  * ``input_specs(shape) -> batch``   meta tensors (the dry-run)
 
 ``device=None`` builds on CUDA and raises when there is none;
 ``device="cpu"`` builds on the CPU.  With ``cfg.remat`` (the default) a
@@ -31,9 +32,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.core.vm.machine import resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rw
@@ -48,7 +50,26 @@ from repro_torch.models.common import (
     sinusoidal_positions,
 )
 from repro_torch.models.quantized import qlinear
+from repro_torch.sharding import local
+from repro_torch.sharding.api import logical
 from repro_torch.utils.tree import tree_leaves
+
+
+def _act(x):
+    """The residual stream between layers: batch on the DP axes, its
+    sequence on "model" under sequence parallelism (``act_seq``)."""
+    return logical(x, "batch", "act_seq", "embed")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _token_specs(B: int, S: int, with_labels: bool) -> dict:
+    out = {"tokens": _meta((B, S), torch.int32)}
+    if with_labels:
+        out["labels"] = _meta((B, S), torch.int32)
+    return out
 
 
 def _remat(cfg: ModelConfig, fn, layers):
@@ -99,12 +120,17 @@ class Model:
         return tf.init_decoder_layer(gen, self.cfg, self.dtype, moe=self.cfg.family == "moe")
 
     def _embed(self, params, tokens):
-        return params["embed"]["tokens"][tokens]
+        table = params["embed"]["tokens"]
+        if isinstance(table, DTensor):      # each rank looks up its vocab shard
+            return logical(local.embed(table, tokens), "batch", "seq", "embed")
+        return logical(table[tokens], "batch", "seq", "embed")
 
     def _unembed(self, params, x):
         if self.cfg.tie_embeddings:
-            return x @ params["embed"]["tokens"].T
-        return qlinear(x, params["lm_head"])
+            logits = x @ params["embed"]["tokens"].T
+        else:
+            logits = qlinear(x, params["lm_head"])
+        return logical(logits, "batch", "seq", "vocab")
 
     # -- prefill -----------------------------------------------------------------------
 
@@ -120,8 +146,9 @@ class Model:
         front = batch.get("frontend") if self.cfg.family == "vlm" else None
         if front is not None:
             x = torch.cat([self._prefix(params, front), x], dim=1)
+        x = _act(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        layer = _remat(self.cfg, lambda lp, x: tf.decoder_layer_full(lp, self.cfg, x,
+        layer = _remat(self.cfg, lambda lp, x: tf.decoder_layer_full(lp, self.cfg, _act(x),
                                                                      attention=attention),
                        params["layers"])
         for lp in params["layers"]:
@@ -136,6 +163,23 @@ class Model:
         """vlm: the stub patch embeddings, projected to d_model."""
         vp = params["vision_proj"]
         return act_fn("gelu")(front.to(self.dtype) @ vp["w1"]) @ vp["w2"]
+
+    # -- input specs (the dry-run) ---------------------------------------------------
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """The batch of a ``shape`` cell as meta tensors (shape and dtype
+        only), equal to the reference's ``ShapeDtypeStruct``s: decode
+        takes (B, 1) tokens; the vlm family's prompt leaves
+        ``vision_tokens`` of the sequence to its stub patch embeddings."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": _meta((B, 1), torch.int32)}
+        out = {}
+        if self.cfg.family == "vlm":
+            S -= self.cfg.vision_tokens
+            out["frontend"] = _meta((B, self.cfg.vision_tokens, self.cfg.vision_dim),
+                                    torch.bfloat16)
+        return out | _token_specs(B, S, shape.kind == "train")
 
     # -- decode ------------------------------------------------------------------------
 
@@ -173,10 +217,10 @@ class RWKV6Model(Model):
         h = tf.norm(self.cfg, x, lp, "ln1")
         att, shift_t, s1 = rw.time_mix(lp["time"], h, state.shift_t, state.wkv, K, wkv=wkv,
                                        state_out=state_out)
-        x = x + att
+        x = tf.residual(x, att)
         h = tf.norm(self.cfg, x, lp, "ln2")
         ch, shift_c = rw.channel_mix(lp["chan"], h, state.shift_c)
-        return x + ch, rw.RWKVState(s1, shift_t, shift_c)
+        return tf.residual(x, ch), rw.RWKVState(s1, shift_t, shift_c)
 
     def _zero_state(self, batch: int, layers: tuple = ()) -> rw.RWKVState:
         cfg = self.cfg
@@ -193,9 +237,9 @@ class RWKV6Model(Model):
         layer; a check passes the plain version to hold the kernel's path
         against it."""
         tokens = batch["tokens"]
-        x = self._embed(params, tokens)
+        x = _act(self._embed(params, tokens))
         state0 = self._zero_state(tokens.shape[0])
-        layer = _remat(self.cfg, lambda lp, x: self._layer(lp, x, state0, wkv=wkv)[0],
+        layer = _remat(self.cfg, lambda lp, x: self._layer(lp, _act(x), state0, wkv=wkv)[0],
                        params["layers"])
         for lp in params["layers"]:
             x = layer(lp, x)
@@ -207,14 +251,19 @@ class RWKV6Model(Model):
         unused (the state does not grow)."""
         return self._zero_state(batch, (self.cfg.num_layers,))
 
-    def decode_step(self, params, cache: rw.RWKVState, tokens):
+    def decode_step(self, params, cache: rw.RWKVState, tokens, *, wkv=None):
         """One token per row, ``tokens`` (B, 1).  The cache is updated in
         place (the kernel writes each layer's new wkv state over the old
-        one) and returned."""
+        one) and returned.  ``wkv``, as in ``forward``, replaces the
+        rwkv6_scan op; its new state is copied into the cache."""
         x = self._embed(params, tokens)
         for i, lp in enumerate(params["layers"]):
             state = rw.RWKVState(cache.wkv[i], cache.shift_t[i], cache.shift_c[i])
-            x, new = self._layer(lp, x, state, state_out=cache.wkv[i])
+            if wkv is None:
+                x, new = self._layer(lp, x, state, state_out=cache.wkv[i])
+            else:
+                x, new = self._layer(lp, x, state, wkv=wkv)
+                cache.wkv[i].copy_(new.wkv)
             cache.shift_t[i].copy_(new.shift_t)
             cache.shift_c[i].copy_(new.shift_c)
         x = tf.norm(self.cfg, x, params, "final")
@@ -262,24 +311,26 @@ class Zamba2Model(Model):
 
     def _mamba_layer(self, lp, x, state):
         out, state = m2.mamba_block(lp["mamba"], self.cfg, tf.norm(self.cfg, x, lp, "ln1"), state)
-        return x + out, state
+        return tf.residual(x, out), state
 
     def _shared_in(self, sp, x, x0):
-        xin = torch.cat([x, x0], dim=-1) @ sp["proj_in"]
+        # the residual stream's sequence gathered before the product, as at a norm
+        xin = logical(torch.cat([x, x0], dim=-1), "batch", "seq", "embed") @ sp["proj_in"]
         return xin, tf.norm(self.cfg, xin, sp, "lna")
 
     def _shared_out(self, sp, x, xin, a):
         xin = xin + a
         xin = xin + tf.apply_mlp(sp["mlp"], self.cfg, tf.norm(self.cfg, xin, sp, "lnm"))
-        return x + xin
+        return tf.residual(x, xin)
 
     def forward(self, params, batch, *, attention=None):
         """Prefill from zero states; the shared block's attention (flash
         unless ``attention`` replaces it) takes ``cfg.sliding_window``."""
         cfg, sp = self.cfg, params["shared"]
-        x = x0 = self._embed(params, batch["tokens"])
+        x = x0 = _act(self._embed(params, batch["tokens"]))
         zero = self._zero_state(x.shape[0])
-        mamba = _remat(cfg, lambda lp, x: self._mamba_layer(lp, x, zero)[0], params["layers"])
+        mamba = _remat(cfg, lambda lp, x: self._mamba_layer(lp, _act(x), zero)[0],
+                       params["layers"])
         for i, lp in enumerate(params["layers"]):
             x = mamba(lp, x)
             if (i + 1) % self.every == 0:
@@ -365,10 +416,11 @@ class WhisperModel(Model):
             frontend.shape[1], cfg.d_model, self.dtype, self.device)
 
         def body(lp, x):
+            x = _act(x)
             h = tf.norm(cfg, x, lp, "ln1")
-            x = x + tf.self_attention_full(lp["attn"], cfg, h, causal=False, use_rope=False,
-                                           attention=attention)
-            return x + tf.apply_mlp(lp["mlp"], cfg, tf.norm(cfg, x, lp, "ln2"))
+            x = tf.residual(x, tf.self_attention_full(lp["attn"], cfg, h, causal=False,
+                                                      use_rope=False, attention=attention))
+            return tf.residual(x, tf.apply_mlp(lp["mlp"], cfg, tf.norm(cfg, x, lp, "ln2")))
 
         body = _remat(cfg, body, params["enc_layers"])
         for lp in params["enc_layers"]:
@@ -379,8 +431,8 @@ class WhisperModel(Model):
         """The decoder layer after its self attention: cross attention over
         the encoder's K/V, then the MLP."""
         cfg = self.cfg
-        x = x + tf.cross_attention(lp["xattn"], cfg, tf.norm(cfg, x, lp, "lnx"), ek, ev)
-        return x + tf.apply_mlp(lp["mlp"], cfg, tf.norm(cfg, x, lp, "ln2"))
+        x = tf.residual(x, tf.cross_attention(lp["xattn"], cfg, tf.norm(cfg, x, lp, "lnx"), ek, ev))
+        return tf.residual(x, tf.apply_mlp(lp["mlp"], cfg, tf.norm(cfg, x, lp, "ln2")))
 
     def forward(self, params, batch, *, attention=None):
         """``batch["frontend"]`` (B, T_enc, d_model) and ``batch["tokens"]``
@@ -396,9 +448,10 @@ class WhisperModel(Model):
         kv = (B, -1, cfg.num_kv_heads, cfg.head_dim)
 
         def body(lp, x, enc):
+            x = _act(x)
             h = tf.norm(cfg, x, lp, "ln1")
-            x = x + tf.self_attention_full(lp["attn"], cfg, h, causal=True, use_rope=False,
-                                           attention=attention)
+            x = tf.residual(x, tf.self_attention_full(lp["attn"], cfg, h, causal=True,
+                                                      use_rope=False, attention=attention))
             ek = qlinear(enc, lp["xattn"]["wk"]).reshape(kv)
             ev = qlinear(enc, lp["xattn"]["wv"]).reshape(kv)
             return self._dec_tail(lp, x, ek, ev)
@@ -408,6 +461,15 @@ class WhisperModel(Model):
             x = body(lp, x, enc)
         x = tf.norm(cfg, x, params, "final")
         return self._unembed(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Decode: (B, 1) tokens; otherwise the (B, T_enc, d_model) stub
+        frame embeddings and (B, S) tokens (and labels to train)."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": _meta((B, 1), torch.int32)}
+        return {"frontend": _meta((B, self.t_enc, self.cfg.d_model), torch.bfloat16),
+                **_token_specs(B, S, shape.kind == "train")}
 
     def init_cache(self, batch: int, cache_len: int) -> WhisperCache:
         cfg = self.cfg
@@ -428,7 +490,7 @@ class WhisperModel(Model):
             h = tf.norm(cfg, x, lp, "ln1")
             a, _ = tf.self_attention_decode(lp["attn"], cfg, h, cache.self_kv.layer(i),
                                             use_rope=False, window=None)
-            x = self._dec_tail(lp, x + a, cache.cross_k[i], cache.cross_v[i])
+            x = self._dec_tail(lp, tf.residual(x, a), cache.cross_k[i], cache.cross_v[i])
         x = tf.norm(cfg, x, params, "final")
         return self._unembed(params, x), cache._replace(
             self_kv=cache.self_kv._replace(pos=pos + 1))

@@ -19,8 +19,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import mlp_swiglu
+from repro_torch.sharding import local
+from repro_torch.sharding.api import logical
 
 
 class MoEOutput(NamedTuple):
@@ -44,10 +47,19 @@ def router_topk(x, w_router, k: int):
     return weights, ids, probs
 
 
+def _expert_counts(ids, num_experts: int) -> torch.Tensor:
+    """Assignments per expert (E,) in f32: a scatter-add, whose output
+    shape (unlike ``bincount``'s) does not depend on the data, so the
+    dry-run can count it on tensors without values."""
+    flat = ids.reshape(-1)
+    return torch.zeros(num_experts, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).to(torch.float32)
+
+
 def load_balance_loss(probs, ids, num_experts):
     """Switch-style aux loss: E * sum_e f_e * P_e."""
     N, k = ids.shape
-    counts = torch.bincount(ids.reshape(-1), minlength=num_experts).to(torch.float32)
+    counts = _expert_counts(ids, num_experts)
     f = counts / max(N * k, 1)
     p = probs.mean(dim=0)
     return num_experts * torch.sum(f * p)
@@ -58,34 +70,14 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(a, 1, idx[..., None].expand(-1, -1, a.shape[-1]))
 
 
-def moe_sorted(
-    x,                      # (B, S, D)
-    params,                 # dict: router (D,E), w1/w3 (Ep,D,F), w2 (Ep,F,D)
-    *,
-    num_experts: int,
-    top_k: int,
-    act,
-    capacity_factor: float = 1.25,
-    shared: dict | None = None,   # optional shared-expert params (qwen2-moe)
-    groups: int = 1,
-) -> MoEOutput:
-    """Sort-based dispatch within ``groups`` independent shards, with a
-    per-group capacity C per expert: an expert's assignments past C drop.
-    ``Ep = w1.shape[0] >= E`` expert slots; the padded ones are never
-    routed (their slots stay zero)."""
-    B, S, D = x.shape
-    N = B * S
+def _dispatch(xt, router, *, num_experts: int, top_k: int, capacity_factor: float, Ep: int):
+    """Route the tokens of each group (xt (G, Ng, D)) and gather them into
+    (G, Ep, C, D) expert slots.  Returns (expert_in, the state the combine
+    needs)."""
+    G, Ng, D = xt.shape
     E, k = num_experts, top_k
-    Ep = params["w1"].shape[0]
-    G = groups
-    if N % G:
-        raise ValueError(f"{N} tokens do not split into {G} groups")
-    Ng = N // G
-    dev = x.device
-    xt = x.reshape(G, Ng, D)
-
-    weights, ids, probs = router_topk(xt, params["router"], k)         # (G, Ng, k)
-    aux = load_balance_loss(probs.reshape(N, E), ids.reshape(N, k), E)
+    dev = xt.device
+    weights, ids, probs = router_topk(xt, router, k)                    # (G, Ng, k)
 
     C = max(int((Ng * k * capacity_factor + E - 1) // E), 1)   # Python floats, as the reference
 
@@ -116,19 +108,70 @@ def moe_sorted(
     slot_valid = (c_of_slot[None] < cnt) & (e_of_slot[None] < E)
     slot_src = torch.clamp(seg + c_of_slot[None], 0, Ng * k - 1)
     expert_in = torch.where(slot_valid[..., None], _take(x_sorted, slot_src), 0)
-    expert_in = expert_in.reshape(G, Ep, C, D)
-
-    # The grouped expert FFN: one batched product per weight over the slots.
-    expert_out = mlp_swiglu(expert_in, params["w1"], params["w3"], params["w2"], act)
-
-    # Combine: gather each sorted assignment's slot output, unsort through
-    # the inverse permutation, and sum the k copies.
-    flat_out = expert_out.reshape(G, Ep * C, D)
     slot_of_sorted = sorted_ids * C + torch.where(keep, pos_in_exp, 0)
+    state = (probs, ids, keep, slot_of_sorted, sorted_w, torch.argsort(order, dim=-1))
+    return expert_in.reshape(G, Ep, C, D), state
+
+
+def _combine(expert_out, state, *, k: int):
+    """Gather each sorted assignment's slot output, unsort it through the
+    inverse permutation, and sum the k copies: (G, Ng, D)."""
+    _, _, keep, slot_of_sorted, sorted_w, inv_order = state
+    G, Ep, C, D = expert_out.shape
+    flat_out = expert_out.reshape(G, Ep * C, D)
     gathered = _take(flat_out, slot_of_sorted)
-    contrib = torch.where(keep[..., None], gathered, 0) * sorted_w[..., None].to(x.dtype)
-    inv_order = torch.argsort(order, dim=-1)
-    y = _take(contrib, inv_order).reshape(G, Ng, k, D).sum(dim=2)
+    contrib = torch.where(keep[..., None], gathered, 0) * sorted_w[..., None].to(expert_out.dtype)
+    return _take(contrib, inv_order).reshape(G, -1, k, D).sum(dim=2)
+
+
+def moe_sorted(
+    x,                      # (B, S, D)
+    params,                 # dict: router (D,E), w1/w3 (Ep,D,F), w2 (Ep,F,D)
+    *,
+    num_experts: int,
+    top_k: int,
+    act,
+    capacity_factor: float = 1.25,
+    shared: dict | None = None,   # optional shared-expert params (qwen2-moe)
+    groups: int = 1,
+) -> MoEOutput:
+    """Sort-based dispatch within ``groups`` independent shards, with a
+    per-group capacity C per expert: an expert's assignments past C drop.
+    ``Ep = w1.shape[0] >= E`` expert slots; the padded ones are never
+    routed (their slots stay zero).
+
+    Under a ``DeviceMesh`` the groups shard over the data-parallel axes and
+    the experts over "model" (EP): the dispatch and the combine, whose
+    sort, ``bincount`` and batched gathers have no DTensor sharding
+    strategy, run per group shard (``sharding.local.moe_dispatch`` /
+    ``moe_combine``), the experts per expert shard (``moe_experts``)."""
+    B, S, D = x.shape
+    N = B * S
+    E, k = num_experts, top_k
+    G = groups
+    if N % G:
+        raise ValueError(f"{N} tokens do not split into {G} groups")
+    xt = logical(x.reshape(G, N // G, D), "batch", None, "embed")
+    kw = dict(num_experts=E, top_k=k, capacity_factor=capacity_factor, Ep=params["w1"].shape[0])
+    w = (params["w1"], params["w3"], params["w2"])
+
+    if isinstance(xt, DTensor):
+        expert_in, state = local.moe_dispatch(_dispatch, xt, params["router"], **kw)
+        expert_in = logical(expert_in, "batch", "expert", None, "embed")
+        expert_out = local.moe_experts(mlp_swiglu, expert_in, *w, act)
+        expert_out = logical(expert_out, "batch", "expert", None, "embed")
+        y = local.moe_combine(_combine, expert_out, state, k=k)
+        probs, ids = state[:2]
+        f = local.group_sum(_expert_counts(ids, E), xt) / max(N * k, 1)
+        p = local.group_sum(probs.reshape(-1, E).sum(dim=0), xt) / N
+        aux = E * torch.sum(f * p)
+    else:
+        expert_in, state = _dispatch(xt, params["router"], **kw)
+        # The grouped expert FFN: one batched product per weight over the slots.
+        expert_out = mlp_swiglu(expert_in, *w, act)
+        y = _combine(expert_out, state, k=k)
+        probs, ids = state[:2]
+        aux = load_balance_loss(probs.reshape(N, E), ids.reshape(N, k), E)
 
     if shared is not None:
         y = y + mlp_swiglu(xt, shared["w1"], shared["w3"], shared["w2"], act)

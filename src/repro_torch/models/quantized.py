@@ -4,7 +4,9 @@
 ``quantize_params`` replaces a model's matmul weights with int8 codes and
 per-output-channel f32 scale vectors, ``{"q": (K, N) int8, "s": (N,) f32}``;
 ``qlinear`` sends such a leaf through ``quantized_matmul`` and the
-fixmatmul kernel, and a float weight through a plain matmul.
+fixmatmul kernel, and a float weight through a plain matmul.  Under a
+``DeviceMesh`` (DTensor activations) the int8 product runs on each rank's
+shard of the weight (``sharding.local.quantized_matmul``).
 """
 
 from __future__ import annotations
@@ -12,8 +14,10 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.fixmatmul.ops import quantized_matmul
+from repro_torch.sharding import local
 from repro_torch.utils.tree import tree_flatten_with_names, tree_map_with_names
 
 # Parameter-name suffixes that are 2-D GEMM weights worth quantizing.
@@ -48,6 +52,8 @@ def qlinear(x: torch.Tensor, w) -> torch.Tensor:
     """Linear through the int8 fixmatmul kernel if ``w`` is quantized,
     else a plain matmul."""
     if isinstance(w, dict) and "q" in w:
+        if isinstance(x, DTensor):
+            return local.quantized_matmul(x, w["q"], w["s"], x.dtype)
         return quantized_matmul(x, w["q"], w["s"], out_dtype=x.dtype)
     return x @ w
 

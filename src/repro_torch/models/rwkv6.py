@@ -24,8 +24,11 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import fanin_init, normal_init
+from repro_torch.sharding import local
+from repro_torch.sharding.api import logical
 
 CHUNK = 64
 LORA_RANK = 64
@@ -160,13 +163,15 @@ def time_mix(params, x, shift_state, wkv_state, head_size, *, wkv=None, state_ou
     # data-dependent decay (fp32)
     lora = torch.tanh(xw @ params["wa"]).to(torch.float32) @ params["wb"].to(torch.float32)
     logw = -torch.exp(params["w0"].to(torch.float32) + lora)       # <= 0
+    kw = {}
     if wkv is None:
-        from repro_torch.kernels.rwkv6_scan.ops import wkv as wkv_op
+        from repro_torch.kernels.rwkv6_scan.ops import wkv
 
-        out, wkv_state = wkv_op(r, k, v, logw, params["u"], wkv_state, head_size,
-                                state_out=state_out)
+        kw = {"state_out": state_out}
+    if isinstance(r, DTensor):      # the kernel takes each rank's (batch, head) shard
+        out, wkv_state = local.wkv(wkv, r, k, v, logw, params["u"], wkv_state, head_size, **kw)
     else:
-        out, wkv_state = wkv(r, k, v, logw, params["u"], wkv_state, head_size)
+        out, wkv_state = wkv(r, k, v, logw, params["u"], wkv_state, head_size, **kw)
     out = group_norm_heads(out.to(x.dtype), params["ln_x"], head_size)
     out = out * F.silu(g)
     out = out @ params["wo"]
@@ -179,6 +184,7 @@ def channel_mix(params, x, shift_state):
     xk = x + xx * params["mu_k"]
     xr = x + xx * params["mu_r"]
     k = torch.square(F.relu(xk @ params["wk"]))
+    k = logical(k, "batch", "seq", "ff")
     kv = k @ params["wv"]
     rr = torch.sigmoid(xr @ params["wr"])
     return rr * kv, x[:, -1, :]

@@ -11,6 +11,7 @@ reference.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flashattn.ops import attention as flash_attention_op
@@ -26,12 +27,29 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.moe import moe_sorted
 from repro_torch.models.quantized import qlinear
+from repro_torch.sharding import local
+from repro_torch.sharding.api import logical
 
 
 def norm(cfg: ModelConfig, x, p, prefix: str):
+    """The norm of a block's input (B, S, D).  Under sequence parallelism
+    the residual stream's sequence is sharded; the normed input is
+    gathered over it (Megatron's all-gather after the norm), since a
+    product cannot flatten a sharded sequence dim."""
     if cfg.norm_type == "layernorm":
-        return layernorm(x, p[f"{prefix}_w"], p[f"{prefix}_b"], cfg.norm_eps)
-    return rmsnorm(x, p[f"{prefix}_w"], cfg.norm_eps)
+        out = layernorm(x, p[f"{prefix}_w"], p[f"{prefix}_b"], cfg.norm_eps)
+    else:
+        out = rmsnorm(x, p[f"{prefix}_w"], cfg.norm_eps)
+    return logical(out, "batch", "seq", "embed")
+
+
+def residual(x, y):
+    """``x + y``, a block's output ``y`` added to the residual stream ``x``.
+    Under sequence parallelism ``y`` is first placed as the stream is (the
+    reduce-scatter after a block), so that in the backward the gradient
+    reaching the block's last product is not sharded on the sequence (a
+    product cannot flatten a sharded sequence dim)."""
+    return x + logical(y, "batch", "act_seq", "embed")
 
 
 def init_norm(cfg: ModelConfig, prefix: str, d: int, dtype, device) -> dict:
@@ -97,7 +115,14 @@ def self_attention_full(p, cfg: ModelConfig, x, *, causal=True, use_rope=True, w
         pos = torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    out = (attention or flash_attention_op)(q, k, v, causal=causal, window=window)
+    q = logical(q, "batch", "seq", "heads", None)
+    k = logical(k, "batch", "seq", "kv_heads", None)
+    op = attention or flash_attention_op
+    if isinstance(q, DTensor):      # the kernel takes each rank's (batch, head) shard
+        out = local.attention(op, q, k, v, causal=causal, window=window)
+    else:
+        out = op(q, k, v, causal=causal, window=window)
+    out = logical(out, "batch", "seq", "heads", None)
     return attn_out(p, out)
 
 
@@ -121,8 +146,11 @@ def cross_attention(p, cfg: ModelConfig, x, enc_k, enc_v):
     if "bq" in p:
         q = q + p["bq"]
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    out = blocked_attention(q, enc_k, enc_v, causal=False, q_block=min(1024, S),
-                            k_block=enc_k.shape[1])
+    kw = dict(causal=False, q_block=min(1024, S), k_block=enc_k.shape[1])
+    if isinstance(q, DTensor):      # per (batch, head) shard, as self attention
+        out = local.attention(blocked_attention, q, enc_k, enc_v, **kw)
+    else:
+        out = blocked_attention(q, enc_k, enc_v, **kw)
     return attn_out(p, out)
 
 
@@ -152,6 +180,7 @@ def apply_mlp(p, cfg: ModelConfig, x):
         h = act(qlinear(x, p["w1"]))
         if cfg.mlp_gated:
             h = h * qlinear(x, p["w3"])
+        h = logical(h, "batch", "seq", "ff")
         return qlinear(h, p["w2"])
     if cfg.mlp_gated:
         return mlp_swiglu(x, p["w1"], p["w3"], p["w2"], act, cfg.use_bias,
@@ -198,13 +227,13 @@ def _moe(p, cfg: ModelConfig, h):
 def decoder_layer_full(p, cfg: ModelConfig, x, *, attention=None):
     """Prefill layer.  Returns (x, aux_loss)."""
     h = norm(cfg, x, p, "ln1")
-    x = x + self_attention_full(p["attn"], cfg, h, window=cfg.sliding_window,
-                                attention=attention)
+    x = residual(x, self_attention_full(p["attn"], cfg, h, window=cfg.sliding_window,
+                                        attention=attention))
     h = norm(cfg, x, p, "ln2")
     if "moe" in p:
         mo = _moe(p["moe"], cfg, h)
-        return x + mo.y, mo.aux_loss
-    x = x + apply_mlp(p["mlp"], cfg, h)
+        return residual(x, mo.y), mo.aux_loss
+    x = residual(x, apply_mlp(p["mlp"], cfg, h))
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -213,8 +242,8 @@ def decoder_layer_decode(p, cfg: ModelConfig, x, cache: KVCache, *, window=None)
     h = norm(cfg, x, p, "ln1")
     attn, cache = self_attention_decode(p["attn"], cfg, h, cache,
                                         window=window or cfg.sliding_window)
-    x = x + attn
+    x = residual(x, attn)
     h = norm(cfg, x, p, "ln2")
     if "moe" in p:
-        return x + _moe(p["moe"], cfg, h).y, cache
-    return x + apply_mlp(p["mlp"], cfg, h), cache
+        return residual(x, _moe(p["moe"], cfg, h).y), cache
+    return residual(x, apply_mlp(p["mlp"], cfg, h)), cache

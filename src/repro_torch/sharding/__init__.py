@@ -1,18 +1,28 @@
-"""Node-axis sharding of the VM fleet (counterpart of the fleet's part of
-``repro.sharding``): logical rules over a ``NodeMesh`` and the placement
-of a stacked ``VMState`` on it.  The model-side rules (parameter and
-KV-cache specs) come with the model-sharding slice."""
+"""Sharding of the port (counterpart of ``repro.sharding``): logical-axis
+rules and ``logical()`` for the models on a ``DeviceMesh`` (parameter,
+batch and KV-cache specs: ``rules``, ``cache_specs``; kernel call sites on
+local shards: ``local``), and the node-axis placement of the VM fleet's
+stacked ``VMState`` on a ``NodeMesh``."""
 
 from repro_torch.sharding.api import (
     LogicalRules,
     current_rules,
     leading_spec,
+    logical,
     logical_leading,
     logical_rules,
 )
-from repro_torch.sharding.rules import make_fleet_rules
+from repro_torch.sharding.rules import (
+    DEFAULT_RULES,
+    batch_pspec,
+    make_fleet_rules,
+    make_rules,
+    param_partition_spec,
+    param_pspec_tree,
+)
 
 __all__ = [
-    "LogicalRules", "current_rules", "leading_spec", "logical_leading", "logical_rules",
+    "logical", "logical_rules", "current_rules", "LogicalRules", "DEFAULT_RULES", "make_rules",
+    "param_partition_spec", "param_pspec_tree", "batch_pspec", "leading_spec", "logical_leading",
     "make_fleet_rules",
 ]

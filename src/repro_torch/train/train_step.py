@@ -14,8 +14,10 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import TrainConfig
+from repro_torch.sharding import local
 from repro_torch.train.compression import compress_decompress_grads
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -58,7 +60,10 @@ def loss_fn(model, train_cfg: TrainConfig, params, batch, **forward_kw):
     logits = logits.to(torch.float32)
     # standard causal LM shift: predict labels[t] from logits[t]
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if isinstance(logits, DTensor):     # vocab-sharded: each rank picks from its shard
+        gold = local.pick(logits, labels.clamp(min=0))
+    else:
+        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
     ntok = torch.clamp(mask.sum(), min=1.0)
     ce = torch.sum((logz - gold) * mask) / ntok
