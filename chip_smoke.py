@@ -264,7 +264,31 @@ each printing its results on a line of its own:
      prefill, fixmatmul 169 times a decode step, and flash's forward 48
      times and its backward 24 calls a train step; one line gives each
      step's ms, tokens/s and peak memory.  The group is destroyed however
-     the phase ends.
+     the phase ends;
+ 13. the MoE family, whisper and internvl2 train (run after phase 10):
+     (a) qwen2-moe-a2.7b at full width and 2 layers, one AdamW step at B 1
+     S 4096 through the kernels against the plain-attention step, the
+     kernel step's expert ids replayed in the plain step (its weights its
+     own probabilities at those ids), after a line that counts the
+     assignments the plain step's own top-k would have routed apart;
+     loss, aux, grad_norm and the router, expert, shared-expert,
+     attention, embedding and lm_head leaves held as in 9 (c); (b) the
+     cell moe-train-4k: qwen2-moe at full width with 6 of its 24 layers
+     (4.05 B parameters), 5 steps at seq 4096 and the largest of batch
+     4, 2, 1 that fits, each step's line with its aux loss, the share of
+     assignments dropped by capacity and the largest expert's load over
+     the mean; then qwen3-moe-30b-a3b the same way at 6 of its 48 layers,
+     3 steps; (c) whisper-tiny whole: a kernel step against the plain
+     step at B 1, then 5 steps of 448 text tokens over 1500 stub frames
+     at the largest of batch 64, 32, 8 that fits (each step 8 flash
+     calls: 4 non-causal in the encoder, 4 causal in the decoder); (d)
+     internvl2-2b: a kernel step at 4 layers against the plain step
+     (``vision_proj`` among the leaves), then the whole model, 5 steps of
+     256 stub patches + 3840 text tokens at the largest of batch 4, 2, 1
+     that fits; every step's flash launches counted (each layer's forward
+     twice under remat, its backward three kernels, all bf16 on the
+     tensor cores); then flash's forward and backward at these training
+     shapes beside SDPA's forward and backward.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that.
@@ -323,6 +347,12 @@ RWKV_CHECK_LAYERS, RWKV_CHECK_STEPS = 2, 3   # phase 10 (c): kernel steps vs pla
 ZAMBA_ARCH = "zamba2-1.2b"      # phase 10 (d)
 ZAMBA_CHECK_LAYERS = 6          # the shared attention block runs once
 ZAMBA_TRAIN_STEPS, ZAMBA_BATCHES = 3, (4, 2, 1)     # the whole model, the largest batch that fits
+MOE_CHECK_LAYERS = 2            # phase 13 (a): qwen2-moe's kernel step vs plain step, routing replayed
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 6, 5   # phase 13 (b): qwen2-moe's 24 layers cut to fit one card
+QWEN3_TRAIN = ("qwen3-moe-30b-a3b", 6, 3, "qwen3-moe-train-4k")   # (b): arch, layers, steps, cell
+TRAIN_BATCHES = (4, 2, 1)       # phase 13 (b), (d): the largest that fits
+WHISPER_ARCH, WHISPER_TRAIN_STEPS, WHISPER_BATCHES = "whisper-tiny", 5, (64, 32, 8)  # 13 (c)
+VLM_ARCH, VLM_CHECK_LAYERS, VLM_TRAIN_STEPS = "internvl2-2b", 4, 5                    # 13 (d)
 RWKV_TOL = {"bfloat16": 1e-2, "float32": 1e-4}    # out: max abs err / max(1, max |plain|)
 RWKV_STATE_TOL = 1e-4           # the state (f32 in both), the same measure
 LUT_SIZES = (1024, 8192)        # fixed_sigmoid inputs: bench_kernels.py's size, one past L2
@@ -777,6 +807,13 @@ def main() -> int:
     launches_zamba_fwd, launches_zamba_bwd = train_zamba2(torch, dev, flash_mod)
     torch.cuda.empty_cache()
 
+    # 13. the MoE family, whisper and internvl2 train: qwen2-moe's kernel
+    # step against its plain step with the routing replayed, the cells
+    # moe-train-4k, whisper-train and internvl2-train-4k, and flash at
+    # their shapes beside SDPA
+    launches_fam_fwd, launches_fam_bwd = families_train_phase(torch, dev, flash_mod)
+    torch.cuda.empty_cache()
+
     # 11. the sharded fleet: phase 4's ring on a node mesh of one shard a
     # card and of four shards on the card, partial IO, a replicated fleet,
     # the Executive, trace, auto, obs and the serve monitor on the mesh
@@ -793,9 +830,11 @@ def main() -> int:
     launches_train_fwd += mesh_fwd
     launches_train_bwd += mesh_bwd
     by_name["vmloop"]["launches"] += launches_sharded
-    by_name["flash_attention"]["launches"] += launches_train_fwd + launches_zamba_fwd
+    by_name["flash_attention"]["launches"] += (launches_train_fwd + launches_zamba_fwd
+                                               + launches_fam_fwd)
     by_name["rwkv6_scan"]["launches"] += launches_rwkv_train
-    records.append(dict(bwd_record, launches=launches_train_bwd + launches_zamba_bwd))
+    records.append(dict(bwd_record, launches=launches_train_bwd + launches_zamba_bwd
+                        + launches_fam_bwd))
     records.append(dict(rwkv_bwd_record, launches=launches_rwkv_bwd))
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3698,28 +3737,34 @@ def card_line() -> str:
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
-def train_run(torch, dev, cfg, batch: int, steps: int, counters: dict, per_step: dict) -> dict:
+def train_run(torch, dev, cfg, batch: int, steps: int, counters: dict, per_step: dict,
+              seq: int = TRAIN_SEQ, step_info=None) -> dict:
     """``steps`` steps of ``cfg`` (bf16, AdamW, remat) through
-    ``Trainer.run_slice`` on the synthetic pipeline at seq TRAIN_SEQ and
+    ``Trainer.run_slice`` on the synthetic pipeline at ``seq`` tokens and
     global batch ``batch`` (the launcher's ``TrainConfig``: warmup
-    max(steps // 20, 1)); each step timed, with its peak memory and the
-    growth of each of ``counters`` (name -> a reader of a launch count),
-    printed as a ``train_step`` line.  Fails unless every step grows each
-    counter named in ``per_step`` by the count given there, and every loss
-    and grad_norm is finite, the first loss within 1 of ln(vocab).
-    Returns the run's summary (steps, ms and tokens/s after the first,
-    peak GB, losses)."""
+    max(steps // 20, 1)), the encdec and vlm families' stub frontend
+    (``frontend_of``) added to each batch in ``put_batch``; each step
+    timed, with its peak memory, the growth of each of ``counters`` (name
+    -> a reader of a launch count) and ``step_info(metrics)``, printed as
+    a ``train_step`` line.  Tokens a step are the positions the decoder
+    runs: batch x (seq + the vlm's patches).  Fails unless every step
+    grows each counter named in ``per_step`` by the count given there, and
+    every loss and grad_norm is finite, the first loss within 1 of
+    ln(vocab).  Returns the run's summary (steps, ms and tokens/s after
+    the first, peak GB, losses)."""
     from repro_torch.config import SHAPES, RunConfig, TrainConfig
     from repro_torch.resilience.voting import ReplicaVoter
     from repro_torch.train.data import pipeline_for
     from repro_torch.train.train_step import make_train_step
     from repro_torch.train.trainer import Trainer
 
-    shape = SHAPES["train_4k"].replace(seq_len=TRAIN_SEQ, global_batch=batch)
+    shape = SHAPES["train_4k"].replace(seq_len=seq, global_batch=batch)
     tcfg = TrainConfig(total_steps=steps, warmup_steps=max(steps // 20, 1))
     model, state, init_s = _train_parts(torch, cfg, dev, tcfg)
     step_fn = make_train_step(model, tcfg)
-    records = []
+    front = frontend_of(torch, cfg, dev)
+    tokens = batch * (seq + (cfg.vision_tokens if cfg.family == "vlm" else 0))
+    records, card = [], card_line()
 
     def stepped(state, b):
         torch.cuda.synchronize()
@@ -3731,16 +3776,21 @@ def train_run(torch, dev, cfg, batch: int, steps: int, counters: dict, per_step:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         records.append({"step": int(state.step), "loss": loss, "grad_norm": gnorm, "ms": 1e3 * dt,
-                        "tokens_per_s": batch * TRAIN_SEQ / dt,
+                        "tokens_per_s": tokens / dt,
                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                        **{name: read() - before[name] for name, read in counters.items()}})
-        print(json.dumps({"phase": "train_step", "arch": cfg.name, **records[-1]}), flush=True)
+                        **{name: read() - before[name] for name, read in counters.items()},
+                        **(step_info(m) if step_info else {})})
+        print(json.dumps({"phase": "train_step", "arch": cfg.name, **records[-1], "card": card}),
+              flush=True)
         return state, m
+
+    def put_batch(b):
+        out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        return out if front is None else out | {"frontend": front(batch)}
 
     pipeline = pipeline_for(cfg, shape, seed=SEED)
     trainer = Trainer(RunConfig(model=cfg, shape=shape, train=tcfg), stepped, state, pipeline,
-                      voter=ReplicaVoter(n_replicas=1),
-                      put_batch=lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+                      voter=ReplicaVoter(n_replicas=1), put_batch=put_batch)
     try:
         t = time.perf_counter()
         last = trainer.run_slice(steps)
@@ -3763,8 +3813,7 @@ def train_run(torch, dev, cfg, batch: int, steps: int, counters: dict, per_step:
     del trainer, state, model, step_fn
     return {"steps": steps, "optimizer": tcfg.optimizer, "remat": cfg.remat, "init_s": init_s,
             "wall_s": wall, "step_ms_mean_after_first": sum(x["ms"] for x in warm) / len(warm),
-            "tokens_per_s_after_first": batch * TRAIN_SEQ * len(warm) / sum(
-                x["ms"] / 1e3 for x in warm),
+            "tokens_per_s_after_first": tokens * len(warm) / sum(x["ms"] / 1e3 for x in warm),
             "peak_gb": max(x["peak_gb"] for x in records), "losses": [x["loss"] for x in records]}
 
 
@@ -3789,9 +3838,8 @@ def train_danube(torch, dev, flash_mod) -> tuple:
           f"{full.global_batch} to {TRAIN_BATCH} (seq {TRAIN_SEQ}) to fit one card", flush=True)
     fa, L = flash_mod.flash_attention, cfg.num_layers
     fa.launches = fa.tc_launches = fa.bwd_launches = fa.bwd_tc_launches = 0
-    run = train_run(torch, dev, cfg, TRAIN_BATCH, TRAIN_STEPS, flash_counters(flash_mod), {
-        "flash_fwd": 2 * L, "flash_fwd_tc": 2 * L, "flash_bwd": flash_mod.BWD_KERNELS * L,
-        "flash_bwd_tc": flash_mod.BWD_TC_KERNELS * L})
+    run = train_run(torch, dev, cfg, TRAIN_BATCH, TRAIN_STEPS, flash_counters(flash_mod),
+                    flash_step_launches(flash_mod, 2 * L, L))
     fwd, bwd = fa.launches, fa.bwd_launches
     print(json.dumps({
         "phase": "train", "arch": ARCH, "layers": L, "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
@@ -3803,13 +3851,17 @@ def train_danube(torch, dev, flash_mod) -> tuple:
 
 
 def step_kernel_vs_plain(torch, dev, cfg, plain_kw: dict, counters: dict, expect: dict,
-                         leaf_names, phase: str, steps: int = 1) -> dict:
-    """``steps`` AdamW steps of ``cfg`` at TRAIN_CHECK_BATCH x TRAIN_SEQ
-    through the kernels, and the same steps on the same batches from a
-    copy of the same state with ``plain_kw`` passed to the model's forward
-    (the plain version of a kernel).  Each step grows ``counters`` (name ->
-    reader) by ``expect[path]``.  At every step the loss within
-    TRAIN_LOSS_TOL and grad_norm within TRAIN_GNORM_TOL relative; after the
+                         leaf_names, phase: str, steps: int = 1, seq: int = TRAIN_SEQ,
+                         contexts: dict | None = None, also=()) -> dict:
+    """``steps`` AdamW steps of ``cfg`` at TRAIN_CHECK_BATCH x ``seq``
+    through the kernels, and the same steps on the same batches (with the
+    stub frontend of ``frontend_of`` for encdec and vlm) from a copy of
+    the same state with ``plain_kw`` passed to the model's forward (the
+    plain version of a kernel); ``contexts[path]``, where given, is a
+    context manager each of that path's steps runs inside.  Each step
+    grows ``counters`` (name -> reader) by ``expect[path]``.  At every
+    step the loss and each metric named in ``also`` within TRAIN_LOSS_TOL
+    and grad_norm within TRAIN_GNORM_TOL relative; after the
     first, whose update is lr * g / (|g| + eps), every element of the
     ``leaf_names`` leaves within 2 lr plus the bf16 rounding of both
     results, and TRAIN_LEAF_CLOSE of each leaf within that rounding alone.
@@ -3825,30 +3877,41 @@ def step_kernel_vs_plain(torch, dev, cfg, plain_kw: dict, counters: dict, expect
     copy = lambda t: t.detach().clone()
     plain_state = TrainState(tree_map(copy, state.params), tree_map(copy, state.opt), state.rng,
                              state.step.clone())
-    shape = ShapeConfig("check", seq_len=TRAIN_SEQ, global_batch=TRAIN_CHECK_BATCH, kind="train")
+    shape = ShapeConfig("check", seq_len=seq, global_batch=TRAIN_CHECK_BATCH, kind="train")
     source = pipeline_for(cfg, shape, seed=SEED + 1).source
+    front = frontend_of(torch, cfg, dev)
+    contexts = contexts or {}
     fns = {"kernel": make_train_step(model, tcfg), "plain": make_train_step(model, tcfg, **plain_kw)}
     states = {"kernel": state, "plain": plain_state}
     per_step, leaves = [], {}
     for i in range(steps):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in source.batch_at(i).items()}
-        runs = {}
+        if front is not None:
+            batch["frontend"] = front(TRAIN_CHECK_BATCH)
+        runs, extra = {}, {}
         for name in ("kernel", "plain"):
             before = {c: read() for c, read in counters.items()}
-            (states[name], m), ms = timed(torch, lambda: fns[name](states[name], batch))
+            with contexts.get(name, contextlib.nullcontext)():
+                (states[name], m), ms = timed(torch, lambda: fns[name](states[name], batch))
             runs[name] = (float(m["loss"]), float(m["grad_norm"]), ms,
                           {c: read() - before[c] for c, read in counters.items()})
+            extra[name] = {k: float(m[k]) for k in also}
             if runs[name][3] != expect[name]:
                 fail(f"{phase}: step {i + 1}: the {name} step's launches {runs[name][3]}, "
                      f"expected {expect[name]}")
         (kl, kg, kms, kn), (pl, pg, pms, pn) = runs["kernel"], runs["plain"]
         loss_rel, gnorm_rel = abs(kl - pl) / abs(pl), abs(kg - pg) / abs(pg)
-        if loss_rel > TRAIN_LOSS_TOL or gnorm_rel > TRAIN_GNORM_TOL:
+        also_rel = {k: abs(extra["kernel"][k] - extra["plain"][k]) / abs(extra["plain"][k])
+                    for k in also}
+        if loss_rel > TRAIN_LOSS_TOL or gnorm_rel > TRAIN_GNORM_TOL or any(
+                r > TRAIN_LOSS_TOL for r in also_rel.values()):
             fail(f"{phase}: step {i + 1}: loss {kl} vs {pl} ({loss_rel:.3g}), grad_norm {kg} vs "
-                 f"{pg} ({gnorm_rel:.3g})")
+                 f"{pg} ({gnorm_rel:.3g}), {extra} ({also_rel})")
         per_step.append({"loss": [kl, pl], "loss_rel": loss_rel, "grad_norm": [kg, pg],
                          "grad_norm_rel": gnorm_rel, "step_ms": {"kernel": kms, "plain": pms},
-                         "launches": {"kernel": kn, "plain": pn}})
+                         "launches": {"kernel": kn, "plain": pn},
+                         **{k: [extra["kernel"][k], extra["plain"][k]] for k in also},
+                         **{f"{k}_rel": r for k, r in also_rel.items()}})
         if i:
             continue
         plain_leaves = dict(tree_flatten_with_names(states["plain"].params))
@@ -3866,10 +3929,25 @@ def step_kernel_vs_plain(torch, dev, cfg, plain_kw: dict, counters: dict, expect
         if set(leaves) != set(leaf_names):
             fail(f"{phase}: leaves {sorted(set(leaf_names) - set(leaves))} not found")
     line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
-            "batch": TRAIN_CHECK_BATCH, "seq": TRAIN_SEQ, "steps": steps, **per_step[0],
-            "leaves": leaves, "per_step": per_step}
+            "batch": TRAIN_CHECK_BATCH, "seq": seq, "steps": steps, **per_step[0],
+            "leaves": leaves, "per_step": per_step, "card": card_line()}
     print(json.dumps(line), flush=True)
     return line
+
+
+def attention_step_check(torch, dev, flash_mod, cfg, fwd: int, calls: int, leaf_names,
+                         phase: str, **kw) -> dict:
+    """``step_kernel_vs_plain`` against the plain attention (autograd
+    through ``blocked_attention``): the kernel step launches flash's
+    forward ``fwd`` times and its backward ``calls`` times, the plain step
+    neither; ``kw`` goes to ``step_kernel_vs_plain``."""
+    from repro_torch.models.attention import blocked_attention
+
+    counters = {k: v for k, v in flash_counters(flash_mod).items() if k in ("flash_fwd", "flash_bwd")}
+    return step_kernel_vs_plain(
+        torch, dev, cfg, {"attention": blocked_attention}, counters,
+        {"kernel": {"flash_fwd": fwd, "flash_bwd": flash_mod.BWD_KERNELS * calls},
+         "plain": {"flash_fwd": 0, "flash_bwd": 0}}, leaf_names, phase, **kw)
 
 
 def train_kernel_vs_plain(torch, dev, flash_mod) -> None:
@@ -3877,14 +3955,10 @@ def train_kernel_vs_plain(torch, dev, flash_mod) -> None:
     through the kernels against the plain attention (autograd through
     ``blocked_attention``, no flash launch)."""
     from repro_torch.config import get_arch
-    from repro_torch.models.attention import blocked_attention
 
     L = TRAIN_CHECK_LAYERS
-    counters = {k: v for k, v in flash_counters(flash_mod).items() if k in ("flash_fwd", "flash_bwd")}
-    step_kernel_vs_plain(
-        torch, dev, get_arch(ARCH).replace(num_layers=L), {"attention": blocked_attention},
-        counters, {"kernel": {"flash_fwd": 2 * L, "flash_bwd": flash_mod.BWD_KERNELS * L},
-                   "plain": {"flash_fwd": 0, "flash_bwd": 0}},
+    attention_step_check(
+        torch, dev, flash_mod, get_arch(ARCH).replace(num_layers=L), 2 * L, L,
         ("embed/tokens", "layers/0/attn/wq", f"layers/{L - 1}/attn/wk", f"layers/{L - 1}/mlp/w2",
          "lm_head"), "train_check")
 
@@ -4164,39 +4238,336 @@ def train_zamba2(torch, dev, flash_mod) -> tuple:
     ZAMBA_TRAIN_STEPS steps at the largest of ZAMBA_BATCHES that fits.
     Returns (forward, backward) flash launches of the whole-model run."""
     from repro_torch.config import get_arch
-    from repro_torch.models.attention import blocked_attention
 
     full = get_arch(ZAMBA_ARCH)
     cfg = full.replace(num_layers=ZAMBA_CHECK_LAYERS)
     shared = ZAMBA_CHECK_LAYERS // (cfg.attn_every or 6)
-    counters = {k: v for k, v in flash_counters(flash_mod).items() if k in ("flash_fwd", "flash_bwd")}
-    step_kernel_vs_plain(
-        torch, dev, cfg, {"attention": blocked_attention}, counters,
-        {"kernel": {"flash_fwd": shared, "flash_bwd": flash_mod.BWD_KERNELS * shared},
-         "plain": {"flash_fwd": 0, "flash_bwd": 0}},
+    attention_step_check(
+        torch, dev, flash_mod, cfg, shared, shared,
         ("embed/tokens", "layers/0/mamba/wx", f"layers/{cfg.num_layers - 1}/mamba/out_proj",
          "shared/attn/wq", "shared/mlp/w2", "lm_head"), "zamba2_train_check")
     torch.cuda.empty_cache()
-    fa = flash_mod.flash_attention
     apps = full.num_layers // (full.attn_every or 6)
+    return train_cell(torch, dev, flash_mod, full, "zamba2-train-4k", ZAMBA_BATCHES,
+                      ZAMBA_TRAIN_STEPS, (apps, apps))[1:]
+
+
+def flash_step_launches(flash_mod, fwd: int, calls: int) -> dict:
+    """A train step's flash launches by counter: ``fwd`` forward launches
+    and ``calls`` backward calls, every one on the tensor cores (bf16)."""
+    return {"flash_fwd": fwd, "flash_fwd_tc": fwd, "flash_bwd": flash_mod.BWD_KERNELS * calls,
+            "flash_bwd_tc": flash_mod.BWD_TC_KERNELS * calls}
+
+
+def train_cell(torch, dev, flash_mod, cfg, cell: str, batches, steps: int, flash: tuple,
+               seq: int = TRAIN_SEQ, layers_of: int | None = None, step_info=None) -> tuple:
+    """The cell ``cell``: ``steps`` train steps of ``cfg`` (``train_run``)
+    at the largest of ``batches`` that fits (an out-of-memory error moves
+    down to the next), each step launching flash ``flash`` = (forward
+    launches, backward calls) times; prints the cell's ``train`` line.
+    Returns (batch, forward, backward) flash launches of the run."""
+    fa = flash_mod.flash_attention
     tried = []
-    for batch in ZAMBA_BATCHES:
+    for batch in batches:
         fa.launches = fa.tc_launches = fa.bwd_launches = fa.bwd_tc_launches = 0
         try:
-            run = train_run(torch, dev, full, batch, ZAMBA_TRAIN_STEPS, flash_counters(flash_mod), {
-                "flash_fwd": apps, "flash_fwd_tc": apps, "flash_bwd": flash_mod.BWD_KERNELS * apps,
-                "flash_bwd_tc": flash_mod.BWD_TC_KERNELS * apps})
+            run = train_run(torch, dev, cfg, batch, steps, flash_counters(flash_mod),
+                            flash_step_launches(flash_mod, *flash), seq, step_info)
         except torch.cuda.OutOfMemoryError:
             tried.append(batch)
             torch.cuda.empty_cache()
             continue
-        print(json.dumps({"phase": "train", "cell": "zamba2-train-4k", "arch": ZAMBA_ARCH,
-                          "layers": full.num_layers, "params": full.param_count(),
-                          "seq": TRAIN_SEQ, "global_batch": batch, "out_of_memory_at": tried,
-                          **run, "flash_fwd_launches": fa.launches,
-                          "flash_bwd_launches": fa.bwd_launches, "card": card_line()}), flush=True)
-        return fa.launches, fa.bwd_launches
-    fail(f"train {ZAMBA_ARCH}: out of memory at every batch of {ZAMBA_BATCHES}")
+        print(json.dumps({"phase": "train", "cell": cell, "arch": cfg.name,
+                          "layers": cfg.num_layers, "layers_of": layers_of or cfg.num_layers,
+                          "params": cfg.param_count(), "seq": seq, "global_batch": batch,
+                          "out_of_memory_at": tried, **run, "flash_fwd_launches": fa.launches,
+                          "flash_fwd_tc_launches": fa.tc_launches,
+                          "flash_bwd_launches": fa.bwd_launches,
+                          "flash_bwd_tc_launches": fa.bwd_tc_launches, "card": card_line()}),
+              flush=True)
+        return batch, fa.launches, fa.bwd_launches
+    fail(f"train {cell}: out of memory at every batch of {batches}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the MoE family, whisper and internvl2 train
+# ---------------------------------------------------------------------------
+
+def frontend_of(torch, cfg, dev):
+    """The stub frontend each train batch of an encdec or vlm model
+    carries, drawn on the card from the seed as phase 7i's
+    ``family_batch``: ``B -> (B, encoder_ctx, d_model)`` frames or ``(B,
+    vision_tokens, vision_dim)`` patches in bf16; None for the other
+    families."""
+    if cfg.family == "encdec":
+        shape = (cfg.encoder_ctx, cfg.d_model)
+    elif cfg.family == "vlm":
+        shape = (cfg.vision_tokens, cfg.vision_dim)
+    else:
+        return None
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    return lambda B: torch.randn((B, *shape), generator=g, device=dev).to(torch.bfloat16)
+
+
+class RouterProbe:
+    """Phase 13's view into the MoE layers: ``repro_torch.models.moe``'s
+    ``router_topk`` and ``_dispatch`` patched for a ``with`` block and
+    restored after it.
+
+    * ``record()``: each router call keeps its expert ids, in call order
+      (under remat a step calls each layer's router twice: the forward,
+      then the recompute in the backward, in reverse layer order).
+    * ``replay()``: the i-th router call routes to the i-th kept ids.  Its
+      weights are its own probabilities at those ids, normalised as
+      ``router_topk`` does, so its router still takes its own gradient.
+      Before each call is replayed, its own top-k is compared with the
+      kept ids: ``last["routed_apart"]`` counts the assignments it would
+      have sent to another expert.  Every kept call must be replayed.
+    * ``observe()``: routing as it is.
+
+    In each mode every dispatch adds its assignments dropped by capacity
+    and its experts' loads to ``stats()``, which reads and resets them."""
+
+    def __init__(self, torch, moe_mod):
+        self.torch, self.moe = torch, moe_mod
+        self.router_topk, self.dispatch = moe_mod.router_topk, moe_mod._dispatch
+        self.ids, self.last, self._seen = [], {}, []
+
+    @contextlib.contextmanager
+    def _patched(self, router_topk):
+        def dispatch(xt, router, **kw):
+            expert_in, state = self.dispatch(xt, router, **kw)
+            keep, ids = state[2], state[1]
+            self._seen.append((keep.numel() - keep.sum(), keep.numel(),
+                               self.moe._expert_counts(ids, kw["num_experts"])))
+            return expert_in, state
+
+        self.moe.router_topk, self.moe._dispatch = router_topk, dispatch
+        try:
+            yield self
+        finally:
+            self.moe.router_topk, self.moe._dispatch = self.router_topk, self.dispatch
+
+    def observe(self):
+        return self._patched(self.router_topk)
+
+    def record(self):
+        self.ids = []
+
+        def router_topk(x, w, k):
+            weights, ids, probs = self.router_topk(x, w, k)
+            self.ids.append(ids.detach())
+            return weights, ids, probs
+        return self._patched(router_topk)
+
+    @contextlib.contextmanager
+    def replay(self):
+        torch, kept = self.torch, iter(self.ids)
+        apart, calls = [], [0]
+
+        def router_topk(x, w, k):
+            _, own, probs = self.router_topk(x, w, k)
+            ids = next(kept)
+            apart.append(k * own.shape[:-1].numel()
+                         - (own[..., :, None] == ids[..., None, :]).any(-1).sum())
+            calls[0] += 1
+            weights = torch.gather(probs, -1, ids)
+            return weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9), ids, probs
+
+        with self._patched(router_topk):
+            yield self
+        if calls[0] != len(self.ids):
+            raise RuntimeError(f"replayed {calls[0]} of {len(self.ids)} recorded router calls")
+        self.last = {"router_calls": calls[0],
+                     "assignments": sum(int(i.numel()) for i in self.ids),
+                     "routed_apart": int(sum(int(a) for a in apart))}
+
+    def stats(self) -> dict:
+        """Over the dispatches since the last read: the share of the
+        assignments dropped by capacity, and the largest expert's load
+        over the mean load of its layer, the largest of the layers'."""
+        seen, self._seen = self._seen, []
+        if not seen:
+            return {}
+        dropped = sum(float(d) for d, _, _ in seen) / sum(n for _, n, _ in seen)
+        return {"dropped_share": dropped,
+                "max_load_over_mean": max(float(c.max() / c.mean()) for _, _, c in seen)}
+
+
+def moe_kernel_vs_plain(torch, dev, flash_mod, moe_mod) -> dict:
+    """Phase 13 (a): qwen2-moe at full width and MOE_CHECK_LAYERS layers,
+    one AdamW step through the kernels against the plain-attention step
+    (autograd through ``blocked_attention``), the routing of the kernel
+    step replayed in the plain one (``RouterProbe``); the aux loss held
+    as the loss is.  Returns the check's line."""
+    from repro_torch.config import get_arch
+
+    L = MOE_CHECK_LAYERS
+    probe = RouterProbe(torch, moe_mod)
+
+    @contextlib.contextmanager
+    def replayed():
+        with probe.replay():
+            yield
+        print(json.dumps({"phase": "moe_routing_replay", "arch": MOE_ARCH, "layers": L,
+                          **probe.last, "card": card_line()}), flush=True)
+
+    line = attention_step_check(
+        torch, dev, flash_mod, get_arch(MOE_ARCH).replace(num_layers=L), 2 * L, L,
+        ("embed/tokens", "layers/0/attn/wq", "layers/0/moe/router", f"layers/{L - 1}/moe/router",
+         f"layers/{L - 1}/moe/w1", "layers/0/moe/shared/w2", "lm_head"), "moe_train_check",
+        contexts={"kernel": probe.record, "plain": replayed}, also=("aux",))
+    return line | {"routing": probe.last}
+
+
+def train_moe(torch, dev, flash_mod, moe_mod) -> tuple:
+    """Phase 13 (b): the cell moe-train-4k, qwen2-moe at full width with
+    MOE_TRAIN_LAYERS of its layers, MOE_TRAIN_STEPS steps at seq 4096 and
+    the largest of TRAIN_BATCHES that fits, each step's line with its aux
+    loss, the share of assignments dropped by capacity and the largest
+    expert's load over the mean; then qwen3-moe the same way
+    (QWEN3_TRAIN).  Returns (qwen2-moe's batch, forward, backward) flash
+    launches of both runs."""
+    from repro_torch.config import get_arch
+
+    probe = RouterProbe(torch, moe_mod)
+    out = []
+    for arch, layers, steps, cell in ((MOE_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, "moe-train-4k"),
+                                      QWEN3_TRAIN):
+        full = get_arch(arch)
+        cfg = full.replace(num_layers=layers)
+        print(f"train: {arch} {layers} of {full.num_layers} layers d {cfg.d_model}, "
+              f"{cfg.param_count():,} params in {cfg.dtype}, {cfg.num_experts} experts top "
+              f"{cfg.num_experts_per_tok}, AdamW, remat={cfg.remat}", flush=True)
+        with probe.observe():
+            out.append(train_cell(torch, dev, flash_mod, cfg, cell, TRAIN_BATCHES, steps,
+                                  (2 * layers, layers), layers_of=full.num_layers,
+                                  step_info=lambda m: {"aux": float(m["aux"]), **probe.stats()}))
+        torch.cuda.empty_cache()
+    return out[0][0], sum(o[1] for o in out), sum(o[2] for o in out)
+
+
+def train_whisper(torch, dev, flash_mod) -> tuple:
+    """Phase 13 (c): whisper-tiny whole, one AdamW step at B 1 through
+    the kernels against the plain-attention step (encoder and decoder),
+    then the cell whisper-train: WHISPER_TRAIN_STEPS steps at WHISPER_TEXT
+    text tokens over ``encoder_ctx`` frames at the largest of
+    WHISPER_BATCHES that fits.  A step runs flash four times non-causal
+    (the encoder) and four times causal (the decoder), each forward twice
+    under remat.  Returns (batch, forward, backward) flash launches of the
+    run."""
+    from repro_torch.config import get_arch
+
+    cfg = get_arch(WHISPER_ARCH)
+    n = cfg.num_layers + cfg.num_encoder_layers
+    attention_step_check(
+        torch, dev, flash_mod, cfg, 2 * n, n,
+        ("embed/tokens", "enc_layers/0/attn/wq", f"enc_layers/{cfg.num_encoder_layers - 1}/mlp/w1",
+         "layers/0/attn/wk", f"layers/{cfg.num_layers - 1}/xattn/wv", "lm_head"),
+        "whisper_train_check", seq=WHISPER_TEXT)
+    torch.cuda.empty_cache()
+    return train_cell(torch, dev, flash_mod, cfg, "whisper-train", WHISPER_BATCHES,
+                      WHISPER_TRAIN_STEPS, (2 * n, n), seq=WHISPER_TEXT)
+
+
+def train_internvl2(torch, dev, flash_mod) -> tuple:
+    """Phase 13 (d): internvl2-2b, one AdamW step at full width and
+    VLM_CHECK_LAYERS layers through the kernels against the
+    plain-attention step (``vision_proj`` among the leaves held), then the
+    cell internvl2-train-4k: the whole model, VLM_TRAIN_STEPS steps of
+    ``vision_tokens`` patches + the rest of 4096 in text at the largest of
+    TRAIN_BATCHES that fits.  Returns (batch, forward, backward) flash
+    launches of the run."""
+    from repro_torch.config import get_arch
+
+    full = get_arch(VLM_ARCH)
+    L, text = VLM_CHECK_LAYERS, TRAIN_SEQ - full.vision_tokens
+    attention_step_check(
+        torch, dev, flash_mod, full.replace(num_layers=L), 2 * L, L,
+        ("embed/tokens", "vision_proj/w1", "layers/0/attn/wq", f"layers/{L - 1}/mlp/w2",
+         "lm_head"), "internvl2_train_check", seq=text)
+    torch.cuda.empty_cache()
+    return train_cell(torch, dev, flash_mod, full, "internvl2-train-4k", TRAIN_BATCHES,
+                      VLM_TRAIN_STEPS, (2 * full.num_layers, full.num_layers), seq=text)
+
+
+def time_flash_train(torch, flash_mod, dev, shapes) -> list:
+    """Flash's forward (the lse instance) and backward at the training
+    shapes of phase 13 (label, B, H, KV, S, hd, causal), each beside
+    SDPA's forward and its backward through autograd on the same inputs,
+    by CUDA events as phase 8 times; the forward held to SDPA's output
+    within FLASH_TOL.  Bounds: the visible pairs' FLOPs at the bf16
+    tensor-core rate (the backward 2.5 times the forward's) against the
+    bytes each must move."""
+    import torch.nn.functional as F
+
+    fa, rows = flash_mod.flash_attention, []
+    counts = (fa.launches, fa.tc_launches, fa.bwd_launches, fa.bwd_tc_launches)
+    for label, B, H, KV, S, hd, causal in shapes:
+        g = torch.Generator(device=dev).manual_seed(SEED + S + hd)
+        q, k, v, dout = (torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
+                         for sh in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd), (B, H, S, hd)))
+        out, lse = flash_mod.flash_attention_fwd(q, k, v, causal=causal)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa = lambda: F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+        o = sdpa()
+        ref = o.detach().float()
+        err = float((out.float() - ref).abs().max() / ref.abs().max().clamp(min=1))
+        if not err <= FLASH_TOL["bfloat16"]:
+            fail(f"13: flash forward at {label}: max abs err {err} against SDPA")
+        row = {"shape": label, "B": B, "H": H, "KV": KV, "S": S, "hd": hd, "causal": causal,
+               "fwd_err_vs_sdpa": err,
+               "fwd_ms": cuda_ms(torch, lambda i: flash_mod.flash_attention_fwd(
+                   q, k, v, causal=causal)),
+               "bwd_ms": cuda_ms(torch, lambda i: flash_mod.flash_attention_bwd(
+                   q, k, v, out, lse, dout, causal=causal)),
+               "sdpa_fwd_ms": cuda_ms(torch, lambda i: sdpa()),
+               "sdpa_bwd_ms": cuda_ms(torch, lambda i: torch.autograd.grad(o, leaves, dout,
+                                                                           retain_graph=True))}
+        flops = 4 * hd * H * B * (S * (S + 1) // 2 if causal else S * S)
+        fwd_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel()     # q, out; k, v
+        bwd_bytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()     # q out dout dq; k v dk dv
+        for part, f, nbytes in (("fwd", flops, fwd_bytes), ("bwd", 2.5 * flops, bwd_bytes)):
+            t_ops, t_bytes = 1e3 * f / BF16_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
+            row[f"{part}_bound_ms"] = max(t_ops, t_bytes)
+            row[f"{part}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            row[f"{part}_x_bound"] = row[f"{part}_ms"] / row[f"{part}_bound_ms"]
+        rows.append(row)
+        print(json.dumps({"phase": "flash_train_shape", **row, "card": card_line()}), flush=True)
+        del q, k, v, dout, out, lse, leaves, o
+        torch.cuda.empty_cache()
+    fa.launches, fa.tc_launches, fa.bwd_launches, fa.bwd_tc_launches = counts
+    return rows
+
+
+def families_train_phase(torch, dev, flash_mod) -> tuple:
+    """Phase 13: (a) the MoE kernel step against the plain step with the
+    routing replayed, (b) moe-train-4k (and qwen3-moe), (c) whisper, (d)
+    internvl2, then flash at their training shapes beside SDPA.  Returns
+    the (forward, backward) flash launches of the four train runs."""
+    import importlib
+
+    from repro_torch.config import get_arch
+
+    moe_mod = importlib.import_module("repro_torch.models.moe")
+    t = time.perf_counter()
+    moe_kernel_vs_plain(torch, dev, flash_mod, moe_mod)
+    torch.cuda.empty_cache()
+    moe_batch, moe_fwd, moe_bwd = train_moe(torch, dev, flash_mod, moe_mod)
+    wh_batch, wh_fwd, wh_bwd = train_whisper(torch, dev, flash_mod)
+    torch.cuda.empty_cache()
+    vlm_batch, vlm_fwd, vlm_bwd = train_internvl2(torch, dev, flash_mod)
+    torch.cuda.empty_cache()
+    moe, vlm, wh = (get_arch(a) for a in (MOE_ARCH, VLM_ARCH, WHISPER_ARCH))
+    time_flash_train(torch, flash_mod, dev, [
+        (label, B, c.num_heads, c.num_kv_heads, S, c.head_dim, causal)
+        for label, B, c, S, causal in (
+            (MOE_ARCH, moe_batch, moe, TRAIN_SEQ, True), (VLM_ARCH, vlm_batch, vlm, TRAIN_SEQ, True),
+            ("whisper_encoder", wh_batch, wh, wh.encoder_ctx, False),
+            ("whisper_decoder", wh_batch, wh, WHISPER_TEXT, True))])
+    print(json.dumps({"phase": "families_train_wall", "s": time.perf_counter() - t,
+                      "card": card_line()}), flush=True)
+    return moe_fwd + wh_fwd + vlm_fwd, moe_bwd + wh_bwd + vlm_bwd
 
 
 # ---------------------------------------------------------------------------

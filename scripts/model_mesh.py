@@ -20,11 +20,33 @@ Cells (bf16, random weights from a seed, every rank drawing the same):
 
 Each rank also runs the unsharded port path on its own card and holds the
 sharded result to it at the bf16 tolerances of chip_smoke.py's phases
-7-10: the logits within 5e-2 of the largest |logit| (rwkv6's cells, in
-either dtype, may instead meet phase 7's rule for them: the mean |logit
-diff| within 1.5 times, and the argmax agreement within 0.02 of, what one
-card's own run through the plain scan moves), the loss within 1e-2
-relative and the grad norm within 5e-2.  A cell's memory is
+7-10: the logits within 5e-2 of the largest |logit|, the loss within 1e-2
+relative and the grad norm within 5e-2.
+
+rwkv6's cells (either dtype) and the bf16 MoE prefill are held layer by
+layer instead (``LayerTap``): random weights amplify any reordering of the
+sums with depth (in f32 too, on a batch-only mesh too), and a last-bit
+difference moves a token to another expert, so their logits after 12 or
+24 layers say nothing about a fault.  One card's run keeps every layer's
+input and output (and the MoE layers' expert ids); a second sharded run
+takes, at each layer, one card's input to that layer (placed as the input
+it replaces) and the same expert ids, and each layer's output is held to
+one card's: in f32 within F32_TOL of its largest |value|.  In bf16 a
+decode step's layers and the MoE prefill's hold every element within
+bf16 rounding of the row-parallel sums (BF16_OWN, BF16_ROW): 2^-6 of its
+own |value| (one bf16 step, up to 2^-7 of a value, at each of the layer's
+two residual adds) plus 2^-6 of the largest |update| (output - input) in
+its row (half a step for each partial sum of a row-parallel product, for
+their all-reduce, and for the inputs the first add's rounding moves).
+rwkv6's prefill layers are held within LOGIT_TOL of their largest
+|value|: each scans 4096 positions, and a last-bit difference in a
+column-parallel product (the mesh's are half as wide, and may take other
+GEMM kernels) moves a decay that the scan compounds along the sequence,
+so no per-element rounding bound holds there (on four H100s the worst
+element read 1.14 times the bound above, the layer 1.4e-2 of its largest
+|value|); the bound's ratio is still reported.  The logits of the plain
+sharded run are still reported beside one card's.
+A cell's memory is
 ``torch.cuda.memory_allocated()``'s growth over placing its arguments
 (``ShardedFn.place``), beside the dry-run's ``argument_size_in_bytes``
 for the same mesh and shapes.
@@ -48,6 +70,7 @@ however the run ends.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
@@ -70,9 +93,9 @@ from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 SEED = 0
 LOGIT_TOL, LOSS_TOL, GNORM_TOL = 5e-2, 1e-2, 5e-2     # chip_smoke.py phases 7 and 9
-ALT_MEAN_TOL, ALT_AGREE_TOL = 1.5, 0.02                # phase 7's rwkv6 prefill rule
 RWKV_LAYERS = 12
 F32_TOL, MOE_F32_LAYERS = 1e-3, 6                       # the f32 twins of the bf16 cells
+BF16_OWN, BF16_ROW = 2.0 ** -6, 2.0 ** -6               # the per-layer bf16 rule (LayerTap)
 
 
 def card_line() -> str:
@@ -142,12 +165,95 @@ def split_wkv(data: int, model: int):
     return fn
 
 
-def _within_reordering(x: dict) -> bool:
-    """Phase 7's rule for rwkv6: the mean |logit diff| within ALT_MEAN_TOL
-    times, and the argmax agreement within ALT_AGREE_TOL of, what the
-    plain scan's reordering moves."""
-    return (x["mean_abs_logit_diff"] <= ALT_MEAN_TOL * x["reordered_mean_abs_logit_diff"]
-            and x["argmax_agreement"] >= x["reordered_argmax_agreement"] - ALT_AGREE_TOL)
+class LayerTap:
+    """Teacher forcing through the layer function ``owner.<name>`` (its
+    third argument the layer's input x, its result's first the output),
+    patched for a ``with`` block.  ``record()``: one card's run keeps each
+    call's input and output, and, through ``repro_torch.models.moe``'s
+    ``router_topk``, each router call's expert ids.  ``force(group)``: a
+    sharded run's i-th layer call takes the i-th kept input, placed as the
+    input it replaces, and its i-th router call the kept ids of its group
+    shards (``group``: the rank's coordinate on "data"); each output is
+    kept, gathered, and ``routed_apart`` counts the assignments the run's
+    own top-k would have sent elsewhere."""
+
+    def __init__(self, owner, name: str):
+        from repro_torch.models import moe
+
+        self.owner, self.name, self.moe = owner, name, moe
+        self.layer, self.router_topk = getattr(owner, name), moe.router_topk
+        self.inputs, self.ref_outputs, self.ids = [], [], []
+        self.outputs, self.routed_apart = [], 0
+
+    @contextlib.contextmanager
+    def _patched(self, layer, router_topk):
+        setattr(self.owner, self.name, layer)
+        self.moe.router_topk = router_topk
+        try:
+            yield self
+        finally:
+            setattr(self.owner, self.name, self.layer)
+            self.moe.router_topk = self.router_topk
+
+    def record(self):
+        def layer(*args, **kw):
+            out = self.layer(*args, **kw)
+            self.inputs.append(args[2].detach().clone())
+            self.ref_outputs.append(out[0].detach().clone())
+            return out
+
+        def router_topk(x, w, k):
+            out = self.router_topk(x, w, k)
+            self.ids.append(out[1])
+            return out
+        return self._patched(layer, router_topk)
+
+    def force(self, group: int):
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        inputs, ids, self.outputs, self.routed_apart = iter(self.inputs), iter(self.ids), [], 0
+
+        def layer(*args, **kw):
+            x, ref = args[2], next(inputs)
+            if isinstance(x, DTensor):
+                ref = distribute_tensor(ref, x.device_mesh, x.placements)
+            out = self.layer(*args[:2], ref, *args[3:], **kw)
+            self.outputs.append(_full(out[0]).detach().clone())
+            return out
+
+        def router_topk(x, w, k):
+            _, own, probs = self.router_topk(x, w, k)
+            n = x.shape[0]
+            kept = next(ids)[group * n:(group + 1) * n]
+            self.routed_apart += int(k * own.shape[:-1].numel()
+                                     - (own[..., :, None] == kept[..., None, :]).any(-1).sum())
+            weights = torch.gather(probs, -1, kept)
+            return weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9), kept, probs
+        return self._patched(layer, router_topk)
+
+    def held(self, rule: str) -> dict:
+        """Each layer's forced output against one card's by ``rule`` (see
+        the module docstring): "f32" (F32_TOL of its largest |value|),
+        "relative" (LOGIT_TOL of it) or "rounding" (each element within
+        the bf16 bound); the worst layer's numbers, the bf16 bound's ratio
+        reported under every bf16 rule."""
+        worst_rel, worst_share, ok = 0.0, 0.0, True
+        tol = {"f32": F32_TOL, "relative": LOGIT_TOL}.get(rule)
+        for x, ref, got in zip(self.inputs, self.ref_outputs, self.outputs):
+            ref, got, x = ref.float(), got.float(), x.float()
+            diff = (got - ref).abs()
+            worst_rel = max(worst_rel, float(diff.max() / ref.abs().max()))
+            if rule != "f32":
+                bound = BF16_OWN * ref.abs() + BF16_ROW * (ref - x).abs().amax(-1, keepdim=True)
+                worst_share = max(worst_share, float((diff / bound).max()))
+                if rule == "rounding":
+                    ok &= bool((diff <= bound).all())
+            if tol is not None:
+                ok &= bool(diff.max() <= tol * ref.abs().max())
+        return {"ok": ok and len(self.outputs) == len(self.ref_outputs) > 0, "rule": rule,
+                "layer_calls": len(self.outputs), "per_layer_max_rel_diff": worst_rel,
+                **({} if rule == "f32" else {"per_layer_max_diff_over_bound": worst_share}),
+                "routed_apart": self.routed_apart}
 
 
 def _rel(a, b) -> float:
@@ -161,6 +267,27 @@ class Cell:
         self.dev = torch.device("cuda", torch.cuda.current_device())
         self.lines = []
         self.failed = []
+        names = mesh.mesh_dim_names
+        self.group = mesh.get_coordinate()[names.index("data")] if "data" in names else 0
+
+    @staticmethod
+    def tap(cfg):
+        """The cell's ``LayerTap``, or None where the logits are held."""
+        if cfg.family == "rwkv6":
+            from repro_torch.models.model import RWKV6Model
+
+            return LayerTap(RWKV6Model, "_layer")
+        if cfg.family == "moe" and cfg.dtype == "bfloat16":
+            from repro_torch.models import transformer
+
+            return LayerTap(transformer, "decoder_layer_full")
+        return None
+
+    def hold_layers(self, tap, cfg, rule: str) -> dict:
+        held = tap.held("f32" if cfg.dtype == "float32" else rule)
+        self.fail_unless(held.pop("ok"), f"{cfg.name} {cfg.dtype}: a layer's output strays from "
+                                         f"one card's: {held}")
+        return held
 
     def placed(self, sf, *args):
         """The arguments placed, and the bytes the placing allocated beside
@@ -207,19 +334,25 @@ class Cell:
         logits = _full(logits)
         del placed
         model = build_model(steps.cell_run(run).model, self.dev)
-        (ref, _), ref_ms, _ = _sync_ms(model.forward, params, batch)
+        tap = self.tap(cfg)
+        with tap.record() if tap else contextlib.nullcontext():
+            (ref, _), ref_ms, _ = _sync_ms(model.forward, params, batch)
         rel, extra = _rel(logits, ref), {}
         if cfg.family == "rwkv6":
-            # phase 7's rule for rwkv6: bf16 over its decays moves the largest
-            # logit far under any reordering, so the mean |diff| and the argmax
-            # agreement are held to what the plain scan's reordering moves
+            # beside it, one card's logits through the plain scan (another
+            # order of the same sums) and the kernel at a rank's shapes
             from repro_torch.models.rwkv6 import chunked_wkv
 
             alt, _ = model.forward(params, batch, wkv=chunked_wkv)
             split, _ = model.forward(params, batch, wkv=split_wkv(*self.mesh_cfg.shape))
             extra = _reordered(logits, ref, alt, split)
-            self.fail_unless(rel <= tol or _within_reordering(extra),
-                             f"{cfg.name} {cfg.dtype} prefill: {rel}, {extra}")
+        if tap:
+            placed, _ = sf.place(params, batch)
+            with tap.force(self.group):
+                sf.fn(placed, batch)
+            del placed
+            # rwkv6's layers scan the whole sequence: see the module docstring
+            extra |= self.hold_layers(tap, cfg, "relative" if cfg.family == "rwkv6" else "rounding")
         else:
             self.fail_unless(rel <= tol, f"{cfg.name} {cfg.dtype} prefill: logits {rel} from one card's")
         self.report({"cell": "prefill", "arch": cfg.name, "dtype": cfg.dtype,
@@ -236,7 +369,7 @@ class Cell:
         tokens = self.tokens(cfg, B, n_steps, salt)
         (placed, shard_cache, _), mem = self.placed(sf, params, cache, tokens[:, :1])
         model = build_model(steps.cell_run(run).model, self.dev)
-        rwkv = cfg.family == "rwkv6"
+        rwkv, tap = cfg.family == "rwkv6", self.tap(cfg)
         if rwkv:          # one card's steps again through the plain scan: the reordering
             from repro_torch.models.rwkv6 import chunked_wkv
 
@@ -247,7 +380,8 @@ class Cell:
         for i in range(n_steps):
             tok = tokens[:, i:i + 1]
             (logits, shard_cache), t, p = _sync_ms(sf.fn, placed, shard_cache, tok)
-            (ref, cache), t_ref, _ = _sync_ms(model.decode_step, params, cache, tok)
+            with tap.record() if tap else contextlib.nullcontext():
+                (ref, cache), t_ref, _ = _sync_ms(model.decode_step, params, cache, tok)
             got.append(_full(logits))
             refs.append(ref)
             rels.append(_rel(got[-1], ref))
@@ -262,8 +396,18 @@ class Cell:
             extra = _reordered(*(torch.stack(x) for x in (got, refs, alts, splits)))
         elif hasattr(shard_cache, "k"):
             extra = {"cache_placements": str(tuple(shard_cache.k.placements))}
-        self.fail_unless(max(rels) <= tol or (rwkv and _within_reordering(extra)),
-                         f"{cfg.name} {cfg.dtype} decode: logits {max(rels)} from one card's, {extra}")
+        if tap:       # the same steps again from a zero cache, each layer forced
+            del shard_cache
+            fresh = build_model(cfg, self.dev).init_cache(B, cache_len)
+            placed, forced_cache, _ = sf.place(placed, fresh, tokens[:, :1])
+            with tap.force(self.group):
+                for i in range(n_steps):
+                    _, forced_cache = sf.fn(placed, forced_cache, tokens[:, i:i + 1])
+            extra |= self.hold_layers(tap, cfg, "rounding")
+        else:
+            self.fail_unless(max(rels) <= tol,
+                             f"{cfg.name} {cfg.dtype} decode: logits {max(rels)} from one card's, "
+                             f"{extra}")
         self.report({"cell": "decode", "arch": cfg.name, "dtype": cfg.dtype,
                      "layers": cfg.num_layers, "batch": B,
                      "cache": cache_len, "steps": n_steps, "step_ms": ms, "unsharded_step_ms": ref_ms,

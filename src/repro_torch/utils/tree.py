@@ -1,12 +1,13 @@
-"""Named walks over parameter trees (the part of the reference's
-``repro.utils.tree`` that quantization and checkpointing need).  A tree is
-nested dicts, lists, tuples and NamedTuples with tensor leaves; a leaf's
-name joins its keys, list indices and NamedTuple field names with "/"
-(e.g. ``layers/0/attn/wq``), as the reference names them; and the global
-norm that gradient clipping takes."""
+"""Tree utilities (counterpart of ``repro.utils.tree``): named walks over
+parameter trees, their sizes, casts and zeros, and the global norm that
+gradient clipping takes.  A tree is nested dicts, lists, tuples and
+NamedTuples with tensor leaves; a leaf's name joins its keys, list indices
+and NamedTuple field names with "/" (e.g. ``layers/0/attn/wq``), as the
+reference names them."""
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
@@ -57,6 +58,37 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 def tree_leaves(tree: Any) -> list:
     """The leaves of a tree, in the order of ``tree_flatten_with_names``."""
     return [leaf for _, leaf in tree_flatten_with_names(tree)]
+
+
+def _leaf_nbytes(x: Any) -> int:
+    if hasattr(x, "nbytes"):
+        return int(x.nbytes)
+    if hasattr(x, "shape") and hasattr(x, "element_size"):
+        return x.numel() * x.element_size()
+    return 0
+
+
+def tree_size_bytes(tree: Any) -> int:
+    """Total bytes across all tensor leaves (meta tensors too)."""
+    return sum(_leaf_nbytes(x) for x in tree_leaves(tree))
+
+
+def tree_num_params(tree: Any) -> int:
+    """Total element count across all tensor leaves."""
+    return sum(math.prod(x.shape) for x in tree_leaves(tree) if hasattr(x, "shape"))
+
+
+def tree_cast(tree: Any, dtype: torch.dtype) -> Any:
+    """Cast every floating (or complex) leaf to ``dtype``; others stay."""
+    def cast(x):
+        if isinstance(x, torch.Tensor) and (x.is_floating_point() or x.is_complex()):
+            return x.to(dtype)
+        return x
+    return tree_map(cast, tree)
+
+
+def tree_zeros_like(tree: Any) -> Any:
+    return tree_map(torch.zeros_like, tree)
 
 
 def tree_global_norm(tree: Any) -> torch.Tensor:

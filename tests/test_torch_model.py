@@ -111,6 +111,60 @@ def test_params_round_trip(pair):
         assert np.array_equal(np.asarray(a), b)
 
 
+def test_tree_helpers_match_reference(pair):
+    """``tree_size_bytes``, ``tree_num_params``, ``tree_cast`` and
+    ``tree_zeros_like`` against ``repro.utils.tree``'s: the sizes over the
+    SMOKE params (stacked in the reference, a leaf a layer in the port:
+    the same bytes) with an int32 and a bf16 leaf beside them, and over
+    shape-only leaves (meta tensors against ShapeDtypeStructs); the cast
+    and the zeros leaf by leaf on a tree of equal structure in both (the
+    cast leaves the int leaf as it is)."""
+    from repro.utils import tree as jtree
+    from repro_torch.utils import tree_num_params, tree_size_bytes
+    from repro_torch.utils.tree import tree_cast, tree_zeros_like
+
+    jm, jp, m, p = pair
+    rng = np.random.default_rng(4)
+    leaves = {"w": rng.normal(size=(8, 16)), "half": rng.normal(size=(4, 8)),
+              "b": rng.normal(size=(3,))}
+    leaves = {k: v.astype(np.float32) for k, v in leaves.items()} | {
+        "step": np.arange(6, dtype=np.int32)}
+
+    def both(half_dtype):
+        ours = {"w": torch.tensor(leaves["w"]), "step": torch.tensor(leaves["step"]),
+                "nested": {"half": torch.tensor(leaves["half"]).to(half_dtype),
+                           "list": [torch.tensor(leaves["b"]), torch.tensor(leaves["w"][0])]}}
+        ref = {"w": jnp.array(leaves["w"]), "step": jnp.array(leaves["step"]),
+               "nested": {"half": jnp.array(leaves["half"]).astype(str(half_dtype).split(".")[1]),
+                          "list": [jnp.array(leaves["b"]), jnp.array(leaves["w"][0])]}}
+        return ours, ref
+
+    ours, ref = both(torch.bfloat16)
+    assert tree_size_bytes({"params": p, **ours}) == jtree.tree_size_bytes({"params": jp, **ref})
+    assert tree_num_params({"params": p, **ours}) == jtree.tree_num_params({"params": jp, **ref})
+    meta = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), ref)
+    meta_t = {"w": torch.empty((8, 16), device="meta"),
+              "step": torch.empty(6, dtype=torch.int32, device="meta"),
+              "nested": {"half": torch.empty((4, 8), dtype=torch.bfloat16, device="meta"),
+                         "list": [torch.empty(3, device="meta"), torch.empty(16, device="meta")]}}
+    assert tree_size_bytes(meta_t) == jtree.tree_size_bytes(meta) > 0
+    assert tree_num_params(meta_t) == jtree.tree_num_params(meta) > 0
+    for half in (torch.bfloat16, torch.float32):
+        ours, ref = both(half)
+        for got, want in ((tree_cast(ours, torch.bfloat16), jtree.tree_cast(ref, jnp.bfloat16)),
+                          (tree_cast(ours, torch.float32), jtree.tree_cast(ref, jnp.float32)),
+                          (tree_zeros_like(ours), jtree.tree_zeros_like(ref))):
+            got = tree_flatten_with_names(got)
+            want = jax.tree_util.tree_flatten_with_path(want)[0]
+            want = {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): leaf
+                    for path, leaf in want}
+            assert sorted(n for n, _ in got) == sorted(want)
+            for name, leaf in got:
+                b = np.asarray(want[name])
+                assert str(leaf.dtype).split(".")[-1] == str(b.dtype), name
+                assert np.array_equal(leaf.float().numpy(), b.astype(np.float32)), name
+
+
 @pytest.mark.parametrize("S", [5, 24])
 def test_forward_matches_jax(pair, S):
     jm, jp, m, p = pair
